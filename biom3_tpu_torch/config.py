@@ -7,6 +7,7 @@ reads the reference JSON configs through it rather than keeping a copy.
 from biom3_tpu.config import (  # noqa: F401
     BertConfig,
     Config,
+    ESM2Config,
     FacilitatorConfig,
     PenCLConfig,
     ProteoScribeConfig,

@@ -22,9 +22,10 @@ dense_attn_kernel(const bf16 *__restrict__ qkv, bf16 *__restrict__ out, int L, i
                   int tq) {
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * tq;
-  const bf16 *base = qkv + (size_t)b * L * 3 * E;
-  b3::attend_range<DH>(base, 3 * E, h * DH, E + h * DH, 2 * E + h * DH, q0, min(L, q0 + tq),
-                       0, L, rsqrtf((float)DH), out + (size_t)b * L * E, E, h * DH);
+  const bf16 *base = qkv + (size_t)b * L * 3 * E + h * DH;
+  const b3::Heads a{base, base + E, base + 2 * E, 3 * E, 3 * E, nullptr, nullptr, nullptr,
+                    out + (size_t)b * L * E + h * DH, E};
+  b3::attend_range<DH>(a, q0, min(L, q0 + tq), 0, L, rsqrtf((float)DH));
 }
 
 template <int DH>

@@ -1,5 +1,6 @@
-// Row-wise kernels of the Stage-3 stack and the BERT tower: the parts of
-// the TPU kernels that are reductions and gathers with no matrix product.
+// Row-wise kernels of the Stage-3 stack and the BERT and ESM2 towers: the
+// parts of the TPU kernels that are reductions and gathers with no matrix
+// product.
 //
 // * bias_layernorm — x + per-row-group bias, then LayerNorm: the prologue
 //   of biom3_tpu/ops/pallas/fused_layer_tpu.py:186 (fused_attn_half,
@@ -13,6 +14,11 @@
 //   stack_kernel_tpu.py:522-537 (a one-hot matmul there; a gather here).
 // * gather_head — the l == depth-1 epilogue of stack_kernel_tpu.py:562-581:
 //   gather the k decode positions, final LayerNorm (eps 1e-6), d x C head.
+// * esm2_embed — the l == 0 embed of esm2_stack_tpu.py:294 (fused_esm2_cls,
+//   :91-115): table[id] with fair-esm's token-dropout rescale, <mask> and
+//   PAD rows zeroed.  The rescale needs the row's <mask> and PAD counts, so
+//   every block first counts over its batch row (L ids, a few KB from L2)
+//   and then writes its tile of sequence rows.
 //
 // What bounds them: device-memory bandwidth (a few bytes per FLOP).  One
 // warp per row keeps every reduction in registers and shuffles; rows are
@@ -183,6 +189,49 @@ gather_head_kernel(const bf16 *__restrict__ h, const int *__restrict__ pos,
   }
 }
 
+constexpr int EMBED_ROWS = 32;  // sequence rows per esm2_embed block
+
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+esm2_embed_kernel(const int *__restrict__ ids, const bf16 *__restrict__ table,
+                  bf16 *__restrict__ out, int L, int d, int pad_idx, int mask_idx,
+                  int token_dropout) {
+  __shared__ float counts[2];  // PAD, <mask> in this batch row
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int *row_ids = ids + (size_t)b * L;
+  if (threadIdx.x < 2) counts[threadIdx.x] = 0.f;
+  __syncthreads();
+  float n_pad = 0.f, n_mask = 0.f;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    const int id = row_ids[j];
+    n_pad += id == pad_idx;
+    n_mask += id == mask_idx;
+  }
+  n_pad = warp_sum(n_pad);
+  n_mask = warp_sum(n_mask);
+  if (lane == 0) {
+    atomicAdd(&counts[0], n_pad);
+    atomicAdd(&counts[1], n_mask);
+  }
+  __syncthreads();
+  // (1 - 0.15 * 0.8) / (1 - observed <mask> ratio), as the TPU kernel
+  float scale = 1.f;
+  if (token_dropout) scale = 0.88f / (1.f - counts[1] / fmaxf(1.f, (float)L - counts[0]));
+  const int l_end = min(L, (blockIdx.x + 1) * EMBED_ROWS);
+  for (int l = blockIdx.x * EMBED_ROWS + warp; l < l_end; l += ROWS_PER_BLOCK) {
+    const int id = row_ids[l];
+    const float s = (id == pad_idx || (token_dropout && id == mask_idx)) ? 0.f : scale;
+    const bf16 *t = table + (size_t)id * d;
+    bf16 *o = out + ((size_t)b * L + l) * d;
+    float v[8];
+    for (int c = lane * 8; c < d; c += 256) {
+      unpack8(*reinterpret_cast<const uint4 *>(t + c), v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= s;
+      *reinterpret_cast<uint4 *>(o + c) = pack8(v);
+    }
+  }
+}
+
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
 
 }  // namespace
@@ -226,5 +275,14 @@ B3_EXPORT int b3_gather_head(const void *h, const void *pos, const void *scale,
       static_cast<const float *>(scale), static_cast<const float *>(shift),
       static_cast<const bf16 *>(hw), static_cast<const float *>(hb),
       static_cast<float *>(out), L, k, d, C, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+B3_EXPORT int b3_esm2_embed(const void *ids, const void *table, void *out, int B, int L, int d,
+                            int pad_idx, int mask_idx, int token_dropout, void *stream) {
+  dim3 grid((L + EMBED_ROWS - 1) / EMBED_ROWS, B);
+  esm2_embed_kernel<<<grid, ROWS_PER_BLOCK * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int *>(ids), static_cast<const bf16 *>(table), static_cast<bf16 *>(out),
+      L, d, pad_idx, mask_idx, token_dropout);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,9 +33,10 @@ local_heads_kernel(const bf16 *__restrict__ qkv, bf16 *__restrict__ out, int L, 
   const int q0 = blockIdx.x * tq;
   const int w = q0 / window;
   const int lo = max(0, (w - 1) * window), hi = min(L, (w + 2) * window);
-  const bf16 *base = qkv + (size_t)b * L * 3 * d;
-  b3::attend_range<DH>(base, 3 * d, h * DH, d + h * DH, 2 * d + h * DH, q0, min(L, q0 + tq),
-                       lo, hi, rsqrtf((float)DH), out + (size_t)b * L * d, d, h * DH);
+  const bf16 *base = qkv + (size_t)b * L * 3 * d + h * DH;
+  const b3::Heads a{base, base + d, base + 2 * d, 3 * d, 3 * d, nullptr, nullptr, nullptr,
+                    out + (size_t)b * L * d + h * DH, d};
+  b3::attend_range<DH>(a, q0, min(L, q0 + tq), lo, hi, rsqrtf((float)DH));
 }
 
 constexpr int LIN_THREADS = 256;

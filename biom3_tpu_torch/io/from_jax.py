@@ -11,14 +11,17 @@ from __future__ import annotations
 
 from biom3_tpu.io.export import (
     bert_params_to_torch,
+    esm2_params_to_torch,
     facilitator_params_to_torch,
+    pencl_params_to_torch,
     projection_head_params_to_torch,
     proteoscribe_params_to_torch,
 )
-from biom3_tpu_torch.config import FacilitatorConfig, PenCLConfig, ProteoScribeConfig
+from biom3_tpu_torch.config import ESM2Config, FacilitatorConfig, PenCLConfig, ProteoScribeConfig
 from biom3_tpu_torch.io.state_dict import to_tensors
+from biom3_tpu_torch.models.esm2 import ESM2, esm2_state_dict
 from biom3_tpu_torch.models.facilitator import Facilitator
-from biom3_tpu_torch.models.pencl import PenCLText, text_state_dict
+from biom3_tpu_torch.models.pencl import PenCL, PenCLText, pencl_state_dict, text_state_dict
 from biom3_tpu_torch.models.proteoscribe import ProteoScribe
 
 
@@ -45,4 +48,22 @@ def pencl_text_from_jax(params: dict, cfg: PenCLConfig) -> PenCLText:
                for k, v in projection_head_params_to_torch(p["text_projection"]).items()})
     model = PenCLText(cfg)
     model.load_state_dict(text_state_dict(to_tensors(sd)), strict=True)
+    return model.eval()
+
+
+def esm2_from_jax(params: dict, cfg: ESM2Config, **kw) -> ESM2:
+    """A Flax ESM2 tree → ``ESM2(cfg, **kw)``; an LM head in the tree is
+    dropped explicitly (``esm2_state_dict``)."""
+    model = ESM2(cfg, **kw)
+    model.load_state_dict(esm2_state_dict(to_tensors(esm2_params_to_torch(params, cfg))),
+                          strict=True)
+    return model.eval()
+
+
+def pencl_from_jax(params: dict, cfg: PenCLConfig, **kw) -> PenCL:
+    """A full Flax PenCL tree → ``PenCL(cfg, **kw)``; the MLM heads are
+    dropped explicitly (``pencl_state_dict``)."""
+    model = PenCL(cfg, **kw)
+    model.load_state_dict(pencl_state_dict(to_tensors(pencl_params_to_torch(params, cfg))),
+                          strict=True)
     return model.eval()

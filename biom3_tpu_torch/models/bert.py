@@ -3,7 +3,9 @@
 Port of ``biom3_tpu/models/bert.py:28-160`` without the MLM head: learned
 absolute positions, token-type-0 embeddings, post-LN layers (eps 1e-12),
 exact GELU, and **no attention mask** — the reference calls the tower
-without one, so PAD tokens attend (bert.py:136-137).  Parameter names are
+without one, so PAD tokens attend (bert.py:136-137).  ``attn_impl`` routes
+the heads through ``ops/attention.full_attention`` ("plain", or "kernel":
+the flash_attention kernel), as bert.py:67 does.  Parameter names are
 HF ``BertForMaskedLM``'s (``bert.embeddings.*``, ``bert.encoder.layer.{i}.*``),
 the keys ``biom3_tpu/io/export.py::bert_params_to_torch`` emits.
 """
@@ -15,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from biom3_tpu_torch.config import BertConfig
+from biom3_tpu_torch.ops.attention import full_attention
 
 
 class _Embeddings(nn.Module):
@@ -33,18 +36,19 @@ class _Embeddings(nn.Module):
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attn_impl: str):
         super().__init__()
         E = cfg.hidden_size
         self.heads = cfg.num_heads
+        self.attn_impl = attn_impl
         self.query, self.key, self.value = nn.Linear(E, E), nn.Linear(E, E), nn.Linear(E, E)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, E = x.shape
         split = lambda z: z.reshape(B, L, self.heads, E // self.heads).transpose(1, 2)
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        p = torch.softmax((q @ k.transpose(-1, -2)) * (E // self.heads) ** -0.5, dim=-1)
-        return (p @ v).transpose(1, 2).reshape(B, L, E)
+        out = full_attention(q, k, v, impl=self.attn_impl)
+        return out.transpose(1, 2).reshape(B, L, E)
 
 
 class _DenseNorm(nn.Module):
@@ -60,9 +64,9 @@ class _DenseNorm(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attn_impl: str):
         super().__init__()
-        self.self = _SelfAttention(cfg)
+        self.self = _SelfAttention(cfg, attn_impl)
         self.output = _DenseNorm(cfg.hidden_size, cfg)
 
 
@@ -73,9 +77,9 @@ class _Intermediate(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attn_impl: str):
         super().__init__()
-        self.attention = _Attention(cfg)
+        self.attention = _Attention(cfg, attn_impl)
         self.intermediate = _Intermediate(cfg)
         self.output = _DenseNorm(cfg.intermediate_size, cfg)
 
@@ -85,25 +89,25 @@ class BertLayer(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attn_impl: str):
         super().__init__()
-        self.layer = nn.ModuleList([BertLayer(cfg) for _ in range(cfg.num_layers)])
+        self.layer = nn.ModuleList([BertLayer(cfg, attn_impl) for _ in range(cfg.num_layers)])
 
 
 class _Bert(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attn_impl: str):
         super().__init__()
         self.embeddings = _Embeddings(cfg)
-        self.encoder = _Encoder(cfg)
+        self.encoder = _Encoder(cfg, attn_impl)
 
 
 class BertEncoder(nn.Module):
     """forward(input_ids (B, L)) → {"hidden": (B, L, E) last layer}."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, *, attn_impl: str = "plain"):
         super().__init__()
         self.config = cfg
-        self.bert = _Bert(cfg)
+        self.bert = _Bert(cfg, attn_impl)
 
     def forward(self, input_ids: torch.Tensor) -> dict:
         x = self.bert.embeddings(input_ids.long())

@@ -2,11 +2,13 @@
 
 ``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
 interface, ``build/biom3_tpu_torch/libbiom3_kernels.so`` at the repository
-root (git-ignored).  The build runs on first use only and is keyed on a
-hash of the sources: a stamp file beside the library records the hash it
-was built from.  The library is loaded with ``ctypes``; every pointer and
-the stream pass as ``c_void_p``.  No PyTorch header is compiled, which
-keeps a cold build of all the sources to about a minute.
+root (git-ignored).  Each source compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` links them, so a cold
+build takes about as long as the slowest source.  The build runs on first
+use only and is keyed on a hash of the sources: a stamp file beside the
+library records the hash it was built from.  The library is loaded with
+``ctypes``; every pointer and the stream pass as ``c_void_p``.  No PyTorch
+header is compiled.
 
 Nothing here runs at import time, so the CPU tests import every module
 without ``nvcc``.
@@ -41,6 +43,9 @@ SIGNATURES = {
     "b3_layernorm": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
     "b3_embed_tokens": [_P, _P, _P, _P, _I, _I, _I, _P],
     "b3_gather_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "b3_esm2_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "b3_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "b3_esm2_embed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -67,35 +72,55 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_command(out_path: pathlib.Path | str, nvcc: str = "nvcc") -> list[str]:
-    return [
-        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(out_path), *map(str, sources()),
-    ]
+def compile_command(src: pathlib.Path | str, obj: pathlib.Path | str,
+                    nvcc: str = "nvcc") -> list[str]:
+    """One source → one relocatable object; ``-Xptxas -v`` reports each
+    kernel's registers, spills and shared memory on stderr."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-c", "-o", str(obj), str(src)]
+
+
+def link_command(out_path: pathlib.Path | str, objs, nvcc: str = "nvcc") -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out_path), *map(str, objs)]
 
 
 def build(force: bool = False) -> dict:
-    """Compile the library unless the stamp matches the sources; the
-    compiler's per-kernel report goes to ``PTXAS_REPORT``.  Returns
-    ``{"built": bool, "seconds": float}``."""
+    """Compile the library unless the stamp matches the sources: one
+    ``nvcc`` per source, all at once, then the link.  The compilers'
+    per-kernel reports go to ``PTXAS_REPORT``.  Returns ``{"built": bool,
+    "seconds": float}``."""
     digest = source_hash()
     stamp = LIB_PATH.with_suffix(".so.sha256")
     if (not force and LIB_PATH.is_file() and stamp.is_file()
             and stamp.read_text().strip() == digest):
         return {"built": False, "seconds": 0.0}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a temporary name and rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(build_command(tmp, nvcc_path()), capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    os.replace(tmp, LIB_PATH)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = pathlib.Path(tmpdir)
+        srcs = sources()
+        objs = [tmp / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen(compile_command(src, obj, nvcc), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(srcs, objs)]
+        report, failed = [], []
+        for src, proc in zip(srcs, procs):
+            _, err = proc.communicate()
+            report.append(f"== {src.name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err[-8000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        # link into a temporary name and rename: a concurrent loader never
+        # sees a half-written library
+        lib_tmp = tmp / LIB_PATH.name
+        proc = subprocess.run(link_command(lib_tmp, objs, nvcc), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        os.replace(lib_tmp, LIB_PATH)
     stamp.write_text(digest)
-    PTXAS_REPORT.write_text(proc.stderr)
+    PTXAS_REPORT.write_text("\n".join(report))
     return {"built": True, "seconds": time.perf_counter() - t0}
 
 

@@ -22,8 +22,10 @@ import torch.nn.functional as F
 from biom3_tpu_torch.ops import _build
 from biom3_tpu_torch.ops.linear_attention import linear_attention
 from biom3_tpu_torch.ops.local_attention import local_window_attention
+from biom3_tpu_torch.ops.rotary import apply_rotary
 
 _ACT = {"none": 0, "erf": 1, "tanh": 2}
+NEG_INF = -1e9  # score of a PAD key (biom3_tpu/ops/attention.py:13)
 
 
 def _check(name: str, t, *, dtypes, ndim: int | None = None, shape=None,
@@ -207,6 +209,82 @@ def dense_attention_plain(qkv, *, heads):
 
 
 # --------------------------------------------------------------------------
+# flash_attention  (csrc/flash_attn.cu)
+# --------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """q, k, v (B, H, L, D), padding_mask (B, L) int32 (nonzero = PAD key)
+    or None → (B, H, L, D): softmax attention, PAD keys at -1e9."""
+    _check("q", q, dtypes=_compute_dtypes(q), ndim=4, vectors=True)
+    _check("k", k, dtypes=(q.dtype,), shape=q.shape, device=q.device, vectors=True)
+    _check("v", v, dtypes=(q.dtype,), shape=q.shape, device=q.device, vectors=True)
+    B, H, L, D = q.shape
+    if padding_mask is not None:
+        _check("padding_mask", padding_mask, dtypes=(torch.int32,), shape=(B, L),
+               device=q.device)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, padding_mask)
+    if D not in (32, 64):
+        raise ValueError(f"flash_attention kernel needs head dim 32 or 64, got {D}")
+    out = torch.empty_like(q)
+    _build.launch("b3_flash_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(padding_mask),
+                  _ptr(out), B, H, L, D, _stream(q))
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_plain(q, k, v, padding_mask=None):
+    """f32 scores and softmax, probabilities rounded to v's dtype
+    (biom3_tpu/ops/attention.py:61-74)."""
+    dots = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if padding_mask is not None:
+        dots = dots.masked_fill(padding_mask.bool()[:, None, None, :], NEG_INF)
+    p = torch.softmax(dots, dim=-1).to(v.dtype).float()
+    return (p @ v.float()).to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# esm2_attention  (csrc/esm2_attn.cu)
+# --------------------------------------------------------------------------
+
+def esm2_attention(qkv: torch.Tensor, padding_mask: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor, *, heads: int) -> torch.Tensor:
+    """(B, L, 3E) fused [q | k | v], padding_mask (B, L) int32 (nonzero =
+    PAD key), rotary tables cos, sin (L, Dh) in qkv's dtype → (B, L, E):
+    GPT-NeoX rotary on q and k, then softmax attention per head with PAD
+    keys at -1e9 (the ESM2 tower)."""
+    _check("qkv", qkv, dtypes=_compute_dtypes(qkv), ndim=3, vectors=True)
+    B, L, e3 = qkv.shape
+    if e3 % 3 or (e3 // 3) % heads:
+        raise ValueError(f"qkv last dim {e3} is not 3·E with E divisible by heads={heads}")
+    E = e3 // 3
+    dh = E // heads
+    _check("padding_mask", padding_mask, dtypes=(torch.int32,), shape=(B, L),
+           device=qkv.device)
+    _check("cos", cos, dtypes=(qkv.dtype,), shape=(L, dh), device=qkv.device, vectors=True)
+    _check("sin", sin, dtypes=(qkv.dtype,), shape=(L, dh), device=qkv.device, vectors=True)
+    if not qkv.is_cuda:
+        return esm2_attention_plain(qkv, padding_mask, cos, sin, heads=heads)
+    if dh not in (32, 64):
+        raise ValueError(f"esm2_attention kernel needs head dim 32 or 64, got {dh}")
+    out = torch.empty((B, L, E), dtype=qkv.dtype, device=qkv.device)
+    _build.launch("b3_esm2_attention", _ptr(qkv), _ptr(padding_mask), _ptr(cos), _ptr(sin),
+                  _ptr(out), B, L, E, heads, _stream(qkv))
+    esm2_attention.launches += 1
+    return out
+
+
+def esm2_attention_plain(qkv, padding_mask, cos, sin, *, heads):
+    B, L, e3 = qkv.shape
+    E = e3 // 3
+    q, k, v = (t.reshape(B, L, heads, E // heads).transpose(1, 2)
+               for t in qkv.split(E, dim=-1))
+    q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+    return flash_attention_plain(q, k, v, padding_mask).transpose(1, 2).reshape(B, L, E)
+
+
+# --------------------------------------------------------------------------
 # row-wise kernels  (csrc/rowwise.cu)
 # --------------------------------------------------------------------------
 
@@ -323,8 +401,41 @@ def gather_head_plain(h, pos, scale, shift, head_w, head_b, *, eps=1e-6):
     return hn @ head_w.float() + head_b
 
 
+def esm2_embed(ids: torch.Tensor, table: torch.Tensor, *, pad_idx: int = 1,
+               mask_idx: int = 32, token_dropout: bool = True) -> torch.Tensor:
+    """ids (B, L) int32, table (V, E) → (B, L, E) ESM2 layer-0 input:
+    table[id] × (1 − is_mask) × 0.88 / (1 − n_mask / max(1, n_tok)) ×
+    (1 − is_pad), with the counts per row (without ``token_dropout``:
+    table[id] × (1 − is_pad)).  The kernel trusts ids to lie in [0, V)."""
+    _check("ids", ids, dtypes=(torch.int32,), ndim=2)
+    _check("table", table, dtypes=_compute_dtypes(table), ndim=2, device=ids.device,
+           vectors=True)
+    B, L = ids.shape
+    d = table.shape[1]
+    if not ids.is_cuda:
+        return esm2_embed_plain(ids, table, pad_idx=pad_idx, mask_idx=mask_idx,
+                                token_dropout=token_dropout)
+    if d % 8:
+        raise ValueError(f"esm2_embed kernel needs E % 8 == 0, got {d}")
+    out = torch.empty((B, L, d), dtype=table.dtype, device=ids.device)
+    _build.launch("b3_esm2_embed", _ptr(ids), _ptr(table), _ptr(out), B, L, d, pad_idx,
+                  mask_idx, int(token_dropout), _stream(ids))
+    esm2_embed.launches += 1
+    return out
+
+
+def esm2_embed_plain(ids, table, *, pad_idx=1, mask_idx=32, token_dropout=True):
+    x = table[ids.long()].float()
+    is_pad, is_mask = ids == pad_idx, ids == mask_idx
+    if token_dropout:
+        n_tok = (~is_pad).sum(-1).clamp(min=1).float()
+        x = x.masked_fill(is_mask[..., None], 0.0)
+        x = x * (0.88 / (1.0 - is_mask.sum(-1).float() / n_tok))[:, None, None]
+    return x.masked_fill(is_pad[..., None], 0.0).to(table.dtype)
+
+
 KERNELS = (gemm_bias_act, stage3_attention_core, dense_attention, bias_layernorm,
-           layernorm, embed_tokens, gather_head)
+           layernorm, embed_tokens, gather_head, esm2_embed, esm2_attention, flash_attention)
 
 
 def reset_launches() -> None:

@@ -26,10 +26,14 @@ SLICE_MODULES = [
     "biom3_tpu_torch.ops.stage3_layer",
     "biom3_tpu_torch.ops.stack",
     "biom3_tpu_torch.ops.bert_stack",
+    "biom3_tpu_torch.ops.rotary",
+    "biom3_tpu_torch.ops.attention",
+    "biom3_tpu_torch.ops.esm2_stack",
     "biom3_tpu_torch.models.proteoscribe",
     "biom3_tpu_torch.models.fused_forward",
     "biom3_tpu_torch.models.facilitator",
     "biom3_tpu_torch.models.bert",
+    "biom3_tpu_torch.models.esm2",
     "biom3_tpu_torch.models.pencl",
     "biom3_tpu_torch.diffusion.sampler",
     "biom3_tpu_torch.io.state_dict",
@@ -38,6 +42,8 @@ SLICE_MODULES = [
     "biom3_tpu_torch.pipeline.stage2",
     "biom3_tpu_torch.pipeline.stage3",
     "biom3_tpu_torch.cli.run_e2e",
+    "biom3_tpu_torch.cli.run_pencl_inference",
+    "biom3_tpu_torch.cli.measure_pencl",
 ]
 
 
@@ -80,12 +86,16 @@ def test_chip_smoke_fails_without_cuda():
 def test_build_targets_sm90a_under_ignored_build_dir():
     from biom3_tpu_torch.ops import _build
 
-    cmd = _build.build_command("out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-fPIC"} <= set(cmd)
-    names = {pathlib.Path(c).name for c in cmd}
-    for src in ("gemm_bf16.cu", "stage3_attn.cu", "dense_attn.cu", "rowwise.cu"):
-        assert src in names
+    names = {p.name for p in _build.sources()}
+    assert {"gemm_bf16.cu", "stage3_attn.cu", "dense_attn.cu", "rowwise.cu", "esm2_attn.cu",
+            "flash_attn.cu"} <= names
+    # one nvcc per source (run together), then one link
+    for src in _build.sources():
+        cmd = _build.compile_command(src, "out.o")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-c", "-O3", "-fPIC", str(src)} <= set(cmd)
+    link = _build.link_command("out.so", ["a.o", "b.o"])
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     rel = _build.LIB_PATH.relative_to(REPO)
     assert rel.parts[0] == "build" and rel.name == "libbiom3_kernels.so"
     ignored = (REPO / ".gitignore").read_text().split()
@@ -151,6 +161,32 @@ def _embed(**over):
     return embed_tokens(a["ids"], a["tok"], a["pos"])
 
 
+def _esm_attn(**over):
+    from biom3_tpu_torch.ops.kernels import esm2_attention
+
+    a = dict(qkv=_t(2, 16, 96), pad=torch.zeros(2, 16, dtype=torch.int32), cos=_t(16, 16),
+             sin=_t(16, 16))
+    a.update(over)
+    return esm2_attention(a["qkv"], a["pad"], a["cos"], a["sin"], heads=2)
+
+
+def _flash(**over):
+    from biom3_tpu_torch.ops.kernels import flash_attention
+
+    a = dict(q=_t(2, 2, 16, 32), k=_t(2, 2, 16, 32), v=_t(2, 2, 16, 32),
+             mask=torch.zeros(2, 16, dtype=torch.int32))
+    a.update(over)
+    return flash_attention(a["q"], a["k"], a["v"], a["mask"])
+
+
+def _esm_embed(**over):
+    from biom3_tpu_torch.ops.kernels import esm2_embed
+
+    a = dict(ids=torch.randint(0, 33, (2, 8), dtype=torch.int32), table=_t(33, 16))
+    a.update(over)
+    return esm2_embed(a["ids"], a["table"])
+
+
 def _head(**over):
     from biom3_tpu_torch.ops.kernels import gather_head
 
@@ -176,6 +212,13 @@ BAD_INPUTS = {
                      dict(tok=_t(16, 5).t())),
     "gather_head": (_head, dict(head_b=_t(5, dtype=torch.float64)), dict(head_w=_t(15, 5)),
                     dict(h=_t(8, 2, 16).transpose(0, 1))),
+    "esm2_attention": (_esm_attn, dict(pad=torch.zeros(2, 16)), dict(cos=_t(16, 32)),
+                       dict(qkv=_t(16, 2, 96).transpose(0, 1))),
+    "flash_attention": (_flash, dict(k=_t(2, 2, 16, 32, dtype=torch.bfloat16)),
+                        dict(v=_t(2, 2, 8, 32)), dict(q=_t(2, 2, 32, 16).transpose(2, 3))),
+    "esm2_embed": (_esm_embed, dict(table=_t(33, 16, dtype=torch.float64)),
+                   dict(ids=torch.zeros(16, dtype=torch.int32)),
+                   dict(table=_t(16, 33).t())),
 }
 
 
