@@ -48,9 +48,16 @@ WALLS = 7         # warm calls per wall-time median
 RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 # kernel name fragment → profile group (the port's kernels; anything else
 # is reported under its own name)
-KERNEL_GROUPS = (("gemm_bias_act", "gemm_bias_act"), ("esm2_attn", "esm2_attention"),
-                 ("flash_attn", "flash_attention"), ("dense_attn", "dense_attention"),
-                 ("layernorm", "layernorm"), ("esm2_embed", "esm2_embed"))
+KERNEL_GROUPS = (("gemm_kernel<false, false>", "gemm_bias_act"),
+                 ("gemm_kernel<false, true>", "gemm_dx"), ("gemm_kernel<true, false>", "gemm_dw"),
+                 ("esm2_attn", "esm2_attention"), ("flash_attn", "flash_attention"),
+                 ("dense_attn", "dense_attention"), ("layernorm_bwd", "layernorm_bwd"),
+                 ("layernorm", "layernorm"), ("esm2_embed", "esm2_embed"),
+                 ("local_heads_kernel", "stage3_attention_core"),
+                 ("linear_heads_kernel", "stage3_attention_core"),
+                 ("local_dq_kernel", "stage3_attention_bwd"),
+                 ("local_dkv_kernel", "stage3_attention_bwd"),
+                 ("lin_bwd", "stage3_attention_bwd"), ("col_sum", "col_sum"))
 
 
 def stage1_config(root: pathlib.Path) -> dict:

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import argparse
 
-from biom3_tpu.io.torch_load import save_torch_file
 from biom3_tpu_torch.config import load_json_config
+from biom3_tpu_torch.io.torch_io import save_torch_file
 
 
 def parse_arguments(argv=None):

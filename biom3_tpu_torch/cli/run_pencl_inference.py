@@ -14,9 +14,9 @@ from __future__ import annotations
 
 import argparse
 
-from biom3_tpu.cli.demo_data import DEMO_CAPTIONS, DEMO_SEQUENCES
-from biom3_tpu.io.torch_load import save_torch_file
+from biom3_tpu_torch.cli.demo_data import DEMO_CAPTIONS, DEMO_SEQUENCES
 from biom3_tpu_torch.config import load_json_config
+from biom3_tpu_torch.io.torch_io import save_torch_file
 
 
 def parse_arguments(argv=None):

@@ -13,8 +13,10 @@ typedef __nv_bfloat16 bf16;
 
 #define B3_EXPORT extern "C" __attribute__((visibility("default")))
 
-// GELU variants of the JAX reference (ops/pallas/fused_layer_tpu.py:61-79).
-enum { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2 };
+// GELU variants of the JAX reference (ops/pallas/fused_layer_tpu.py:61-79),
+// and their derivatives (layer_block_tpu.py:71-81) for the backward GEMM's
+// epilogue, which multiplies by gelu'(h) of a stored pre-activation h.
+enum { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2, ACT_DGELU_ERF = 3, ACT_DGELU_TANH = 4 };
 
 __device__ __forceinline__ float apply_act(float x, int act) {
   if (act == ACT_GELU_ERF) return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
@@ -23,6 +25,16 @@ __device__ __forceinline__ float apply_act(float x, int act) {
     return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
   }
   return x;
+}
+
+__device__ __forceinline__ float gelu_grad(float x, int act) {
+  if (act == ACT_DGELU_ERF) {
+    const float phi = 0.5f * (1.0f + erff(x * 0.7071067811865476f));
+    return phi + x * __expf(-0.5f * x * x) * 0.3989422804014327f;
+  }
+  const float c = 0.7978845608028654f;
+  const float t = tanhf(c * (x + 0.044715f * x * x * x));
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
 }
 
 // Round an f32 value through bf16, to mirror a rounding point of the

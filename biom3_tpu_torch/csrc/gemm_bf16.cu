@@ -1,46 +1,87 @@
-// gemm_bias_act: C = act(A·B + bias) + residual on bf16 tensor cores.
+// gemm_bf16: C = op(A)·op(B) on bf16 tensor cores, with a fused epilogue.
 //
 // Replaces the in-kernel matrix products of the TPU kernels
 // (biom3_tpu/ops/pallas/stack_kernel_tpu.py:765 fused_stack_logits,
 // fused_layer_tpu.py:186/269 fused_attn_half/fused_ff_half,
-// bert_stack_tpu.py:198 fused_bert_cls): the fused q/k/v projection, the
-// out-projection with its bias and residual, and the FF pair W1+bias+GELU,
-// W2+bias+residual.  A is (M, K) row-major, B is (K, N) row-major — the
-// JAX package's (d_in, d_out) layout — both bf16; sums are f32.
+// bert_stack_tpu.py:198 fused_bert_cls, and the training blocks
+// attn_block_tpu.py:343/379 and layer_block_tpu.py:382/419).  Three modes
+// share one kernel template <TA, TB>:
+//
+// * b3_gemm_bias_act (forward): act(A·B + bias) + residual, A (M, K) and
+//   B (K, N) row-major — the JAX package's (d_in, d_out) layout — with an
+//   optional f32 copy of the pre-activation (the FF backward needs it);
+// * b3_gemm_dx (input gradient): dX = dY·Wᵀ with W (N, K) row-major, read
+//   transposed; optionally times gelu'(h) for an f32 pre-activation h —
+//   dh1 = (dY·W2ᵀ)∘gelu'(h1), layer_block_tpu.py:231-235;
+// * b3_gemm_dw (weight gradient): dW = Xᵀ·dY with X (K, M) row-major, read
+//   transposed, f32 out.  K = B·L rows sum the batch, as the TPU's
+//   sequential grid accumulates it (layer_block_tpu.py:180-192); the K
+//   loop is split across blocks (split-K) so the few output tiles of a
+//   512 x 512 gradient still fill the card, and the f32 partials are summed
+//   in a fixed order by col_sum (rowwise.cu) — deterministic, no atomics.
 //
 // What bounds it on an H100: at the main path's shapes (M = B·L = 2048 to
-// 4096 rows, K and N of 512 to 3072) every product is well above the
+// 32768 rows, K and N of 512 to 3072) every product is well above the
 // card's ~295 FLOP/byte ridge, so it is tensor-core bound.  This first
 // version uses WMMA 16x16x16 bf16 tiles (mma.sync underneath) in a
 // 128x128x32 block tile with register-staged double buffering: one
 // __syncthreads per K step, global loads of step k+1 in flight while the
-// tensor cores work on step k.  The epilogue runs per warp through a
-// 1 KB shared staging tile so bias, GELU, residual and the output cast
-// cost no extra pass over device memory.  wgmma/TMA is later work.
+// tensor cores work on step k.  A transposed operand is staged in shared
+// memory as it lies in device memory and read by a col_major fragment.
+// The epilogue runs per warp through a 1 KB shared staging tile (aliased
+// on the A buffers) so bias, GELU or its derivative, residual and the
+// output cast cost no extra pass over device memory.  wgmma/TMA is later
+// work.
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 using namespace nvcuda;
+
+// column sums of an f32 (rows, n) matrix into out (n,) (rowwise.cu)
+void b3_col_sum_f32(const float *x, int rows, long long n, float *out, float *partial,
+                    int parts, cudaStream_t stream);
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int APAD = 8, BPAD = 8;  // keep rows 16-byte aligned, spread banks
 constexpr int THREADS = 256;       // 8 warps: 2 (rows) x 4 (cols), 64x32 each
+// bf16 elements of one operand's double buffer, either orientation
+constexpr int TILE_ELEMS = 2 * BM * (BK + APAD);
+static_assert(2 * BK * (BM + BPAD) <= TILE_ELEMS, "tile buffer too small");
+static_assert(THREADS / 32 * 256 * 4 <= TILE_ELEMS * 2, "staging does not fit the A buffer");
 
+struct Epilogue {
+  const float *bias;     // (N,) or null
+  const void *residual;  // (M, N) f32 or bf16, or null
+  const float *aux;      // (M, N) f32 pre-activation for ACT_DGELU_*, or null
+  float *pre;            // (M, N) f32 copy of A·B + bias before act, or null
+  int act, res_bf16, out_f32;
+};
+
+template <bool TA, bool TB>
 __global__ void __launch_bounds__(THREADS)
-gemm_bias_act_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B,
-                     const float *__restrict__ bias, const void *__restrict__ residual,
-                     void *__restrict__ C, int M, int N, int K, int act,
-                     int res_bf16, int out_f32) {
-  __shared__ __align__(128) bf16 As[2][BM][BK + APAD];
-  __shared__ __align__(128) bf16 Bs[2][BK][BN + BPAD];
-  __shared__ __align__(128) float Cs[THREADS / 32][16][16];
+gemm_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B, void *__restrict__ C,
+            int M, int N, int K, int k_chunk, Epilogue ep) {
+  __shared__ __align__(128) bf16 As[TILE_ELEMS];
+  __shared__ __align__(128) bf16 Bs[TILE_ELEMS];
+  // row strides of the staged tiles: A is [BM][BK] (or [BK][BM] when
+  // transposed), B is [BK][BN] (or [BN][BK])
+  constexpr int LDA = TA ? BM + BPAD : BK + APAD;
+  constexpr int LDB = TB ? BK + APAD : BN + BPAD;
+  constexpr int ABUF = TA ? BK * LDA : BM * LDA;
+  constexpr int BBUF = TB ? BN * LDB : BK * LDB;
+  using LayA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
+  using LayB = std::conditional_t<TB, wmma::col_major, wmma::row_major>;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int kbeg = blockIdx.z * k_chunk, kend = min(K, kbeg + k_chunk);
+  C = static_cast<char *>(C) + (size_t)blockIdx.z * M * N * (ep.out_f32 ? 4 : 2);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
@@ -49,50 +90,68 @@ gemm_bias_act_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B,
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   // Each thread moves two 16-byte vectors of A and two of B per K step.
+  // A 128 x 32 tile is 128 rows of 4 vectors; a 32 x 128 tile 32 rows of 16.
   uint4 ra[2], rb[2];
+  const uint4 zero = make_uint4(0, 0, 0, 0);
   auto load_regs = [&](int k0) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      int v = tid + s * THREADS;
-      int r = v >> 2, c = (v & 3) * 8;  // A tile: 128 rows x 4 vectors
-      int gr = row0 + r, gc = k0 + c;
-      ra[s] = (gr < M && gc < K)
-                  ? *reinterpret_cast<const uint4 *>(A + (size_t)gr * K + gc)
-                  : make_uint4(0, 0, 0, 0);
-      int br = v >> 4, bc = (v & 15) * 8;  // B tile: 32 rows x 16 vectors
-      int gbr = k0 + br, gbc = col0 + bc;
-      rb[s] = (gbr < K && gbc < N)
-                  ? *reinterpret_cast<const uint4 *>(B + (size_t)gbr * N + gbc)
-                  : make_uint4(0, 0, 0, 0);
+      const int v = tid + s * THREADS;
+      if constexpr (TA) {  // A(m, k) = X[k][m], X (K, M)
+        const int gk = k0 + (v >> 4), gm = row0 + (v & 15) * 8;
+        ra[s] = (gk < kend && gm < M)
+                    ? *reinterpret_cast<const uint4 *>(A + (size_t)gk * M + gm) : zero;
+      } else {
+        const int gr = row0 + (v >> 2), gc = k0 + (v & 3) * 8;
+        ra[s] = (gr < M && gc < kend)
+                    ? *reinterpret_cast<const uint4 *>(A + (size_t)gr * K + gc) : zero;
+      }
+      if constexpr (TB) {  // B(k, n) = W[n][k], W (N, K)
+        const int gn = col0 + (v >> 2), gk = k0 + (v & 3) * 8;
+        rb[s] = (gn < N && gk < kend)
+                    ? *reinterpret_cast<const uint4 *>(B + (size_t)gn * K + gk) : zero;
+      } else {
+        const int gk = k0 + (v >> 4), gc = col0 + (v & 15) * 8;
+        rb[s] = (gk < kend && gc < N)
+                    ? *reinterpret_cast<const uint4 *>(B + (size_t)gk * N + gc) : zero;
+      }
     }
   };
   auto store_regs = [&](int buf) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      int v = tid + s * THREADS;
-      *reinterpret_cast<uint4 *>(&As[buf][v >> 2][(v & 3) * 8]) = ra[s];
-      *reinterpret_cast<uint4 *>(&Bs[buf][v >> 4][(v & 15) * 8]) = rb[s];
+      const int v = tid + s * THREADS;
+      const int ai = TA ? (v >> 4) * LDA + (v & 15) * 8 : (v >> 2) * LDA + (v & 3) * 8;
+      const int bi = TB ? (v >> 2) * LDB + (v & 3) * 8 : (v >> 4) * LDB + (v & 15) * 8;
+      *reinterpret_cast<uint4 *>(&As[buf * ABUF + ai]) = ra[s];
+      *reinterpret_cast<uint4 *>(&Bs[buf * BBUF + bi]) = rb[s];
     }
   };
 
-  const int KT = (K + BK - 1) / BK;
-  load_regs(0);
-  store_regs(0);
+  const int KT = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  if (KT > 0) {
+    load_regs(kbeg);
+    store_regs(0);
+  }
   int buf = 0;
   for (int kt = 0; kt < KT; ++kt) {
     __syncthreads();
     const bool more = kt + 1 < KT;
-    if (more) load_regs((kt + 1) * BK);
+    if (more) load_regs(kbeg + (kt + 1) * BK);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> fb[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], &As[buf][wm * 64 + i * 16][kk], BK + APAD);
+      for (int i = 0; i < 4; ++i) {
+        const int m = wm * 64 + i * 16;
+        wmma::load_matrix_sync(fa[i], &As[buf * ABUF + (TA ? kk * LDA + m : m * LDA + kk)], LDA);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[buf][kk][wn * 32 + j * 16], BN + BPAD);
+      for (int j = 0; j < 2; ++j) {
+        const int n = wn * 32 + j * 16;
+        wmma::load_matrix_sync(fb[j], &Bs[buf * BBUF + (TB ? n * LDB + kk : kk * LDB + n)], LDB);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -101,9 +160,10 @@ gemm_bias_act_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B,
     if (more) store_regs(buf ^ 1);
     buf ^= 1;
   }
+  __syncthreads();  // every warp is done with As before it becomes staging
 
   // Epilogue: each lane finishes 8 consecutive columns of one fragment row.
-  float *stage = &Cs[warp][0][0];
+  float *stage = reinterpret_cast<float *>(As) + warp * 256;
   const int er = lane >> 1, ec = (lane & 1) * 8;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -114,30 +174,44 @@ gemm_bias_act_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B,
       const int gr = row0 + wm * 64 + i * 16 + er;
       const int gc = col0 + wn * 32 + j * 16 + ec;
       if (gr < M && gc < N) {  // N % 8 == 0, so the 8 columns are all in
+        const size_t off = (size_t)gr * N + gc;
         float v[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          float x = stage[er * 16 + ec + q];
-          if (bias) x += bias[gc + q];
-          v[q] = apply_act(x, act);
+          v[q] = stage[er * 16 + ec + q];
+          if (ep.bias) v[q] += ep.bias[gc + q];
         }
-        const size_t off = (size_t)gr * N + gc;
-        if (residual) {
-          if (res_bf16) {
+        if (ep.pre) {
+          float4 *pp = reinterpret_cast<float4 *>(ep.pre + off);
+          pp[0] = make_float4(v[0], v[1], v[2], v[3]);
+          pp[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+        if (ep.act >= ACT_DGELU_ERF) {
+          const float4 *hp = reinterpret_cast<const float4 *>(ep.aux + off);
+          const float4 h0 = hp[0], h1 = hp[1];
+          const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+          for (int q = 0; q < 8; ++q) v[q] *= gelu_grad(h[q], ep.act);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) v[q] = apply_act(v[q], ep.act);
+        }
+        if (ep.residual) {
+          if (ep.res_bf16) {
             float r[8];
             unpack8(*reinterpret_cast<const uint4 *>(
-                        static_cast<const bf16 *>(residual) + off), r);
+                        static_cast<const bf16 *>(ep.residual) + off), r);
 #pragma unroll
             for (int q = 0; q < 8; ++q) v[q] += r[q];
           } else {
-            const float4 *rp =
-                reinterpret_cast<const float4 *>(static_cast<const float *>(residual) + off);
-            float4 r0 = rp[0], r1 = rp[1];
+            const float4 *rp = reinterpret_cast<const float4 *>(
+                static_cast<const float *>(ep.residual) + off);
+            const float4 r0 = rp[0], r1 = rp[1];
             v[0] += r0.x; v[1] += r0.y; v[2] += r0.z; v[3] += r0.w;
             v[4] += r1.x; v[5] += r1.y; v[6] += r1.z; v[7] += r1.w;
           }
         }
-        if (out_f32) {
+        if (ep.out_f32) {
           float4 *cp = reinterpret_cast<float4 *>(static_cast<float *>(C) + off);
           cp[0] = make_float4(v[0], v[1], v[2], v[3]);
           cp[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -150,16 +224,57 @@ gemm_bias_act_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B,
   }
 }
 
+// Split-K chunk: whole BK steps, so every split but the last is full.
+inline int split_chunk(int K, int splits) {
+  const int c = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  return c > BK ? c : BK;
+}
+
+inline int split_count(int K, int splits) {
+  const int n = (K + split_chunk(K, splits) - 1) / split_chunk(K, splits);
+  return n > 1 ? n : 1;
+}
+
+template <bool TA, bool TB>
+int launch(const void *A, const void *B, void *C, int M, int N, int K, int splits,
+           const Epilogue &ep, cudaStream_t stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split_count(K, splits));
+  gemm_kernel<TA, TB><<<grid, THREADS, 0, stream>>>(static_cast<const bf16 *>(A),
+                                                    static_cast<const bf16 *>(B), C, M, N, K,
+                                                    split_chunk(K, splits), ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Requires K % 8 == 0 and N % 8 == 0 and 16-byte aligned, contiguous
-// operands (checked by the Python wrapper).
+// All three require K % 8 == 0 and N % 8 == 0 (and M % 8 == 0 for dw) and
+// 16-byte aligned, contiguous operands (checked by the Python wrappers).
 B3_EXPORT int b3_gemm_bias_act(const void *A, const void *B, const void *bias,
-                               const void *residual, void *C, int M, int N, int K,
+                               const void *residual, void *pre, void *C, int M, int N, int K,
                                int act, int res_bf16, int out_f32, void *stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bias_act_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16 *>(A), static_cast<const bf16 *>(B),
-      static_cast<const float *>(bias), residual, C, M, N, K, act, res_bf16, out_f32);
+  const Epilogue ep{static_cast<const float *>(bias), residual, nullptr,
+                    static_cast<float *>(pre), act, res_bf16, out_f32};
+  return launch<false, false>(A, B, C, M, N, K, 1, ep, static_cast<cudaStream_t>(stream));
+}
+
+// dX (M, N) = dY (M, K) · Wᵀ, W (N, K); act: ACT_NONE or ACT_DGELU_* with
+// h (M, N) f32.
+B3_EXPORT int b3_gemm_dx(const void *dY, const void *W, const void *h, void *dX, int M, int N,
+                         int K, int act, int out_f32, void *stream) {
+  const Epilogue ep{nullptr, nullptr, static_cast<const float *>(h), nullptr, act, 0, out_f32};
+  return launch<false, true>(dY, W, dX, M, N, K, 1, ep, static_cast<cudaStream_t>(stream));
+}
+
+// dW (M, N) f32 = Xᵀ · dY with X (K, M), dY (K, N).  With splits > 1, ws
+// holds splits x M x N f32 partials, summed in split order into dW.
+B3_EXPORT int b3_gemm_dw(const void *X, const void *dY, void *dW, void *ws, int M, int N, int K,
+                         int splits, void *stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Epilogue ep{nullptr, nullptr, nullptr, nullptr, ACT_NONE, 0, 1};
+  if (split_count(K, splits) == 1) return launch<true, false>(X, dY, dW, M, N, K, 1, ep, s);
+  const int err = launch<true, false>(X, dY, ws, M, N, K, splits, ep, s);
+  if (err) return err;
+  b3_col_sum_f32(static_cast<const float *>(ws), split_count(K, splits), (long long)M * N,
+                 static_cast<float *>(dW), nullptr, 1, s);
   return static_cast<int>(cudaGetLastError());
 }

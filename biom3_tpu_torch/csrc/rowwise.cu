@@ -19,6 +19,20 @@
 //   PAD rows zeroed.  The rescale needs the row's <mask> and PAD counts, so
 //   every block first counts over its batch row (L ids, a few KB from L2)
 //   and then writes its tile of sequence rows.
+// * layernorm_bwd — _ln_bwd of the training kernels
+//   (biom3_tpu/ops/pallas/layer_block_tpu.py:58-68, inside
+//   layer_block_tpu.py:419 _bwd_call): recomputes x̂ and rstd from the
+//   layer's f32 (or bf16) input, dx = rstd·(dŷγ − mean(dŷγ) − x̂·mean(dŷγ·x̂))
+//   plus the residual's gradient, and dγ = Σ dŷ·x̂, dβ = Σ dŷ over the rows.
+//   Each block sums its rows' dγ/dβ into one partial row; a second pass
+//   (col_sum) adds the partial rows in a fixed order — the TPU adds them
+//   into one f32 strip over its sequential grid, which blocks running in
+//   parallel cannot do without atomics.
+// * col_sum — f32 column sums of an (rows, n) matrix: the bias gradients
+//   dbo, db1, db2 (layer_block_tpu.py:230,240,262) and the fixed-order
+//   reduction of the split-K weight gradients (gemm_bf16.cu).  Pass 1 sums
+//   a slab of rows per block (8 warps, 8 columns a lane); pass 2 sums the
+//   slabs.
 //
 // What bounds them: device-memory bandwidth (a few bytes per FLOP).  One
 // warp per row keeps every reduction in registers and shuffles; rows are
@@ -234,7 +248,166 @@ esm2_embed_kernel(const int *__restrict__ ids, const bf16 *__restrict__ table,
 
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
 
+constexpr int LNB_CHUNKS = 4;  // d <= LNB_CHUNKS * 256 (checked by the wrapper)
+
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restrict__ dy,
+                     const float *__restrict__ gamma, const void *__restrict__ res, int res_f32,
+                     void *__restrict__ dx, int dx_f32, bf16 *__restrict__ dx16,
+                     float *__restrict__ partial, int rows, int d, float eps) {
+  __shared__ float red[ROWS_PER_BLOCK][LNB_CHUNKS * 256];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float dg[LNB_CHUNKS][8], db[LNB_CHUNKS][8];
+#pragma unroll
+  for (int k = 0; k < LNB_CHUNKS; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dg[k][e] = db[k][e] = 0.f;
+
+  for (int row = blockIdx.x * ROWS_PER_BLOCK + warp; row < rows;
+       row += gridDim.x * ROWS_PER_BLOCK) {
+    const size_t off = (size_t)row * d;
+    float xv[LNB_CHUNKS][8], gv[LNB_CHUNKS][8], s = 0.f;
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < d) {
+        load8(x, off + c, x_f32, xv[k]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += xv[k][e];
+      }
+    }
+    const float mean = warp_sum(s) / d;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k)
+      if (lane * 8 + k * 256 < d)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          xv[k][e] -= mean;
+          q += xv[k][e] * xv[k][e];
+        }
+    const float rstd = rsqrtf(warp_sum(q) / d + eps);
+    // x̂ in xv, dŷ·γ in gv; the two row means of the backward
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < d) {
+        float g[8];
+        load8(dy, off + c, 1, gv[k]);
+        load8(gamma, c, 1, g);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          xv[k][e] *= rstd;
+          dg[k][e] += gv[k][e] * xv[k][e];
+          db[k][e] += gv[k][e];
+          gv[k][e] *= g[e];
+          s1 += gv[k][e];
+          s2 += gv[k][e] * xv[k][e];
+        }
+      }
+    }
+    s1 = warp_sum(s1) / d;
+    s2 = warp_sum(s2) / d;
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < d) {
+        float r[8], o[8];
+        if (res) load8(res, off + c, res_f32, r);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[e] = rstd * (gv[k][e] - s1 - xv[k][e] * s2);
+          if (res) o[e] += r[e];
+        }
+        if (dx_f32) {
+          float4 *p = reinterpret_cast<float4 *>(static_cast<float *>(dx) + off + c);
+          p[0] = make_float4(o[0], o[1], o[2], o[3]);
+          p[1] = make_float4(o[4], o[5], o[6], o[7]);
+        } else {
+          *reinterpret_cast<uint4 *>(static_cast<bf16 *>(dx) + off + c) = pack8(o);
+        }
+        if (dx16) *reinterpret_cast<uint4 *>(dx16 + off + c) = pack8(o);
+      }
+    }
+  }
+  // this block's dγ then dβ partial row: partial[blockIdx.x] = [dγ | dβ]
+  float *prow = partial + (size_t)blockIdx.x * 2 * d;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < d)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[warp][c + e] = pass ? db[k][e] : dg[k][e];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < ROWS_PER_BLOCK; ++w) a += red[w][c];
+      prow[pass * d + c] = a;
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int CS_COLS = 256;  // columns per col_sum block (8 per lane)
+
+// Rows [y·rows_per_part, (y+1)·rows_per_part) of x (rows, n) summed into
+// out[y] (one row of n floats); grid (ceil(n / 256), parts).
+template <bool F32>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+col_sum_kernel(const void *__restrict__ x, int rows, long long n, int rows_per_part,
+               float *__restrict__ out) {
+  __shared__ float red[ROWS_PER_BLOCK][CS_COLS + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long c = (long long)blockIdx.x * CS_COLS + lane * 8;
+  const int r0 = blockIdx.y * rows_per_part, r1 = min(rows, r0 + rows_per_part);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c < n)
+    for (int r = r0 + warp; r < r1; r += ROWS_PER_BLOCK) {
+      float v[8];
+      load8(x, (size_t)r * n + c, F32, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += v[e];
+    }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[warp][lane * 8 + e] = acc[e];
+  __syncthreads();
+  const long long col = (long long)blockIdx.x * CS_COLS + threadIdx.x;
+  if (col < n) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < ROWS_PER_BLOCK; ++w) a += red[w][threadIdx.x];
+    out[(size_t)blockIdx.y * n + col] = a;
+  }
+}
+
+// x (rows, n) → out (n,): with parts > 1, pass 1 sums ceil(rows / parts)
+// rows per partial row of `partial` (parts, n) and pass 2 sums those.
+template <bool F32>
+void col_sum(const void *x, int rows, long long n, float *out, float *partial, int parts,
+             cudaStream_t stream) {
+  const unsigned gx = (unsigned)((n + CS_COLS - 1) / CS_COLS);
+  if (parts <= 1) {
+    col_sum_kernel<F32><<<dim3(gx, 1), ROWS_PER_BLOCK * 32, 0, stream>>>(x, rows, n, rows, out);
+    return;
+  }
+  const int per = (rows + parts - 1) / parts;
+  col_sum_kernel<F32><<<dim3(gx, parts), ROWS_PER_BLOCK * 32, 0, stream>>>(x, rows, n, per,
+                                                                           partial);
+  col_sum_kernel<true><<<dim3(gx, 1), ROWS_PER_BLOCK * 32, 0, stream>>>(partial, parts, n, parts,
+                                                                        out);
+}
+
 }  // namespace
+
+void b3_col_sum_f32(const float *x, int rows, long long n, float *out, float *partial, int parts,
+                    cudaStream_t stream) {
+  col_sum<true>(x, rows, n, out, partial, parts, stream);
+}
 
 // All row kernels need d % 8 == 0 and contiguous, 16-byte aligned rows.
 B3_EXPORT int b3_bias_layernorm(const void *h, const void *bias, const void *scale,
@@ -284,5 +457,35 @@ B3_EXPORT int b3_esm2_embed(const void *ids, const void *table, void *out, int B
   esm2_embed_kernel<<<grid, ROWS_PER_BLOCK * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int *>(ids), static_cast<const bf16 *>(table), static_cast<bf16 *>(out),
       L, d, pad_idx, mask_idx, token_dropout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, n) f32 or bf16 → out (n,) f32; n % 8 == 0; partial (parts, n)
+// f32 scratch when parts > 1.
+B3_EXPORT int b3_col_sum(const void *x, int x_f32, int rows, int n, void *out, void *partial,
+                         int parts, void *stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    col_sum<true>(x, rows, n, static_cast<float *>(out), static_cast<float *>(partial), parts, s);
+  else
+    col_sum<false>(x, rows, n, static_cast<float *>(out), static_cast<float *>(partial), parts, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, d) f32 or bf16, dy (rows, d) f32, gamma (d,) f32, res (rows, d)
+// f32 or bf16 or null → dx (rows, d) f32 or bf16, optionally a bf16 copy
+// dx16 of it, and dgb (2d,) = [dγ | dβ]; partial (blocks, 2d) f32 scratch;
+// d % 8 == 0 and d <= 1024.
+B3_EXPORT int b3_layernorm_bwd(const void *x, int x_f32, const void *dy, const void *gamma,
+                               const void *res, int res_f32, void *dx, int dx_f32, void *dx16,
+                               void *dgb, void *partial, int rows, int d, int blocks, float eps,
+                               void *stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  layernorm_bwd_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0, s>>>(
+      x, x_f32, static_cast<const float *>(dy), static_cast<const float *>(gamma), res, res_f32,
+      dx, dx_f32, static_cast<bf16 *>(dx16), static_cast<float *>(partial), rows, d, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  col_sum<true>(partial, blocks, 2LL * d, static_cast<float *>(dgb), nullptr, 1, s);
   return static_cast<int>(cudaGetLastError());
 }

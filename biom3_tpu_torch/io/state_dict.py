@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from biom3_tpu.io.torch_load import load_torch_file, strip_prefix, unwrap_checkpoint
+from biom3_tpu_torch.io.torch_io import load_torch_file, strip_prefix, unwrap_checkpoint
 
 
 def to_tensors(sd: dict) -> dict[str, torch.Tensor]:

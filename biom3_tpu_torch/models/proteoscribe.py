@@ -13,7 +13,22 @@ Parameter names are the reference DiffTransformer state-dict keys that
 ``load_state_dict``.  LayerNorm eps is 1e-6, as in the JAX package.
 
 This module is the CPU path's reference and the plain version of the whole
-stack that ``models/fused_forward.py`` runs on the kernels.
+stack that ``models/fused_forward.py`` runs on the kernels.  For training it
+takes the JAX module's switches (``proteoscribe.py:142-162``, ``:205-236``,
+``:387-391``):
+
+* ``attn_impl``: ``"plain"`` (torch ops), ``"block"`` (the attention
+  sub-block on ``ops/attn_block.py``'s kernels, LayerNorms and FF in torch)
+  or ``"layer-block"`` (the whole layer on ``ops/layer_block.py``'s
+  kernels; no dropout path, as the TPU kernel);
+* ``dtype``: the compute dtype of the projections, attention and FF; the
+  parameters, LayerNorms, embeddings, conditioning MLPs, final norm and
+  head stay f32 (Flax ``dtype=`` semantics);
+* ``remat``: each layer rematerialised in the backward
+  (``torch.utils.checkpoint``), in train mode;
+* dropout at the reference's two places, active in train mode: after the
+  attention's out-projection (``attn_layer_dropout``) and between the FF's
+  GELU and its second product (``ff_dropout``).
 """
 
 from __future__ import annotations
@@ -23,12 +38,22 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from biom3_tpu_torch.config import ProteoScribeConfig
+from biom3_tpu_torch.ops.attn_block import split_attention_block
+from biom3_tpu_torch.ops.layer_block import transformer_layer_block
 from biom3_tpu_torch.ops.linear_attention import linear_attention
 from biom3_tpu_torch.ops.local_attention import local_window_attention
 
 LN_EPS = 1e-6
+ATTN_IMPLS = ("plain", "block", "layer-block")
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """nn.Dense(dtype=...): input, weight and bias cast to ``dtype``."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int, num_steps: float,
@@ -57,9 +82,10 @@ class SplitHeadAttention(nn.Module):
     """First ``local_heads`` heads band-local, the rest linear attention;
     q/k/v without bias, output projection with bias."""
 
-    def __init__(self, cfg: ProteoScribeConfig):
+    def __init__(self, cfg: ProteoScribeConfig, attn_impl: str = "plain",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.attn_impl, self.dtype = cfg, attn_impl, dtype
         d = cfg.dim
         self.to_q = nn.Linear(d, d, bias=False)
         self.to_k = nn.Linear(d, d, bias=False)
@@ -67,10 +93,16 @@ class SplitHeadAttention(nn.Module):
         self.to_out = nn.Linear(d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.dtype
+        if self.attn_impl == "block":
+            out = split_attention_block(
+                x.to(dt), self.to_q.weight.t(), self.to_k.weight.t(), self.to_v.weight.t(),
+                self.to_out.weight.t(), self.to_out.bias, local_heads=cfg.local_heads,
+                heads=cfg.heads, window=cfg.local_window)
+            return F.dropout(out, cfg.attn_layer_dropout, self.training)
         B, L, _ = x.shape
-        split = lambda z: z.reshape(B, L, cfg.heads, cfg.head_dim).transpose(1, 2)
-        q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
+        split = lambda z: z.reshape(B, L, cfg.heads, cfg.head_dim).transpose(1, 2)  # noqa: E731
+        q, k, v = (split(_dense(lin, x, dt)) for lin in (self.to_q, self.to_k, self.to_v))
         nl = cfg.local_heads
         outs = []
         if nl > 0:
@@ -79,17 +111,20 @@ class SplitHeadAttention(nn.Module):
         if cfg.global_heads > 0:
             outs.append(linear_attention(q[:, nl:], k[:, nl:], v[:, nl:]))
         out = torch.cat(outs, dim=1).transpose(1, 2).reshape(B, L, cfg.dim)
-        return self.to_out(out)
+        return F.dropout(_dense(self.to_out, out, dt), cfg.attn_layer_dropout, self.training)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: ProteoScribeConfig):
+    def __init__(self, cfg: ProteoScribeConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.cfg, self.dtype = cfg, dtype
         self.w1 = nn.Linear(cfg.dim, cfg.dim * cfg.ff_mult)
         self.w2 = nn.Linear(cfg.dim * cfg.ff_mult, cfg.dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.gelu(self.w1(x)))
+        h = F.gelu(_dense(self.w1, x, self.dtype))
+        h = F.dropout(h, self.cfg.ff_dropout, self.training)
+        return _dense(self.w2, h, self.dtype)
 
 
 class _PreNorm(nn.Module):
@@ -117,10 +152,13 @@ class TransformerLayer(nn.Module):
     """Pre-norm attention + pre-norm FF, residuals outside the norms
     (linear_attention_transformer SequentialSequence semantics)."""
 
-    def __init__(self, cfg: ProteoScribeConfig):
+    def __init__(self, cfg: ProteoScribeConfig, attn_impl: str = "plain",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layers = _SequentialSequence(_PreNorm(cfg.dim, SplitHeadAttention(cfg)),
-                                          _PreNorm(cfg.dim, _Chunk(FeedForward(cfg))))
+        self.cfg, self.attn_impl, self.dtype = cfg, attn_impl, dtype
+        self.layers = _SequentialSequence(
+            _PreNorm(cfg.dim, SplitHeadAttention(cfg, attn_impl, dtype)),
+            _PreNorm(cfg.dim, _Chunk(FeedForward(cfg, dtype))))
 
     @property
     def attn_norm(self) -> nn.LayerNorm:
@@ -139,7 +177,18 @@ class TransformerLayer(nn.Module):
         return self.layers.layers[0][1].fn.fn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x))
+        cfg = self.cfg
+        if self.attn_impl == "layer-block":
+            if self.training and (cfg.attn_layer_dropout > 0 or cfg.ff_dropout > 0):
+                raise ValueError("layer-block kernel has no dropout path; use "
+                                 "attn_impl='plain' or 'block' for nonzero-dropout training")
+            a, n1, n2, ff = self.attn, self.attn_norm, self.ff_norm, self.ff
+            return transformer_layer_block(
+                x.to(self.dtype), a.to_q.weight.t(), a.to_k.weight.t(), a.to_v.weight.t(),
+                a.to_out.weight.t(), a.to_out.bias, n1.weight, n1.bias, n2.weight, n2.bias,
+                ff.w1.weight.t(), ff.w1.bias, ff.w2.weight.t(), ff.w2.bias,
+                local_heads=cfg.local_heads, heads=cfg.heads, window=cfg.local_window)
+        x = x + self.attn(self.attn_norm(x.float()))
         return x + self.ff(self.ff_norm(x))
 
 
@@ -159,7 +208,8 @@ class _AxialPositionalEmbedding(nn.Module):
 
 
 class _DiffTransformer(nn.Module):
-    def __init__(self, cfg: ProteoScribeConfig, conditional: bool):
+    def __init__(self, cfg: ProteoScribeConfig, conditional: bool, attn_impl: str,
+                 dtype: torch.dtype):
         super().__init__()
         self.x_emb_NN = nn.Embedding(cfg.num_classes, cfg.dim)
         self.axial_pos_emb = _AxialPositionalEmbedding(cfg)
@@ -167,7 +217,7 @@ class _DiffTransformer(nn.Module):
         if conditional:
             self.y_mlp = ConditioningMLP(cfg.cond_dim, cfg)
         self.transformer_blocks = nn.ModuleList([
-            nn.ModuleList([TransformerLayer(cfg) for _ in range(cfg.depth)])
+            nn.ModuleList([TransformerLayer(cfg, attn_impl, dtype) for _ in range(cfg.depth)])
             for _ in range(cfg.n_blocks)
         ])
         self.norm = nn.LayerNorm(cfg.dim, eps=LN_EPS)
@@ -175,16 +225,22 @@ class _DiffTransformer(nn.Module):
 
 
 class ProteoScribe(nn.Module):
-    """forward(x (B, L) int, t (B,) int, z_c (B, cond_dim)) → (B, L, C).
+    """forward(x (B, L) int, t (B,) int, z_c (B, cond_dim)) → (B, L, C) f32.
 
     ``conditional=False`` is the reference's unconditional variant (no
-    ``y_mlp``; call with ``z_c=None``)."""
+    ``y_mlp``; call with ``z_c=None``).  ``attn_impl``, ``dtype`` and
+    ``remat`` select the training graph (module docstring)."""
 
-    def __init__(self, cfg: ProteoScribeConfig, *, conditional: bool = True):
+    def __init__(self, cfg: ProteoScribeConfig, *, conditional: bool = True,
+                 attn_impl: str = "plain", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.config = cfg
         self.conditional = conditional
-        self.transformer = _DiffTransformer(cfg, conditional)
+        self.attn_impl, self.dtype, self.remat = attn_impl, dtype, remat
+        self.transformer = _DiffTransformer(cfg, conditional, attn_impl, dtype)
 
     def layer_biases(self, t: torch.Tensor, z_c: torch.Tensor | None) -> torch.Tensor:
         """(B, dim, n_blocks, depth) time (+ condition) biases."""
@@ -204,9 +260,12 @@ class ProteoScribe(nn.Module):
         L = x.shape[1]
         x_embed = core.x_emb_NN(x.long()) + core.axial_pos_emb.table()[None, :L]
         bias = self.layer_biases(t, z_c)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         h = torch.zeros_like(x_embed)
         for bi, block in enumerate(core.transformer_blocks):
             h = h + x_embed
             for li, layer in enumerate(block):
-                h = layer(h + bias[..., bi, li][:, None, :])
-        return core.out(core.norm(h))
+                h_in = h + bias[..., bi, li][:, None, :]
+                h = (torch.utils.checkpoint.checkpoint(layer, h_in, use_reentrant=False)
+                     if remat else layer(h_in))
+        return core.out(core.norm(h.float()))

@@ -36,7 +36,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # C entry points: name → argument types (every one returns cudaGetLastError())
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "b3_gemm_bias_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "b3_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "b3_gemm_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "b3_gemm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "b3_col_sum": [_P, _I, _I, _I, _P, _P, _I, _P],
+    "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    "b3_stage3_attention_bwd": [_P] * 8 + [_I] * 7 + [_P],
     "b3_stage3_attention_core": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_dense_attention": [_P, _P, _I, _I, _I, _I, _P],
     "b3_bias_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from biom3_tpu_torch.ops import _build
 from biom3_tpu_torch.ops.linear_attention import linear_attention
-from biom3_tpu_torch.ops.local_attention import local_window_attention
+from biom3_tpu_torch.ops.local_attention import _band_mask, _look_around, local_window_attention
 from biom3_tpu_torch.ops.rotary import apply_rotary
 
 _ACT = {"none": 0, "erf": 1, "tanh": 2}
@@ -84,10 +84,11 @@ def _layernorm_f32(x: torch.Tensor, scale, shift, eps: float) -> torch.Tensor:
 
 def gemm_bias_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
                   act: str = "none", residual: torch.Tensor | None = None,
-                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                  out_dtype: torch.dtype | None = None, want_pre: bool = False):
     """``act(a @ w + bias) + residual`` → (M, N) in ``out_dtype`` (default
     a's dtype).  a (M, K), w (K, N); bias (N,) f32; residual (M, N) f32 or
-    a's dtype."""
+    a's dtype.  With ``want_pre`` also returns ``a @ w + bias`` in f32 (the
+    pre-activation the GELU backward needs)."""
     cd = _compute_dtypes(a)
     _check("a", a, dtypes=cd, ndim=2, vectors=True)
     M, K = a.shape
@@ -106,27 +107,115 @@ def gemm_bias_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = 
     if out_dtype not in (torch.float32, a.dtype):
         raise TypeError(f"out_dtype {out_dtype} must be f32 or {a.dtype}")
     if not a.is_cuda:
-        return gemm_bias_act_plain(a, w, bias, act=act, residual=residual, out_dtype=out_dtype)
+        return gemm_bias_act_plain(a, w, bias, act=act, residual=residual, out_dtype=out_dtype,
+                                   want_pre=want_pre)
     if K % 8 or N % 8:
         raise ValueError(f"gemm_bias_act needs K % 8 == 0 and N % 8 == 0, got K={K} N={N}")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    _build.launch("b3_gemm_bias_act", _ptr(a), _ptr(w), _ptr(bias), _ptr(residual),
+    pre = torch.empty((M, N), dtype=torch.float32, device=a.device) if want_pre else None
+    _build.launch("b3_gemm_bias_act", _ptr(a), _ptr(w), _ptr(bias), _ptr(residual), _ptr(pre),
                   _ptr(out), M, N, K, _ACT[act],
                   int(residual is not None and residual.dtype == torch.bfloat16),
                   int(out_dtype == torch.float32), _stream(a))
     gemm_bias_act.launches += 1
+    return (out, pre) if want_pre else out
+
+
+def gemm_bias_act_plain(a, w, bias=None, *, act="none", residual=None, out_dtype=None,
+                        want_pre=False):
+    pre = a.float() @ w.float()
+    if bias is not None:
+        pre = pre + bias.float()
+    y = gelu(pre, act) if act != "none" else pre
+    if residual is not None:
+        y = y + residual.float()
+    y = y.to(out_dtype or a.dtype)
+    return (y, pre) if want_pre else y
+
+
+def gelu_grad(x: torch.Tensor, impl: str) -> torch.Tensor:
+    """d gelu / dx for ``erf`` or ``tanh`` GELU (layer_block_tpu.py:71-81)."""
+    if impl == "erf":
+        return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + \
+            x * torch.exp(-0.5 * x * x) * 0.3989422804014327
+    if impl == "tanh":
+        c = 0.7978845608028654
+        t = torch.tanh(c * (x + 0.044715 * x * x * x))
+        return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * x * x)
+    raise ValueError(f"gelu impl must be 'erf' or 'tanh', got {impl!r}")
+
+
+_DGELU = {"erf": 3, "tanh": 4}
+
+
+def gemm_dx(dy: torch.Tensor, w: torch.Tensor, *, gelu_of: torch.Tensor | None = None,
+            gelu: str = "erf", out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Input gradient ``dy @ wᵀ`` → (M, N): dy (M, K), w (N, K) (the
+    forward's (d_in, d_out) weight).  With ``gelu_of`` (M, N) f32 — the
+    forward's pre-activation h — the product is multiplied by gelu'(h)."""
+    cd = _compute_dtypes(dy)
+    _check("dy", dy, dtypes=cd, ndim=2, vectors=True)
+    M, K = dy.shape
+    _check("w", w, dtypes=(dy.dtype,), ndim=2, device=dy.device, vectors=True)
+    if w.shape[1] != K:
+        raise ValueError(f"w: shape {tuple(w.shape)} does not contract with dy {tuple(dy.shape)}")
+    N = w.shape[0]
+    if gelu_of is not None:
+        _check("gelu_of", gelu_of, dtypes=(torch.float32,), shape=(M, N), device=dy.device,
+               vectors=True)
+        if gelu not in _DGELU:
+            raise ValueError(f"gelu must be one of {sorted(_DGELU)}, got {gelu!r}")
+    out_dtype = out_dtype or dy.dtype
+    if out_dtype not in (torch.float32, dy.dtype):
+        raise TypeError(f"out_dtype {out_dtype} must be f32 or {dy.dtype}")
+    if not dy.is_cuda:
+        return gemm_dx_plain(dy, w, gelu_of=gelu_of, gelu=gelu, out_dtype=out_dtype)
+    if K % 8 or N % 8:
+        raise ValueError(f"gemm_dx needs K % 8 == 0 and N % 8 == 0, got K={K} N={N}")
+    out = torch.empty((M, N), dtype=out_dtype, device=dy.device)
+    _build.launch("b3_gemm_dx", _ptr(dy), _ptr(w), _ptr(gelu_of), _ptr(out), M, N, K,
+                  _DGELU[gelu] if gelu_of is not None else 0, int(out_dtype == torch.float32),
+                  _stream(dy))
+    gemm_dx.launches += 1
     return out
 
 
-def gemm_bias_act_plain(a, w, bias=None, *, act="none", residual=None, out_dtype=None):
-    y = a.float() @ w.float()
-    if bias is not None:
-        y = y + bias.float()
-    if act != "none":
-        y = gelu(y, act)
-    if residual is not None:
-        y = y + residual.float()
-    return y.to(out_dtype or a.dtype)
+def gemm_dx_plain(dy, w, *, gelu_of=None, gelu="erf", out_dtype=None):
+    y = dy.float() @ w.float().t()
+    if gelu_of is not None:
+        y = y * gelu_grad(gelu_of.float(), gelu)
+    return y.to(out_dtype or dy.dtype)
+
+
+SPLIT_TARGET = 2 * 132   # gemm_dw: blocks to aim for, two per SM of an H100
+
+
+def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient ``xᵀ @ dy`` → (K, N) f32: x (M, K), dy (M, N), the M
+    rows summed in f32 (the whole batch in one call)."""
+    cd = _compute_dtypes(x)
+    _check("x", x, dtypes=cd, ndim=2, vectors=True)
+    M, K = x.shape
+    _check("dy", dy, dtypes=(x.dtype,), ndim=2, device=x.device, vectors=True)
+    if dy.shape[0] != M:
+        raise ValueError(f"dy: shape {tuple(dy.shape)} has not the {M} rows of x")
+    N = dy.shape[1]
+    if not x.is_cuda:
+        return gemm_dw_plain(x, dy)
+    if K % 8 or N % 8:
+        raise ValueError(f"gemm_dw needs K % 8 == 0 and N % 8 == 0, got K={K} N={N}")
+    out = torch.empty((K, N), dtype=torch.float32, device=x.device)
+    tiles = -(-K // 128) * -(-N // 128)
+    splits = max(1, min(-(-SPLIT_TARGET // tiles), M // 256))
+    ws = torch.empty((splits, K, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+    _build.launch("b3_gemm_dw", _ptr(x), _ptr(dy), _ptr(out), _ptr(ws), K, N, M, splits,
+                  _stream(x))
+    gemm_dw.launches += 1
+    return out
+
+
+def gemm_dw_plain(x, dy):
+    return x.float().t() @ dy.float()
 
 
 # --------------------------------------------------------------------------
@@ -434,8 +523,195 @@ def esm2_embed_plain(ids, table, *, pad_idx=1, mask_idx=32, token_dropout=True):
     return x.masked_fill(is_pad[..., None], 0.0).to(table.dtype)
 
 
+# --------------------------------------------------------------------------
+# training backward: layernorm_bwd, col_sum (csrc/rowwise.cu),
+# stage3_attention_bwd (csrc/stage3_attn_bwd.cu)
+# --------------------------------------------------------------------------
+
+LNB_MAX_D = 1024      # the kernel keeps 4 chunks of 256 columns a row in registers
+LNB_BLOCKS = 4 * 132  # row blocks of layernorm_bwd: four per SM
+
+
+def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, *,
+                  residual: torch.Tensor | None = None, eps: float = 1e-6,
+                  out_dtype: torch.dtype, want_cd: bool = False):
+    """Backward of ``layernorm`` over the last dim of x (rows, d), from its
+    input (x̂ and rstd are recomputed) and the output gradient dy (rows, d)
+    f32 → (dx + residual in ``out_dtype``, dscale, dshift) with dscale and
+    dshift (d,) f32 summed over the rows.  With ``want_cd`` the first item
+    is (dx, dx in x's compute dtype)."""
+    cd = _compute_dtypes(x)
+    _check("x", x, dtypes=(torch.float32,) + cd, ndim=2, vectors=True)
+    rows, d = x.shape
+    _check("dy", dy, dtypes=(torch.float32,), shape=(rows, d), device=x.device, vectors=True)
+    _check("scale", scale, dtypes=(torch.float32,), shape=(d,), device=x.device, vectors=True)
+    if residual is not None:
+        _check("residual", residual, dtypes=(torch.float32,) + cd, shape=(rows, d),
+               device=x.device, vectors=True)
+    if out_dtype not in (torch.float32,) + cd:
+        raise TypeError(f"out_dtype {out_dtype} not in {(torch.float32,) + cd}")
+    if not x.is_cuda:
+        return layernorm_bwd_plain(x, dy, scale, residual=residual, eps=eps,
+                                   out_dtype=out_dtype, want_cd=want_cd)
+    if d % 8 or d > LNB_MAX_D:
+        raise ValueError(f"layernorm_bwd kernel needs d % 8 == 0 and d <= {LNB_MAX_D}, got {d}")
+    dx = torch.empty((rows, d), dtype=out_dtype, device=x.device)
+    dx16 = torch.empty((rows, d), dtype=cd[0], device=x.device) if want_cd else None
+    blocks = max(1, min(-(-rows // 8), LNB_BLOCKS))
+    partial = torch.empty((blocks, 2 * d), dtype=torch.float32, device=x.device)
+    dgb = torch.empty(2 * d, dtype=torch.float32, device=x.device)
+    _build.launch("b3_layernorm_bwd", _ptr(x), int(x.dtype == torch.float32), _ptr(dy),
+                  _ptr(scale), _ptr(residual),
+                  int(residual is not None and residual.dtype == torch.float32), _ptr(dx),
+                  int(out_dtype == torch.float32), _ptr(dx16), _ptr(dgb), _ptr(partial), rows, d,
+                  blocks, eps, _stream(x))
+    layernorm_bwd.launches += 1
+    return ((dx, dx16) if want_cd else dx), dgb[:d], dgb[d:]
+
+
+def layernorm_bwd_plain(x, dy, scale, *, residual=None, eps=1e-6, out_dtype, want_cd=False):
+    """``_ln_bwd`` (layer_block_tpu.py:58-68) in f32."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    dyf = dy.float()
+    dxh = dyf * scale.float()
+    dx = rstd * (dxh - dxh.mean(-1, keepdim=True) - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    if residual is not None:
+        dx = dx + residual.float()
+    out = dx.to(out_dtype)
+    if want_cd:
+        out = (out, dx.to(_compute_dtypes(x)[0]))
+    return out, (dyf * xhat).sum(0), dyf.sum(0)
+
+
+COL_SUM_ROWS = 256    # rows a col_sum block sums in its first pass
+
+
+def col_sum(x: torch.Tensor) -> torch.Tensor:
+    """Column sums of x (rows, n) in f32 → (n,) f32 (the bias gradients)."""
+    cd = _compute_dtypes(x)
+    _check("x", x, dtypes=(torch.float32,) + cd, ndim=2, vectors=True)
+    rows, n = x.shape
+    if not x.is_cuda:
+        return col_sum_plain(x)
+    if n % 8:
+        raise ValueError(f"col_sum kernel needs n % 8 == 0, got {n}")
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    parts = max(1, min(256, rows // COL_SUM_ROWS))
+    partial = torch.empty((parts, n), dtype=torch.float32, device=x.device) if parts > 1 else None
+    _build.launch("b3_col_sum", _ptr(x), int(x.dtype == torch.float32), rows, n, _ptr(out),
+                  _ptr(partial), parts, _stream(x))
+    col_sum.launches += 1
+    return out
+
+
+def col_sum_plain(x):
+    return x.float().sum(0)
+
+
+LIN_CHUNK = 128       # sequence rows per block of the linear-heads backward
+
+
+def stage3_attention_bwd(qkv: torch.Tensor, dattn: torch.Tensor, *, heads: int,
+                         local_heads: int, window: int) -> torch.Tensor:
+    """Gradient of ``stage3_attention_core`` with respect to its input: qkv
+    (B, L, 3d) [q | k | v] and the output gradient dattn (B, L, d) →
+    dqkv (B, L, 3d) in qkv's dtype; every softmax is recomputed."""
+    cd = _compute_dtypes(qkv)
+    _check("qkv", qkv, dtypes=cd, ndim=3, vectors=True)
+    B, L, d3 = qkv.shape
+    if d3 % 3 or (d3 // 3) % heads:
+        raise ValueError(f"qkv last dim {d3} is not 3·d with d divisible by heads={heads}")
+    d = d3 // 3
+    _check("dattn", dattn, dtypes=(qkv.dtype,), shape=(B, L, d), device=qkv.device, vectors=True)
+    if not 0 <= local_heads <= heads:
+        raise ValueError(f"local_heads {local_heads} outside [0, {heads}]")
+    if local_heads and L % window:
+        raise ValueError(f"L={L} not divisible by window={window}")
+    if not qkv.is_cuda:
+        return stage3_attention_bwd_plain(qkv, dattn, heads=heads, local_heads=local_heads,
+                                          window=window)
+    dh = d // heads
+    tile = min(window, 64)
+    if dh not in (32, 64) or (local_heads and (window % tile or tile % 8)):
+        raise ValueError(f"stage3_attention_bwd kernel needs head dim 32 or 64 and a window "
+                         f"that tiles by {tile}; got Dh={dh} window={window}")
+    dev, f32 = qkv.device, torch.float32
+    ng, C = heads - local_heads, -(-L // LIN_CHUNK)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((B, local_heads, L, 2), dtype=f32, device=dev) if local_heads else None
+    kst = dctx = ctx = gp = None
+    if ng:
+        kst = torch.empty((B, ng, C, 2, dh), dtype=f32, device=dev)
+        dctx = torch.empty((B, ng, C, dh, dh), dtype=f32, device=dev)
+        ctx = torch.empty_like(dctx)
+        gp = torch.empty((B, ng, C, dh), dtype=f32, device=dev)
+    _build.launch("b3_stage3_attention_bwd", _ptr(qkv), _ptr(dattn), _ptr(dqkv), _ptr(stats),
+                  _ptr(kst), _ptr(dctx), _ptr(ctx), _ptr(gp), B, L, d, heads, local_heads,
+                  window, LIN_CHUNK, _stream(qkv))
+    stage3_attention_bwd.launches += 1
+    return dqkv
+
+
+def _unfold_windows(x: torch.Tensor) -> torch.Tensor:
+    """(..., nw, 3W, D) look-around slots → (..., nw, W, D): window w takes
+    slot 1 of its own row, slot 0 of row w+1 and slot 2 of row w-1."""
+    W = x.shape[-2] // 3
+    out = x[..., W:2 * W, :].clone()
+    out[..., :-1, :, :] += x[..., 1:, :W, :]
+    out[..., 1:, :, :] += x[..., :-1, 2 * W:, :]
+    return out
+
+
+def stage3_attention_bwd_plain(qkv, dattn, *, heads, local_heads, window):
+    """The TPU kernel's backward (layer_block_tpu.py:268-354): f32 sums,
+    p, dS, q', k', ctx and dctx rounded to qkv's dtype where it rounds them."""
+    dt = qkv.dtype
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
+    scale = dh ** -0.5
+    rnd = lambda z: z.to(dt).float()  # noqa: E731
+    q, k, v = (z.reshape(B, L, heads, dh).transpose(1, 2).float() for z in qkv.split(d, dim=-1))
+    da = dattn.reshape(B, L, heads, dh).transpose(1, 2).float()
+    nl = local_heads
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if nl:
+        nw = L // window
+        bucket = lambda z: z[:, :nl].reshape(B, nl, nw, window, dh)  # noqa: E731
+        qw, daw = bucket(q), bucket(da)
+        kn, vn = _look_around(bucket(k)), _look_around(bucket(v))
+        dots = (qw @ kn.transpose(-1, -2)) * scale
+        dots = dots.masked_fill(_band_mask(nw, window, q.device)[:, None, :], -1e9)
+        p = torch.softmax(dots, dim=-1)
+        dvn = rnd(p).transpose(-1, -2) @ daw
+        dp = daw @ vn.transpose(-1, -2)
+        ds = rnd(p * (dp - (dp * p).sum(-1, keepdim=True)) * scale)
+        dq[:, :nl] = (ds @ kn).reshape(B, nl, L, dh)
+        dk[:, :nl] = _unfold_windows(ds.transpose(-1, -2) @ qw).reshape(B, nl, L, dh)
+        dv[:, :nl] = _unfold_windows(dvn).reshape(B, nl, L, dh)
+    if heads > nl:
+        qg, kg, vg, dl = q[:, nl:], k[:, nl:], v[:, nl:], da[:, nl:]
+        smq = torch.softmax(qg, dim=-1)
+        smk = torch.softmax(kg, dim=-2)
+        qf, kf = rnd(smq * scale), rnd(smk)
+        ctx = rnd(kf.transpose(-1, -2) @ vg)            # (i, j) = Σ_n k'[n, i] v[n, j]
+        dctx = rnd(qf.transpose(-1, -2) @ dl)           # (i, j) = Σ_n q'[n, i] dA[n, j]
+        dqf = dl @ ctx.transpose(-1, -2)
+        dkf = vg @ dctx.transpose(-1, -2)
+        dv[:, nl:] = kf @ dctx
+        dsq = dqf * scale
+        dq[:, nl:] = smq * (dsq - (dsq * smq).sum(-1, keepdim=True))
+        dk[:, nl:] = smk * (dkf - (dkf * smk).sum(-2, keepdim=True))
+    merge = lambda z: z.transpose(1, 2).reshape(B, L, d)  # noqa: E731
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dt)
+
+
 KERNELS = (gemm_bias_act, stage3_attention_core, dense_attention, bias_layernorm,
-           layernorm, embed_tokens, gather_head, esm2_embed, esm2_attention, flash_attention)
+           layernorm, embed_tokens, gather_head, esm2_embed, esm2_attention, flash_attention,
+           gemm_dx, gemm_dw, layernorm_bwd, col_sum, stage3_attention_bwd)
 
 
 def reset_launches() -> None:

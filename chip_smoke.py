@@ -15,8 +15,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    timed at Stage-3 B=4 / BERT B=2 / ESM B=2 and checked also at the
    batches phase 5 gives them (2 replicas of 1 prompt), at phase 6's ESM
    batch (the 5 demo proteins) and on edge shapes (ragged tiles, ragged
-   PAD tails, an all-PAD row): bf16 max|Δ|/max|ref| <= 2e-2, with both
-   times;
+   PAD tails, an all-PAD row; for the training kernels edge windows,
+   local_heads 0 and = heads, head dim 64, ragged rows): bf16
+   max|Δ|/max|ref| <= 2e-2 (the attention gradient per 32-column head
+   group), with the kernel's, the plain version's and, where one exists,
+   one PyTorch call's time, and the least time the card could take;
 4. full-width ``fused_stack_logits`` on the kernels (bf16, tanh GELU)
    against the plain f32 ProteoScribe, the full-width BERT tower and
    ``fused_esm2_cls`` against the plain f32 towers, and the PenCL graph
@@ -29,12 +32,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
    width on seeded random weights in the published ``.bin`` layout (LM,
    contact and MLM heads and buffers included): the 5 demo pairs; checks
    the latents and scores; then ``PenCLEngine(tower_impl="graph")`` on the
-   same file.
+   same file;
+7. Stage-3 training at full width on seeded weights: the loss and every
+   parameter gradient of ``ProteoScribe(attn_impl="layer-block")``, then
+   ``"block"``, in bf16 on the kernels against the plain f32 module (fixed
+   paths and timesteps, PAD-tailed tokens, B=4); 40 ``layer_block`` train
+   steps on one batch of 32 must cut the loss, and ms per step at B=32
+   for ``layer_block``, ``block`` and ``unrolled`` with a profile of the
+   first; then the training CLI (``biom3_tpu_torch.cli.run_train_stage3``)
+   on a seeded synthetic data file: ``layer_block`` 4 steps with
+   ``--export_bin``, ``--resume`` to 6, ``block`` 2 steps.
 
-Each of the three paths (phase 5, the CLI of phase 6, the graph engine of
-phase 6) runs with the launch counts set to 0 just before it and read just
-after, and must have launched exactly its own kernels.  The line before
-the last is the kernels' JSON record, the last ``{"ok": true, "device":
+Each path (phase 5, the CLI of phase 6, the graph engine of phase 6, the
+two training CLI modes of phase 7) runs with the launch counts set to 0
+just before it and read just after, and must have launched exactly its
+own kernels.  The line before the last is the kernels' JSON record, with
+each kernel's time, its plain version's, the least time the card could
+take (``bound_ms``) and one PyTorch call's time where one computes the
+same function (``library_ms``); the last is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
 """
 
@@ -54,6 +69,15 @@ COS_MIN = 0.999    # drift gate of the serving modes (PARITY.md)
 SEED = 0
 TIMED_ITERS = 20   # calls per kernel timing
 ESM_LAYERS, BERT_LAYERS = 33, 12
+PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+# phase 7 gates: bf16 training on the kernels vs the plain f32 module.  A
+# tensor under TENSOR_COS_MIN passes only where the same module in bf16 on
+# torch ops is under it too and the kernels stay within TENSOR_COS_SLACK of
+# it: at seeded weights the linear heads' to_q gradients are small and
+# bf16 rounding in the forward moves them as much on torch ops (PERF.md)
+LOSS_REL_TOL, GRAD_COS_MIN, TENSOR_COS_MIN, TENSOR_COS_SLACK = 1e-2, 0.999, 0.99, 0.1
+TRAIN_STEPS, TRAIN_B, TRAIN_LR = 40, 32, 1e-3
 
 # kernel → (source, TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -77,6 +101,16 @@ KERNEL_SOURCES = {
                        "biom3_tpu/ops/pallas/esm2_stack_tpu.py:294"),
     "flash_attention": ("biom3_tpu_torch/csrc/flash_attn.cu",
                         "biom3_tpu/ops/pallas/flash_attention_tpu.py:69"),
+    "stage3_attention_bwd": ("biom3_tpu_torch/csrc/stage3_attn_bwd.cu",
+                             "biom3_tpu/ops/pallas/attn_block_tpu.py:379"),
+    "gemm_dx": ("biom3_tpu_torch/csrc/gemm_bf16.cu",
+                "biom3_tpu/ops/pallas/layer_block_tpu.py:419"),
+    "gemm_dw": ("biom3_tpu_torch/csrc/gemm_bf16.cu",
+                "biom3_tpu/ops/pallas/attn_block_tpu.py:379"),
+    "layernorm_bwd": ("biom3_tpu_torch/csrc/rowwise.cu",
+                      "biom3_tpu/ops/pallas/layer_block_tpu.py:419"),
+    "col_sum": ("biom3_tpu_torch/csrc/rowwise.cu",
+                "biom3_tpu/ops/pallas/layer_block_tpu.py:419"),
 }
 
 # path → the kernels it launches, and no other
@@ -85,6 +119,11 @@ PATH_KERNELS = {
             "layernorm", "embed_tokens", "gather_head"},
     "pencl": {"gemm_bias_act", "dense_attention", "layernorm", "esm2_embed", "esm2_attention"},
     "pencl_graph": {"flash_attention"},
+    "train_layer_block": {"layernorm", "gemm_bias_act", "stage3_attention_core",
+                          "stage3_attention_bwd", "gemm_dx", "gemm_dw", "col_sum",
+                          "layernorm_bwd"},
+    "train_block": {"gemm_bias_act", "stage3_attention_core", "stage3_attention_bwd",
+                    "gemm_dx", "gemm_dw", "col_sum"},
 }
 
 
@@ -92,19 +131,55 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def rel_err(got, want) -> tuple[float, float]:
-    """(max|Δ|, max|Δ| / max|ref|) in f32."""
+def rel_err(got, want, group: int = 0) -> tuple[float, float]:
+    """(max|Δ|, max|Δ| / max|ref|) in f32; with ``group`` the relative
+    error is the worst over groups of that many last-dim columns, each
+    against its own max|ref| (a small head's gradient is not hidden by a
+    large one's)."""
     got, want = got.float(), want.float()
     if not bool(got.isfinite().all()):
         raise AssertionError("kernel output has non-finite values")
     diff = float((got - want).abs().max())
-    return diff, diff / max(float(want.abs().max()), 1e-30)
+    if not group:
+        return diff, diff / max(float(want.abs().max()), 1e-30)
+    g, w = got.reshape(-1, got.shape[-1] // group, group), want.reshape(-1, want.shape[-1] // group,
+                                                                          group)
+    rel = (g - w).abs().amax((0, 2)) / w.abs().amax((0, 2)).clamp(min=1e-30)
+    return diff, float(rel.max())
 
 
 def min_cosine(a, b) -> float:
     import torch
 
     return float(torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min())
+
+
+def flat(x) -> list:
+    """The tensors of a kernel's (possibly nested) output tuple."""
+    return [t for item in x for t in flat(item)] if isinstance(x, tuple) else [x]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def band_pairs(B: int, L: int, window: int, heads: int) -> int:
+    """(query, key) pairs of the band-local heads: each window's queries
+    see windows w-1..w+1 that exist."""
+    nw = L // window
+    keys = sum(min(nw, w + 2) - max(0, w - 1) for w in range(nw)) * window
+    return B * heads * window * keys
+
+
+def live_keys(pad) -> int:
+    """Σ over rows of one past the last non-PAD key (L for an all-PAD
+    row): the keys the attention kernels visit."""
+    import torch
+
+    L = pad.shape[1]
+    idx = torch.arange(1, L + 1, device=pad.device)
+    last = ((pad == 0) * idx).amax(1)
+    return int(torch.where(last > 0, last, torch.full_like(last, L)).sum())
 
 
 # --------------------------------------------------------------------------
@@ -155,15 +230,20 @@ def esm_ids(lengths, L: int, g):
 
 
 def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
-    """Kernel → [(kernel call, plain call), ...] at full width, Stage-3 batch
-    B (L 1024, d 512, 8 + 8 heads, W 128, FF 2048), BERT batch Bb (L 512,
-    E 768, 12 heads, FF 3072) and one ESM2-650M row (L 1024, E 1280, 20
-    heads, FF 5120) of each length in ``esm_lengths`` (the rest PAD).  The
-    first four GEMMs are one Stage-3 layer's products, then BERT's and
-    ESM's; every other kernel's first call is its Stage-3 call
-    (``dense_attention``: its BERT call; the ESM kernels and
-    ``flash_attention``: their ESM-width call)."""
+    """Kernel → [case, ...] at full width, Stage-3 batch B (L 1024, d 512,
+    8 + 8 heads, W 128, FF 2048), BERT batch Bb (L 512, E 768, 12 heads, FF
+    3072) and one ESM2-650M row (L 1024, E 1280, 20 heads, FF 5120) of each
+    length in ``esm_lengths`` (the rest PAD).  A case holds the kernel call,
+    its plain version, the FLOPs and bytes the function needs (each input
+    read once, each output written once) and, where one PyTorch call
+    computes the same function, that call (timed only).  The first four
+    GEMMs are one Stage-3 layer's products, then BERT's and ESM's; the
+    training kernels' first calls are one Stage-3 layer's backward; every
+    other kernel's first call is its Stage-3 call (``dense_attention``: its
+    BERT call; the ESM kernels and ``flash_attention``: their ESM-width
+    call)."""
     import torch
+    import torch.nn.functional as F
 
     from biom3_tpu_torch.ops import kernels as K
     from biom3_tpu_torch.ops.rotary import rotary_cos_sin
@@ -173,6 +253,7 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     Lb, E, Hb, FFb = 512, 768, 12, 3072
     Ee, He, FFe = 1280, 20, 5120
     Be = len(esm_lengths)
+    M = B * L
 
     def rnd(*shape, dtype=bf, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
@@ -180,64 +261,139 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     def vec(n, base=0.0, scale=0.1):
         return (base + scale * torch.randn(n, generator=g, device=dev)).float()
 
-    def pair(name, *args, **kw):
-        return (lambda: getattr(K, name)(*args, **kw),
-                lambda: getattr(K, name + "_plain")(*args, **kw))
+    def case(name, *args, flops=0, out=0, lib=None, **kw):
+        tensors = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
+        return {"run": lambda: getattr(K, name)(*args, **kw),
+                "plain": lambda: getattr(K, name + "_plain")(*args, **kw),
+                "flops": flops, "bytes": nbytes(*tensors) + out, "lib": lib}
 
-    x, xf, mid = rnd(B * L, d), rnd(B * L, d, dtype=f32), rnd(B * L, FF)
+    def gemm(a, w, bias=None, out_dtype=None, **kw):
+        m, k, n = a.shape[0], a.shape[1], w.shape[1]
+        size = torch.finfo(out_dtype or a.dtype).bits // 8
+        return case("gemm_bias_act", a, w, bias, out_dtype=out_dtype, **kw, flops=2 * m * k * n,
+                    out=m * n * size, lib=lambda: torch.matmul(a, w))
+
+    def gemm_dx(dy, w, out_dtype=None, **kw):
+        m, k, n = dy.shape[0], dy.shape[1], w.shape[0]
+        size = torch.finfo(out_dtype or dy.dtype).bits // 8
+        return case("gemm_dx", dy, w, out_dtype=out_dtype, **kw, flops=2 * m * k * n,
+                    out=m * n * size, lib=lambda: torch.matmul(dy, w.t()))
+
+    def gemm_dw(x, dy):
+        m, k, n = x.shape[0], x.shape[1], dy.shape[1]
+        return case("gemm_dw", x, dy, flops=2 * m * k * n, out=k * n * 4,
+                    lib=lambda: torch.matmul(x.t(), dy))
+
+    def heads_of(qkv, h):
+        b, l, e3 = qkv.shape
+        return qkv.view(b, l, 3, h, e3 // 3 // h).permute(2, 0, 3, 1, 4)
+
+    def ln(x, scale, shift, eps, out_dtype=bf, want_f32=False):
+        rows, n = x.shape
+        out = rows * n * (2 + 4 * want_f32)
+        ws, bs = scale.to(x.dtype), shift.to(x.dtype)
+        return case("layernorm", x, scale, shift, eps=eps, out_dtype=out_dtype,
+                    want_f32=want_f32, flops=8 * rows * n, out=out,
+                    lib=lambda: F.layer_norm(x, (n,), ws, bs, eps))
+
+    x, xf, mid = rnd(M, d), rnd(M, d, dtype=f32), rnd(M, FF)
     xb = rnd(Bb * Lb, E)
     h, s, t = rnd(B, L, d), vec(d, 1.0), vec(d)
     ids = esm_ids(esm_lengths, L, g)
     pad = (ids == 1).int()
     cos, sin = rotary_cos_sin(L, Ee // He, dtype=bf, device=dev)
     xe = rnd(Be * L, Ee)
+    qkv3, qkvb, qkve = rnd(B, L, 3 * d), rnd(Bb, Lb, 3 * E), rnd(Be, L, 3 * Ee)
+    fq = [rnd(Be, He, L, Ee // He) for _ in range(3)]
+    fmask = (pad == 0)[:, None, None, :]
+    band = band_pairs(B, L, W, NL)
+    lin = B * (H - NL) * L * (d // H) ** 2
+    # one Stage-3 layer's backward at batch B
+    dy, dxa, h1, dh1 = rnd(M, d), rnd(M, d, dtype=f32), rnd(M, FF, dtype=f32), rnd(M, FF)
+    dqkv, u = rnd(M, 3 * d), rnd(M, d)
+    w1, w2, wo, w3 = (rnd(d, FF, scale=d ** -0.5), rnd(FF, d, scale=FF ** -0.5),
+                      rnd(d, d, scale=d ** -0.5), rnd(d, 3 * d, scale=d ** -0.5))
+    dattn = rnd(B, L, d)
     return {
         "gemm_bias_act": [
-            pair("gemm_bias_act", x, rnd(d, 3 * d, scale=d ** -0.5)),
-            pair("gemm_bias_act", x, rnd(d, d, scale=d ** -0.5), vec(d), residual=xf,
+            gemm(x, w3),
+            gemm(x, wo, vec(d), residual=xf, out_dtype=f32),
+            gemm(x, w1, vec(FF), act="tanh"),
+            gemm(mid, w2, vec(d), residual=xf),
+            gemm(x, w1, vec(FF), act="erf", want_pre=True),   # the FF backward's recompute
+            gemm(xb, rnd(E, 3 * E, scale=E ** -0.5), vec(3 * E)),
+            gemm(xb, rnd(E, FFb, scale=E ** -0.5), vec(FFb), act="tanh"),
+            gemm(rnd(Bb * Lb, FFb), rnd(FFb, E, scale=FFb ** -0.5), vec(E), residual=xb,
                  out_dtype=f32),
-            pair("gemm_bias_act", x, rnd(d, FF, scale=d ** -0.5), vec(FF), act="tanh"),
-            pair("gemm_bias_act", mid, rnd(FF, d, scale=FF ** -0.5), vec(d), residual=xf),
-            pair("gemm_bias_act", xb, rnd(E, 3 * E, scale=E ** -0.5), vec(3 * E)),
-            pair("gemm_bias_act", xb, rnd(E, FFb, scale=E ** -0.5), vec(FFb), act="tanh"),
-            pair("gemm_bias_act", rnd(Bb * Lb, FFb), rnd(FFb, E, scale=FFb ** -0.5), vec(E),
-                 residual=xb, out_dtype=f32),
-            pair("gemm_bias_act", xe, rnd(Ee, 3 * Ee, scale=Ee ** -0.5), vec(3 * Ee)),
-            pair("gemm_bias_act", xe, rnd(Ee, FFe, scale=Ee ** -0.5), vec(FFe), act="tanh"),
-            pair("gemm_bias_act", rnd(Be * L, FFe), rnd(FFe, Ee, scale=FFe ** -0.5), vec(Ee),
+            gemm(xe, rnd(Ee, 3 * Ee, scale=Ee ** -0.5), vec(3 * Ee)),
+            gemm(xe, rnd(Ee, FFe, scale=Ee ** -0.5), vec(FFe), act="tanh"),
+            gemm(rnd(Be * L, FFe), rnd(FFe, Ee, scale=FFe ** -0.5), vec(Ee),
                  residual=rnd(Be * L, Ee, dtype=f32)),
         ],
         "stage3_attention_core": [
-            pair("stage3_attention_core", rnd(B, L, 3 * d), heads=H, local_heads=NL, window=W)],
-        "dense_attention": [pair("dense_attention", rnd(Bb, Lb, 3 * E), heads=Hb)],
-        "bias_layernorm": [pair("bias_layernorm", h, rnd(B, d), s, t)],
+            case("stage3_attention_core", qkv3, heads=H, local_heads=NL, window=W,
+                 flops=4 * (d // H) * band + 4 * lin, out=M * d * 2)],
+        "dense_attention": [
+            case("dense_attention", qkvb, heads=Hb, flops=4 * Bb * Hb * Lb * Lb * (E // Hb),
+                 out=Bb * Lb * E * 2,
+                 lib=lambda: F.scaled_dot_product_attention(*heads_of(qkvb, Hb)))],
+        "bias_layernorm": [case("bias_layernorm", h, rnd(B, d), s, t, flops=9 * M * d,
+                                out=M * d * 6)],
         "layernorm": [
-            pair("layernorm", xf, s, t, eps=1e-6, out_dtype=bf),
-            pair("layernorm", rnd(Bb * Lb, E, dtype=f32, scale=3.0), vec(E, 1.0), vec(E),
-                 eps=1e-12, out_dtype=bf, want_f32=True),
+            ln(xf, s, t, 1e-6),
+            ln(rnd(Bb * Lb, E, dtype=f32, scale=3.0), vec(E, 1.0), vec(E), 1e-12,
+               want_f32=True),
             # ESM2: LN1 on the bf16 residual, LN2 on the f32 one, the final
             # norm on the bf16 CLS rows with the f32 copy
-            pair("layernorm", rnd(Be * L, Ee, scale=3.0), vec(Ee, 1.0), vec(Ee), eps=1e-5,
-                 out_dtype=bf),
-            pair("layernorm", rnd(Be * L, Ee, dtype=f32, scale=3.0), vec(Ee, 1.0), vec(Ee),
-                 eps=1e-5, out_dtype=bf),
-            pair("layernorm", rnd(Be, Ee, scale=3.0), vec(Ee, 1.0), vec(Ee), eps=1e-5,
-                 out_dtype=bf, want_f32=True),
+            ln(rnd(Be * L, Ee, scale=3.0), vec(Ee, 1.0), vec(Ee), 1e-5),
+            ln(rnd(Be * L, Ee, dtype=f32, scale=3.0), vec(Ee, 1.0), vec(Ee), 1e-5),
+            ln(rnd(Be, Ee, scale=3.0), vec(Ee, 1.0), vec(Ee), 1e-5, want_f32=True),
         ],
-        "embed_tokens": [pair("embed_tokens",
+        "embed_tokens": [case("embed_tokens",
                               torch.randint(0, 29, (B, L), generator=g, device=dev,
-                                            dtype=torch.int32), rnd(29, d), rnd(L, d))],
-        "gather_head": [pair("gather_head", h,
+                                            dtype=torch.int32), rnd(29, d), rnd(L, d),
+                              flops=M * d, out=M * d * 2)],
+        "gather_head": [case("gather_head", h,
                              torch.randint(0, L, (B, k), generator=g, device=dev,
                                            dtype=torch.int32),
-                             s, t, rnd(d, 29, scale=d ** -0.5), vec(29))
+                             s, t, rnd(d, 29, scale=d ** -0.5), vec(29),
+                             flops=2 * B * k * d * 29 + 8 * B * k * d, out=B * k * 29 * 4)
                         for k in (1, 8)],
-        "esm2_embed": [pair("esm2_embed", ids, rnd(33, Ee))],
-        "esm2_attention": [pair("esm2_attention", rnd(Be, L, 3 * Ee), pad, cos, sin,
-                                heads=He)],
+        "esm2_embed": [case("esm2_embed", ids, rnd(33, Ee), flops=Be * L * Ee,
+                            out=Be * L * Ee * 2)],
+        "esm2_attention": [case("esm2_attention", qkve, pad, cos, sin, heads=He,
+                                flops=4 * He * L * live_keys(pad) * (Ee // He),
+                                out=Be * L * Ee * 2)],
         "flash_attention": [
-            pair("flash_attention", *(rnd(Be, He, L, Ee // He) for _ in range(3)), pad),
-            pair("flash_attention", *(rnd(Bb, Hb, Lb, E // Hb) for _ in range(3))),
+            case("flash_attention", *fq, pad, flops=4 * He * L * live_keys(pad) * (Ee // He),
+                 out=nbytes(fq[0]),
+                 lib=lambda: F.scaled_dot_product_attention(*fq, attn_mask=fmask)),
+            case("flash_attention", *(rnd(Bb, Hb, Lb, E // Hb) for _ in range(3)),
+                 flops=4 * Bb * Hb * Lb * Lb * (E // Hb), out=Bb * Hb * Lb * (E // Hb) * 2),
+        ],
+        "stage3_attention_bwd": [
+            case("stage3_attention_bwd", qkv3, dattn, heads=H, local_heads=NL, window=W,
+                 flops=10 * (d // H) * band + 10 * lin, out=M * 3 * d * 2)],
+        "gemm_dx": [
+            gemm_dx(dy, wo),                                   # dattn = dxa·Woᵀ
+            gemm_dx(dy, w2, gelu_of=h1),                       # dh1 = (dy·W2ᵀ)∘gelu'(h1)
+            gemm_dx(dh1, w1, out_dtype=f32),                   # du = dh1·W1ᵀ
+            gemm_dx(dqkv, w3, out_dtype=f32),                  # dxn1 = dqkv·W3ᵀ
+        ],
+        "gemm_dw": [gemm_dw(mid, dy), gemm_dw(u, dh1), gemm_dw(x, dy), gemm_dw(u, dqkv)],
+        "layernorm_bwd": [
+            case("layernorm_bwd", xf, dxa, s, residual=dy, out_dtype=f32, want_cd=True,
+                 flops=12 * M * d, out=M * d * 6 + 8 * d),        # LN2: dxa and its bf16 copy
+            case("layernorm_bwd", x, dxa, s, residual=xf, out_dtype=bf,
+                 flops=12 * M * d, out=M * d * 2 + 8 * d),        # LN1: dx
+        ],
+        "col_sum": [
+            case("col_sum", xf, flops=M * d, out=d * 4,
+                 lib=lambda: torch.sum(xf, 0, dtype=f32)),          # dbo
+            case("col_sum", dy, flops=M * d, out=d * 4,
+                 lib=lambda: torch.sum(dy, 0, dtype=f32)),          # db2
+            case("col_sum", dh1, flops=M * FF, out=FF * 4,
+                 lib=lambda: torch.sum(dh1, 0, dtype=f32)),         # db1
         ],
     }
 
@@ -258,6 +414,10 @@ def edge_cases(g) -> dict[str, list]:
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def pair(name, *args, **kw):
+        return (lambda: getattr(K, name)(*args, **kw),
+                lambda: getattr(K, name + "_plain")(*args, **kw))
 
     a, w, r = rnd(1000, 264), rnd(264, 200, scale=264 ** -0.5), rnd(1000, 200)
     bias = 0.1 * torch.randn(200, generator=g, device=dev)
@@ -297,6 +457,32 @@ def edge_cases(g) -> dict[str, list]:
                              lambda: K.flash_attention_plain(*fl, mask)),
                             (lambda: K.flash_attention(*fl32),
                              lambda: K.flash_attention_plain(*fl32))],
+        # training: edge windows at W=64, no local heads (and a ragged last
+        # chunk of the linear heads), only local heads, head dim 64; GEMMs
+        # with M, N, K off the tiles (a ragged row count for dW); LayerNorm
+        # and column sums off the row blocks and the 256-column stride
+        "stage3_attention_bwd": [
+            pair("stage3_attention_bwd", rnd(2, 256, 1536), rnd(2, 256, 512), heads=16,
+                 local_heads=8, window=64),
+            pair("stage3_attention_bwd", rnd(2, 1000, 1536), rnd(2, 1000, 512), heads=16,
+                 local_heads=0, window=128),
+            pair("stage3_attention_bwd", rnd(2, 512, 1536), rnd(2, 512, 512), heads=16,
+                 local_heads=16, window=128),
+            pair("stage3_attention_bwd", rnd(2, 256, 1536), rnd(2, 256, 512), heads=8,
+                 local_heads=4, window=64),
+        ],
+        "gemm_dx": [pair("gemm_dx", rnd(1000, 264), rnd(200, 264, scale=264 ** -0.5),
+                         gelu_of=torch.randn(1000, 200, generator=g, device=dev),
+                         out_dtype=torch.float32),
+                    pair("gemm_dx", rnd(1000, 200), rnd(264, 200, scale=200 ** -0.5))],
+        "gemm_dw": [pair("gemm_dw", rnd(1000, 264), rnd(1000, 200)),
+                    pair("gemm_dw", rnd(37, 264), rnd(37, 200))],
+        "layernorm_bwd": [pair("layernorm_bwd", xl, torch.randn(1003, 264, generator=g,
+                                                                 device=dev), ln[0],
+                               residual=rnd(1003, 264), out_dtype=torch.float32,
+                               want_cd=True)],
+        "col_sum": [pair("col_sum", torch.randn(1003, 264, generator=g, device=dev)),
+                    pair("col_sum", rnd(7, 264))],
     }
 
 
@@ -313,27 +499,45 @@ def phase_kernels() -> dict:
     # (the 5 demo proteins) and the edge cases
     timed = kernel_cases(4, 2, [1024, 400], g)
     demo = [len(seq) + 2 for seq in DEMO_SEQUENCES]
-    checked = [timed, kernel_cases(2, 1, demo, g), edge_cases(g)]
-    n_timed = {"gemm_bias_act": 4}     # one Stage-3 layer's four products
+    small = kernel_cases(2, 1, demo, g)
+    checked = [{n: [(c["run"], c["plain"]) for c in cs] for n, cs in cases.items()}
+               for cases in (timed, small)] + [edge_cases(g)]
+    # timed calls: one Stage-3 layer's four forward products; every
+    # training kernel's calls of one layer's backward
+    n_timed = {"gemm_bias_act": 4, "gemm_dx": 4, "gemm_dw": 4, "layernorm_bwd": 2,
+               "col_sum": 3}
+    # dqkv: each 32-column head group against its own scale (the linear
+    # heads' dk is ~1/L of the local heads' dv)
+    grouped = {"stage3_attention_bwd": 32}
 
     results = {}
-    for name, calls in timed.items():
+    for name, cases in timed.items():
         worst_abs, worst_rel = 0.0, 0.0
-        for run, plain in (c for cases in checked for c in cases.get(name, [])):
-            got, want = run(), plain()
+        for run, plain in (c for chk in checked for c in chk.get(name, [])):
+            got, want = flat(run()), flat(plain())
             torch.cuda.synchronize()
-            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-            for a, b in pairs:
-                err_abs, err_rel = rel_err(a, b)
+            for a, b in zip(got, want):
+                err_abs, err_rel = rel_err(a, b, group=grouped.get(name, 0))
                 worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
         if worst_rel > REL_TOL:
             raise AssertionError(f"{name}: max|Δ|/max|ref| = {worst_rel:.3e} > {REL_TOL}")
-        calls = calls[:n_timed.get(name, 1)]
-        ms = event_ms(lambda: [run() for run, _ in calls], TIMED_ITERS)
-        plain_ms = event_ms(lambda: [plain() for _, plain in calls], TIMED_ITERS)
-        results[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms}
+        cases = cases[:n_timed.get(name, 1)]
+        ms = event_ms(lambda: [c["run"]() for c in cases], TIMED_ITERS)
+        plain_ms = event_ms(lambda: [c["plain"]() for c in cases], TIMED_ITERS)
+        libs = [c["lib"] for c in cases]
+        library_ms = (event_ms(lambda: [lib() for lib in libs], TIMED_ITERS)
+                      if all(libs) else None)
+        t_ops = sum(c["flops"] for c in cases) / PEAK_FLOPS * 1e3
+        t_bytes = sum(c["bytes"] for c in cases) / PEAK_BYTES * 1e3
+        bound_ms = sum(max(c["flops"] / PEAK_FLOPS, c["bytes"] / PEAK_BYTES) for c in cases) * 1e3
+        results[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms,
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "library_ms": library_ms}
+        lib_txt = "—" if library_ms is None else f"{library_ms:.4f} ms"
         say("kernels", f"{name}: max|Δ| {worst_abs:.3e} rel {worst_rel:.3e} "
-                       f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                       f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+                       f"({results[name]['bound_by']}) library {lib_txt}")
     return results
 
 
@@ -636,6 +840,208 @@ def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 7: Stage-3 training at full width
+# --------------------------------------------------------------------------
+
+def train_batch(cfg, B: int, g):
+    """(tokens, z_c): shifted training ids — <START>, random residues,
+    <END>, then a PAD tail (ids 1, 2..21, 22, 23) — and a random
+    condition."""
+    import torch
+
+    L, dev = cfg.max_seq_len, g.device
+    tokens = torch.full((B, L), 23, dtype=torch.long, device=dev)
+    for b, n in enumerate(torch.randint(L // 4, L - 2, (B,), generator=g, device=dev).tolist()):
+        tokens[b, 0], tokens[b, n + 1] = 1, 22
+        tokens[b, 1:n + 1] = torch.randint(2, 22, (n,), generator=g, device=dev)
+    return tokens, torch.randn((B, cfg.cond_dim), generator=g, device=dev)
+
+
+def phase_train_grads() -> None:
+    """Loss and every parameter gradient of the kernel modes (bf16) against
+    the plain f32 module, same parameters, paths and timesteps; the same
+    module in bf16 on torch ops is the yardstick of the per-tensor gate."""
+    import torch
+
+    from biom3_tpu_torch.config import ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.training.stage3_task import stage3_loss_fn
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cfg = ProteoScribeConfig()
+    B, L = 4, cfg.max_seq_len
+    tokens, z = train_batch(cfg, B, g)
+    path = torch.stack([torch.randperm(L, generator=g, device=dev) for _ in range(B)])
+    t = torch.randint(0, L + 1, (B,), generator=g, device=dev)
+    cos = torch.nn.functional.cosine_similarity
+    ref = seeded_init_(ProteoScribe(cfg), SEED + 7).to(dev)
+
+    def loss_and_grads(model):
+        model.train()
+        loss, _ = stage3_loss_fn(model, tokens, z, path=path, t=t)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: q.grad.float().flatten()
+                                      for n, q in model.named_parameters()}
+
+    def compare(impl):
+        model = ProteoScribe(cfg, attn_impl=impl, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict(ref.state_dict())
+        loss, grads = loss_and_grads(model)
+        total = float(cos(torch.cat(list(grads.values())), torch.cat(list(g_ref.values())),
+                          dim=0))
+        return loss, total, {n: float(cos(grads[n], g_ref[n], dim=0)) for n in grads}
+
+    loss_ref, g_ref = loss_and_grads(ref)
+    _, _, torch_ops = compare("plain")
+    for impl in ("layer-block", "block"):
+        loss, total, per = compare(impl)
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        worst = min(per, key=per.get)
+        bad = [n for n, c in per.items()
+               if c < TENSOR_COS_MIN and c < torch_ops[n] - TENSOR_COS_SLACK]
+        under = sum(c < TENSOR_COS_MIN for c in per.values())
+        say("train", f"{impl} (bf16, kernels) vs plain f32, B={B}: loss {loss:.6f} vs "
+                     f"{loss_ref:.6f} (rel {rel:.3e}); gradient cosine {total:.6f}; worst "
+                     f"tensor {worst} {per[worst]:.6f} (bf16 torch ops: "
+                     f"{torch_ops[worst]:.6f}); {under} of {len(per)} tensors under "
+                     f"{TENSOR_COS_MIN} (torch ops: "
+                     f"{sum(c < TENSOR_COS_MIN for c in torch_ops.values())})")
+        if rel > LOSS_REL_TOL or total < GRAD_COS_MIN or bad:
+            raise AssertionError(f"{impl}: loss rel {rel}, gradient cosine {total}, tensors "
+                                 f"off the bf16 yardstick {[(n, per[n], torch_ops[n]) for n in bad]}")
+    del ref
+    torch.cuda.empty_cache()
+
+
+def phase_train_steps() -> None:
+    """40 train steps on one fixed batch of 32 per layer mode: the loss
+    must fall in ``layer_block`` mode; ms per step (steps 6-40, CUDA
+    events) for each mode; a profile of ``layer_block`` steps."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import profile_ms
+    from biom3_tpu_torch.cli.run_train_stage3 import LAYER_MODES
+    from biom3_tpu_torch.config import ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.training.optim import make_optimizer
+    from biom3_tpu_torch.training.stage3_task import make_stage3_train_step
+    from biom3_tpu_torch.training.state import TrainState
+
+    dev = torch.device("cuda")
+    cfg = ProteoScribeConfig()
+    tokens, z = train_batch(cfg, TRAIN_B, torch.Generator(device=dev).manual_seed(SEED + 8))
+    batch = {"tokens": tokens, "z_c": z}
+    for mode in ("layer_block", "block", "unrolled"):
+        model = ProteoScribe(cfg, dtype=torch.bfloat16, **LAYER_MODES[mode])
+        model = seeded_init_(model, SEED + 8).to(dev)
+        state = TrainState(model, make_optimizer("AdamW", model.parameters(), TRAIN_LR),
+                           with_ema=True)
+        step = make_stage3_train_step(state)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            if i == 5:
+                start.record()
+            losses.append(step(batch, gen)["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (TRAIN_STEPS - 5)
+        losses = [float(x) for x in losses]
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        say("train", f"{mode}: {ms:.3f} ms/step at B={TRAIN_B} (steps 6-{TRAIN_STEPS}, CUDA "
+                     f"events); loss mean of steps 1-5 {first:.4f}, of steps "
+                     f"{TRAIN_STEPS - 4}-{TRAIN_STEPS} {last:.4f}; peak memory "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{mode}: non-finite loss {losses}")
+        if mode == "layer_block":
+            if last > 0.8 * first:
+                raise AssertionError(f"layer_block: loss {first:.4f} → {last:.4f}, "
+                                     f"not below 0.8x")
+            prof = profile_ms(lambda: step(batch, gen))
+            say("train", "layer_block profile, device ms per step: " + json.dumps(
+                {k: round(v, 3) for k, v in prof.items()}))
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
+def phase_train_cli() -> dict:
+    """The training CLI at full width on a seeded synthetic Stage-2 output:
+    ``layer_block`` 4 steps with ``--export_bin``, ``--resume`` to 6,
+    ``block`` 2 steps → each mode's launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from biom3_tpu_torch.cli import run_train_stage3 as cli
+    from biom3_tpu_torch.config import Config, ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED)
+    residues = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    n = 40
+    stage3 = {"diffusion_steps": 1024, "image_size": 32, "num_classes": 29,
+              "text_emb_dim": 512, "transformer_dim": 512, "transformer_heads": 16,
+              "transformer_depth": 16, "transformer_blocks": 1, "transformer_local_heads": 8,
+              "transformer_local_size": 128, "batch_size": TRAIN_B, "epochs": 1,
+              "valid_size": 0.1, "enter_eval": 2, "learning_rate": 1e-4, "seed": SEED,
+              "facilitator": "MMD"}
+    counts = {"train_layer_block": {}, "train_block": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = pathlib.Path(tmp)
+        seqs = ["".join(rng.choice(residues, int(k))) for k in rng.integers(50, 1000, n)]
+        torch.save({"sequence": seqs, "text_to_protein_embedding": torch.from_numpy(
+            rng.standard_normal((n, 512)).astype(np.float32))}, root / "data.pt")
+        (root / "s3.json").write_text(json.dumps(stage3))
+        common = ["--json_path", str(root / "s3.json"), "--output_dir", str(root / "out"),
+                  "--swissprot_data_root", str(root / "data.pt"), "--device", "cuda"]
+        runs = [("train_layer_block", ["--max_steps", "4", "--export_bin",
+                                       str(root / "trained.bin")]),
+                ("train_layer_block", ["--max_steps", "6", "--resume"]),
+                ("train_block", ["--max_steps", "2", "--layer-mode", "block", "--output_dir",
+                                 str(root / "out_block")])]
+        for path, extra in runs:
+            buf = io.StringIO()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(common + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_counts = K.launch_counts()
+            out = buf.getvalue()
+            print(out, end="", flush=True)
+            check_path(path, run_counts)
+            for name, c in run_counts.items():
+                counts[path][name] = counts[path].get(name, 0) + c
+            want = {"--resume": "resumed from step 4"}.get(extra[-1], "finished at step")
+            if want not in out or "finished at step" not in out:
+                raise AssertionError(f"{path} {extra}: expected {want!r} in the output")
+            say("train", f"CLI {' '.join(extra[:4])}: {wall:.2f} s wall (set-up included); "
+                         f"launches {run_counts}")
+        sd = torch.load(root / "trained.bin", weights_only=True)
+        cfg = ProteoScribeConfig.from_stage_config(Config(stage3))
+        ProteoScribe(cfg).load_state_dict(sd, strict=True)
+        init = seeded_init_(ProteoScribe(cfg), SEED).state_dict()
+        moved = sum(not torch.equal(sd[k], init[k]) for k in sd)
+        if not moved:
+            raise AssertionError("the exported .bin equals the initial weights")
+        say("train", f"exported .bin loads with strict=True; {moved} of {len(sd)} tensors "
+                     f"differ from the initial weights")
+    return counts
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -649,10 +1055,14 @@ def main() -> None:
         phase_models(pencl)
         counts = {"e2e": phase_e2e()}
         counts.update(phase_pencl(root, stage1, pencl))
+        del pencl
+    phase_train_grads()
+    phase_train_steps()
+    counts.update(phase_train_cli())
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],
-         "launches": sum(c[name] for c in counts.values()), **measured[name]}
+         "launches": sum(c.get(name, 0) for c in counts.values()), **measured[name]}
         for name in KERNEL_SOURCES
     ]}
     print(json.dumps(record))

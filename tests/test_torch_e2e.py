@@ -70,14 +70,15 @@ def stage_files(tmp_path_factory):
 def test_slice_matches_jax_engines(stage_files):
     from biom3_tpu_torch.pipeline.stage1 import PenCLEngine
     from biom3_tpu_torch.pipeline.stage2 import FacilitatorEngine
+    from biom3_tpu_torch.config import load_json_config as port_load_json_config
     from biom3_tpu_torch.pipeline.stage3 import ProteoScribeEngine
 
     root, (j1, j2, j3), flags = stage_files
-    p1 = PenCLEngine(load_json_config(root / "s1.json"), flags["--stage1_model"],
+    p1 = PenCLEngine(port_load_json_config(root / "s1.json"), flags["--stage1_model"],
                      device="cpu")
-    p2 = FacilitatorEngine(load_json_config(root / "s2.json"), flags["--stage2_model"],
+    p2 = FacilitatorEngine(port_load_json_config(root / "s2.json"), flags["--stage2_model"],
                            device="cpu")
-    p3 = ProteoScribeEngine(load_json_config(root / "s3.json"), flags["--stage3_model"],
+    p3 = ProteoScribeEngine(port_load_json_config(root / "s3.json"), flags["--stage3_model"],
                             device="cpu", temperature=0.0)
 
     z_t = np.asarray(j1.embed_text(PROMPTS))
@@ -99,10 +100,11 @@ def test_slice_matches_jax_engines(stage_files):
 
 
 def test_generate_sequences_schema(stage_files):
+    from biom3_tpu_torch.config import load_json_config as port_load_json_config
     from biom3_tpu_torch.pipeline.stage3 import ProteoScribeEngine
 
     root, _, flags = stage_files
-    eng = ProteoScribeEngine(load_json_config(root / "s3.json"), flags["--stage3_model"],
+    eng = ProteoScribeEngine(port_load_json_config(root / "s3.json"), flags["--stage3_model"],
                              device="cpu", temperature=1.0, positions_per_step=4)
     z_c = np.random.default_rng(1).standard_normal((2, 16)).astype(np.float32)
     out = eng.generate_sequences(z_c, num_replicas=3, batch_size=2, seed=3)

@@ -29,13 +29,14 @@ from biom3_tpu.ops.pallas.esm2_stack_tpu import (
 from biom3_tpu.ops.pallas.flash_attention_tpu import flash_attention_pallas
 from biom3_tpu.ops.rotary import apply_rotary as jax_apply_rotary
 from biom3_tpu.ops.rotary import rotary_cos_sin as jax_rotary_cos_sin
-from biom3_tpu_torch.io.from_jax import esm2_from_jax
+from biom3_tpu_torch.io.from_jax import esm2_from_jax, port_config
 from biom3_tpu_torch.models.esm2 import ESM2, esm2_state_dict
 from biom3_tpu_torch.ops import kernels
 from biom3_tpu_torch.ops.esm2_stack import esm2_stack_arrays, fused_esm2_cls
 from biom3_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 
 CFG = ESM2Config(num_layers=2, embed_dim=128, attention_heads=2, vocab_size=33)
+PORT_CFG = port_config(CFG)   # the port's own config class
 TOL = dict(atol=2e-4, rtol=1e-3)
 
 
@@ -64,7 +65,7 @@ def tower():
     model = JaxESM2(CFG)
     params = model.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32), compute_logits=True)
     params = _perturb(params, 0)
-    return model, params, esm2_from_jax(params, CFG)
+    return model, params, esm2_from_jax(params, PORT_CFG)
 
 
 @pytest.mark.parametrize("gelu", ["erf", "tanh"])
@@ -86,7 +87,7 @@ def test_plain_esm2_matches_flax(tower, gelu):
     _, params, _ = tower
     toks = _tokens(np.random.default_rng(2), B=3, L=40, pad=9)
     want = np.asarray(JaxESM2(CFG, gelu=gelu).apply(params, jnp.asarray(toks))["hidden"])
-    port = esm2_from_jax(params, CFG, gelu=gelu)
+    port = esm2_from_jax(params, PORT_CFG, gelu=gelu)
     with torch.no_grad():
         got = port(torch.from_numpy(toks))["hidden"].numpy()
     np.testing.assert_allclose(got, want, **TOL)
@@ -190,7 +191,7 @@ def test_esm2_state_dict_drops_only_named_keys(tower):
     extra.update({f"layers.{i}.self_attn.rot_emb.inv_freq": torch.zeros(32)
                   for i in range(CFG.num_layers)})
     assert esm2_state_dict({**sd, **extra}).keys() == sd.keys()
-    ESM2(CFG).load_state_dict(esm2_state_dict({**sd, **extra}), strict=True)
+    ESM2(PORT_CFG).load_state_dict(esm2_state_dict({**sd, **extra}), strict=True)
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        ESM2(CFG).load_state_dict(esm2_state_dict({**sd, "layers.0.stray": torch.zeros(1)}),
+        ESM2(PORT_CFG).load_state_dict(esm2_state_dict({**sd, "layers.0.stray": torch.zeros(1)}),
                                   strict=True)

@@ -1,9 +1,12 @@
-"""biom3_tpu_torch: import hygiene, wrapper argument checks, kernel build setup.
+"""biom3_tpu_torch: import hygiene, its own copies of the JAX package's
+pure-Python modules, wrapper argument checks, kernel build setup.
 
-The port must import no JAX; its kernel wrappers must refuse inputs the
-kernels do not take (on the CPU too, before the plain version runs); and
-the kernel build must target sm_90a and write under the git-ignored
-``build/`` directory.
+The port must import no JAX and nothing of ``biom3_tpu``; the copies it
+keeps (config, tokenizers, torch file I/O, demo data, the export mapping)
+must equal the JAX package's modules; its kernel wrappers must refuse
+inputs the kernels do not take (on the CPU too, before the plain version
+runs); and the kernel build must target sm_90a and write under the
+git-ignored ``build/`` directory.
 """
 
 import pathlib
@@ -19,6 +22,21 @@ SLICE_MODULES = [
     "biom3_tpu_torch",
     "biom3_tpu_torch.config",
     "biom3_tpu_torch.tokenizers",
+    "biom3_tpu_torch.io.torch_io",
+    "biom3_tpu_torch.io.checkpoint",
+    "biom3_tpu_torch.cli.demo_data",
+    "biom3_tpu_torch.ops.attn_block",
+    "biom3_tpu_torch.ops.layer_block",
+    "biom3_tpu_torch.diffusion.oa_ardm",
+    "biom3_tpu_torch.training.metrics",
+    "biom3_tpu_torch.training.optim",
+    "biom3_tpu_torch.training.ema",
+    "biom3_tpu_torch.training.state",
+    "biom3_tpu_torch.training.stage3_task",
+    "biom3_tpu_torch.data.stage3_data",
+    "biom3_tpu_torch.data.loader",
+    "biom3_tpu_torch.utils.logging",
+    "biom3_tpu_torch.cli.run_train_stage3",
     "biom3_tpu_torch.ops._build",
     "biom3_tpu_torch.ops.kernels",
     "biom3_tpu_torch.ops.local_attention",
@@ -61,6 +79,22 @@ def test_port_imports_no_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
 
 
+def test_port_never_imports_the_jax_package():
+    """No ``.py`` under ``biom3_tpu_torch/`` imports ``biom3_tpu`` (not even
+    a module of it that loads no JAX), ``jax`` or ``flax``, at any depth."""
+    import ast
+
+    bad = []
+    for path in sorted((REPO / "biom3_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom) and node.module
+                     else [])
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in ("biom3_tpu", "jax", "flax", "jaxlib")]
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port: besides the standard library, numpy
     and torch it imports biom3_tpu_torch only, never the JAX package."""
@@ -88,7 +122,7 @@ def test_build_targets_sm90a_under_ignored_build_dir():
 
     names = {p.name for p in _build.sources()}
     assert {"gemm_bf16.cu", "stage3_attn.cu", "dense_attn.cu", "rowwise.cu", "esm2_attn.cu",
-            "flash_attn.cu"} <= names
+            "flash_attn.cu", "stage3_attn_bwd.cu"} <= names
     # one nvcc per source (run together), then one link
     for src in _build.sources():
         cmd = _build.compile_command(src, "out.o")
@@ -196,6 +230,47 @@ def _head(**over):
     return gather_head(a["h"], a["pos"], a["scale"], a["shift"], a["head_w"], a["head_b"])
 
 
+def _gemm_dx(**over):
+    from biom3_tpu_torch.ops.kernels import gemm_dx
+
+    a = dict(dy=_t(8, 16), w=_t(24, 16), h=_t(8, 24))
+    a.update(over)
+    return gemm_dx(a["dy"], a["w"], gelu_of=a["h"])
+
+
+def _gemm_dw(**over):
+    from biom3_tpu_torch.ops.kernels import gemm_dw
+
+    a = dict(x=_t(8, 16), dy=_t(8, 24))
+    a.update(over)
+    return gemm_dw(a["x"], a["dy"])
+
+
+def _ln_bwd(**over):
+    from biom3_tpu_torch.ops.kernels import layernorm_bwd
+
+    a = dict(x=_t(8, 16), dy=_t(8, 16), scale=_t(16), res=_t(8, 16))
+    a.update(over)
+    return layernorm_bwd(a["x"], a["dy"], a["scale"], residual=a["res"],
+                         out_dtype=torch.float32)
+
+
+def _col_sum(**over):
+    from biom3_tpu_torch.ops.kernels import col_sum
+
+    a = dict(x=_t(8, 16))
+    a.update(over)
+    return col_sum(a["x"])
+
+
+def _attn3_bwd(**over):
+    from biom3_tpu_torch.ops.kernels import stage3_attention_bwd
+
+    a = dict(qkv=_t(2, 32, 48), da=_t(2, 32, 16))
+    a.update(over)
+    return stage3_attention_bwd(a["qkv"], a["da"], heads=2, local_heads=1, window=8)
+
+
 # (wrapper, bad dtype, bad shape, non-contiguous) as keyword overrides
 BAD_INPUTS = {
     "gemm_bias_act": (_gemm, dict(a=_t(8, 16, dtype=torch.float64)), dict(w=_t(12, 24)),
@@ -219,6 +294,15 @@ BAD_INPUTS = {
     "esm2_embed": (_esm_embed, dict(table=_t(33, 16, dtype=torch.float64)),
                    dict(ids=torch.zeros(16, dtype=torch.int32)),
                    dict(table=_t(16, 33).t())),
+    "gemm_dx": (_gemm_dx, dict(h=_t(8, 24, dtype=torch.bfloat16)), dict(w=_t(24, 12)),
+                dict(dy=_t(16, 8).t())),
+    "gemm_dw": (_gemm_dw, dict(dy=_t(8, 24, dtype=torch.float64)), dict(dy=_t(9, 24)),
+                dict(x=_t(16, 8).t())),
+    "layernorm_bwd": (_ln_bwd, dict(dy=_t(8, 16, dtype=torch.bfloat16)),
+                      dict(scale=_t(12)), dict(res=_t(16, 8).t())),
+    "col_sum": (_col_sum, dict(x=_t(8, 16).int()), dict(x=_t(16)), dict(x=_t(16, 8).t())),
+    "stage3_attention_bwd": (_attn3_bwd, dict(da=_t(2, 32, 16).half()),
+                             dict(da=_t(2, 32, 15)), dict(da=_t(32, 2, 16).transpose(0, 1))),
 }
 
 
@@ -242,3 +326,133 @@ def test_launch_counts_untouched_on_cpu():
     for call, *_ in BAD_INPUTS.values():
         call()
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# --- the port's copies equal the JAX package's modules ----------------------
+
+def test_config_copy_parses_like_the_jax_package(tmp_path):
+    import dataclasses
+    import json
+
+    from biom3_tpu import config as jax_config
+    from biom3_tpu_torch import config
+
+    raw = {"transformer_dim": "256", "transformer_heads": 8, "transformer_local_heads": 3,
+           "transformer_local_size": 64, "diffusion_steps": 512, "text_emb_dim": 128,
+           "input_dp_rate": "0.1", "emb_dim": 256, "hid_dim": "None",
+           "protein_encoder_embedding": 640, "esm_num_layers": 6, "bert_num_layers": 4,
+           "weight_decay": "5e-7", "flag": "true", "nested": {"a": 1}}
+    (tmp_path / "c.json").write_text(json.dumps(raw))
+    got, want = config.load_json_config(tmp_path / "c.json"), jax_config.load_json_config(
+        tmp_path / "c.json")
+    assert got.to_dict() == want.to_dict()
+    assert (got.float("weight_decay"), got.int("hid_dim", 7), got.bool("flag")) == (
+        want.float("weight_decay"), want.int("hid_dim", 7), want.bool("flag"))
+    for name in ("ProteoScribeConfig", "FacilitatorConfig", "PenCLConfig"):
+        mine = getattr(config, name).from_stage_config(got)
+        theirs = getattr(jax_config, name).from_stage_config(want)
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs), name
+    for name in ("ESM2Config", "BertConfig", "ProteoScribeConfig", "FacilitatorConfig",
+                 "PenCLConfig"):
+        assert ([f.name for f in dataclasses.fields(getattr(config, name))]
+                == [f.name for f in dataclasses.fields(getattr(jax_config, name))]), name
+    with pytest.raises(ValueError):
+        config.ProteoScribeConfig(dim=30, heads=4)
+    with pytest.raises(ValueError):
+        config.ProteoScribeConfig.from_stage_config(config.Config({"transformer_reversible": 1}))
+
+
+def test_tokenizer_copies_encode_like_the_jax_package(tmp_path):
+    from biom3_tpu import native
+    from biom3_tpu.tokenizers.stage3_vocab import Stage3Vocab as JaxStage3Vocab
+    from biom3_tpu.tokenizers.synthetic import write_synthetic_wordpiece as jax_write
+    from biom3_tpu.tokenizers.text import TextTokenizer as JaxTextTokenizer
+    from biom3_tpu_torch import tokenizers
+    from biom3_tpu_torch.cli.demo_data import DEMO_CAPTIONS, DEMO_SEQUENCES
+
+    proteins = list(DEMO_SEQUENCES) + ["ACDEFGHIKLMNPQRSTVWYXBUZO", "AC-DE-", "", "MKJ?"]
+    assert (tokenizers.esm_batch_encode(proteins, 1024)
+            == native.esm_batch_encode(proteins, 1024)).all()
+    stage3 = [s for s in proteins if "?" not in s and "J" not in s]
+    assert (tokenizers.stage3_batch_encode(stage3, 1024)
+            == native.stage3_batch_encode(stage3, 1024)).all()
+    with pytest.raises(ValueError):
+        tokenizers.stage3_batch_encode(["MKJ"], 16)
+    with pytest.raises(ValueError):
+        tokenizers.stage3_batch_encode(["A" * 15], 16)
+    mine, theirs = tokenizers.Stage3Vocab(), JaxStage3Vocab()
+    assert (mine.train_tokens, mine.decode_tokens) == (theirs.train_tokens, theirs.decode_tokens)
+    assert mine.decode_ids(range(29)) == theirs.decode_ids(range(29))
+    assert tokenizers.write_synthetic_wordpiece(tmp_path / "a") == jax_write(tmp_path / "b")
+    for f in ("vocab.txt", "tokenizer_config.json"):
+        assert (tmp_path / "a" / f).read_text() == (tmp_path / "b" / f).read_text()
+    captions = list(DEMO_CAPTIONS) + ["Ünïcödé protein [MASK] kinase!", "x" * 300]
+    got = tokenizers.TextTokenizer(str(tmp_path / "a"), max_length=64).batch_encode(captions)
+    want = JaxTextTokenizer(str(tmp_path / "b"), max_length=64).batch_encode(captions)
+    for k in ("input_ids", "attention_mask"):
+        assert (got[k] == want[k]).all(), k
+
+
+def test_io_and_demo_copies_equal_the_jax_package(tmp_path):
+    import numpy as np
+
+    from biom3_tpu.cli import demo_data as jax_demo
+    from biom3_tpu.io import torch_load
+    from biom3_tpu_torch.cli import demo_data
+    from biom3_tpu_torch.io import torch_io
+
+    assert (demo_data.DEMO_ACCESSIONS, demo_data.DEMO_SEQUENCES, demo_data.DEMO_CAPTIONS) == (
+        jax_demo.DEMO_ACCESSIONS, jax_demo.DEMO_SEQUENCES, jax_demo.DEMO_CAPTIONS)
+    obj = {"model.a": np.arange(6, dtype=np.float32).reshape(2, 3), "model.b": [torch.ones(2)],
+           "s": "text", "t": (np.zeros(1), 3)}
+    torch_io.save_torch_file(obj, tmp_path / "x.pt")
+    got, want = torch_io.load_torch_file(tmp_path / "x.pt"), torch_load.load_torch_file(
+        tmp_path / "x.pt")
+    assert got.keys() == want.keys() and (got["model.a"] == want["model.a"]).all()
+    assert torch_io.strip_prefix(got, "model.").keys() == torch_load.strip_prefix(
+        want, "model.").keys()
+    wrapped = {"state_dict": {"k": 1}}
+    assert torch_io.unwrap_checkpoint(wrapped) == torch_load.unwrap_checkpoint(wrapped)
+
+
+@pytest.mark.parametrize("which", ["proteoscribe", "facilitator", "esm2", "bert", "pencl"])
+def test_export_mapping_copy_equals_the_jax_package(which):
+    """The port's numpy Flax → state-dict mapping against
+    ``biom3_tpu/io/export.py`` on a random tree of each model: the same keys,
+    the same arrays."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from biom3_tpu import config as jc
+    from biom3_tpu.io import export
+    from biom3_tpu.models.facilitator import Facilitator
+    from biom3_tpu.models.pencl import PenCL
+    from biom3_tpu.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.io import from_jax
+
+    key = jax.random.key(0)
+    esm = jc.ESM2Config(num_layers=1, embed_dim=32, attention_heads=2)
+    bert = jc.BertConfig(num_layers=1, hidden_size=32, num_heads=2, intermediate_size=64,
+                         vocab_size=50, max_position_embeddings=16)
+    pencl = jc.PenCLConfig(esm=esm, bert=bert, protein_embedding=32, text_embedding=32,
+                           proj_dim=16, rep_layer=1, text_max_length=16, seq_max_length=16)
+    if which == "proteoscribe":
+        cfg = jc.ProteoScribeConfig(dim=32, depth=2, heads=4, local_heads=2, local_window=8,
+                                    max_seq_len=16, num_timesteps=16, cond_dim=8)
+        tree = ProteoScribe(cfg).init(key, jnp.zeros((1, 16), jnp.int32), jnp.zeros((1,)),
+                                      jnp.zeros((1, 8)))
+    elif which == "facilitator":
+        cfg = jc.FacilitatorConfig(in_dim=8, hid_dim=16, out_dim=8)
+        tree = Facilitator(cfg).init(key, jnp.zeros((1, 8)))
+    else:
+        tree = PenCL(pencl).init(key, jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 8), jnp.int32))
+        cfg = {"esm2": esm, "bert": bert, "pencl": pencl}[which]
+        sub = {"esm2": "protein_encoder", "bert": "text_encoder"}.get(which)
+        tree = tree["params"][sub] if sub else tree
+    tree = jax.tree_util.tree_map(np.asarray, tree)
+    got = getattr(from_jax, f"{which}_params_to_torch")(tree, cfg)
+    want = getattr(export, f"{which}_params_to_torch")(tree, cfg)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)

@@ -27,7 +27,8 @@ from biom3_tpu.io.export import pencl_params_to_torch
 from biom3_tpu.io.torch_load import save_torch_file
 from biom3_tpu.models.pencl import PenCL as JaxPenCL
 from biom3_tpu.tokenizers.synthetic import write_synthetic_wordpiece
-from biom3_tpu_torch.io.from_jax import pencl_from_jax
+from biom3_tpu_torch.config import load_json_config as port_load_json_config
+from biom3_tpu_torch.io.from_jax import pencl_from_jax, port_config
 from biom3_tpu_torch.models.pencl import PenCL, pencl_state_dict, text_state_dict
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -51,7 +52,7 @@ def pencl():
     params = model.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32),
                         jnp.zeros((1, 8), jnp.int32), method=JaxPenCL.init_all_params)
     params = _perturb(params, 0)
-    return cfg, model, params, pencl_from_jax(params, cfg)
+    return cfg, model, params, pencl_from_jax(params, port_config(cfg))
 
 
 def _inputs(rng, cfg, B=3, Lt=48, Lp=80):
@@ -95,12 +96,12 @@ def test_pencl_state_dict_names_every_dropped_key(pencl):
     cfg, _, params, _ = pencl
     sd = {k: torch.from_numpy(np.array(v)) for k, v in pencl_params_to_torch(params, cfg).items()}
     sd.update(_reference_only_keys(cfg))
-    held = set(PenCL(cfg).state_dict())
+    held = set(PenCL(port_config(cfg)).state_dict())
     assert set(pencl_state_dict(sd)) == held
     assert set(text_state_dict(sd)) == {k for k in held if k.startswith("text_")}
-    PenCL(cfg).load_state_dict(pencl_state_dict(sd), strict=True)
+    PenCL(port_config(cfg)).load_state_dict(pencl_state_dict(sd), strict=True)
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        PenCL(cfg).load_state_dict(pencl_state_dict({**sd, "protein_projection.stray":
+        PenCL(port_config(cfg)).load_state_dict(pencl_state_dict({**sd, "protein_projection.stray":
                                                      torch.zeros(1)}), strict=True)
 
 
@@ -152,7 +153,7 @@ def test_engine_tower_paths_agree(stage1_files):
     from biom3_tpu_torch.pipeline.stage1 import PenCLEngine
 
     root = stage1_files
-    cfg = load_json_config(root / "s1.json")
+    cfg = port_load_json_config(root / "s1.json")
     pairs = (DEMO_CAPTIONS[:3], DEMO_SEQUENCES[:3])
     fused = PenCLEngine(cfg, root / "s1.bin", device="cpu").embed(*pairs, batch_size=2)
     graph = PenCLEngine(cfg, root / "s1.bin", device="cpu", tower_impl="graph").embed(*pairs)
@@ -194,13 +195,13 @@ def test_text_only_engine_refuses_protein_path(stage1_files):
     from biom3_tpu_torch.pipeline.stage1 import PenCLEngine
 
     root = stage1_files
-    eng = PenCLEngine(load_json_config(root / "s1.json"), root / "s1.bin", device="cpu",
+    eng = PenCLEngine(port_load_json_config(root / "s1.json"), root / "s1.bin", device="cpu",
                       text_only=True)
     assert not hasattr(eng.model, "protein_encoder")
     with pytest.raises(ValueError, match="text_only"):
         eng.embed_tokens(np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32))
     with pytest.raises(ValueError, match="tower_impl"):
-        PenCLEngine(load_json_config(root / "s1.json"), device="cpu", tower_impl="flax")
+        PenCLEngine(port_load_json_config(root / "s1.json"), device="cpu", tower_impl="flax")
 
 
 def test_full_width_stage1_config_matches_jax(tmp_path):

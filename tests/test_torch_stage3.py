@@ -22,7 +22,7 @@ from biom3_tpu.ops.pallas.fused_layer_tpu import (
     fused_ff_half as jax_fused_ff_half,
 )
 from biom3_tpu_torch.diffusion.sampler import make_sampler
-from biom3_tpu_torch.io.from_jax import proteoscribe_from_jax
+from biom3_tpu_torch.io.from_jax import port_config, proteoscribe_from_jax
 from biom3_tpu_torch.models.fused_forward import make_stack_apply
 from biom3_tpu_torch.ops.stage3_layer import fused_attn_half, fused_ff_half
 
@@ -30,6 +30,7 @@ SMALL = ProteoScribeConfig(
     num_classes=29, dim=64, depth=3, n_blocks=1, heads=4, local_heads=2,
     local_window=32, max_seq_len=128, num_timesteps=128, cond_dim=48,
 )
+PORT_SMALL = port_config(SMALL)   # the port's own config class
 TOL = dict(atol=2e-4, rtol=1e-3)
 
 
@@ -56,7 +57,7 @@ def jax_model():
     x = rng.integers(0, 29, (B, L)).astype(np.int32)
     t = rng.integers(0, SMALL.num_timesteps, (B,)).astype(np.int32)
     z = _np(rng, B, SMALL.cond_dim)
-    return model, variables, proteoscribe_from_jax(variables, SMALL), x, t, z
+    return model, variables, proteoscribe_from_jax(variables, PORT_SMALL), x, t, z
 
 
 def test_fused_attn_half_matches_jax():
@@ -146,7 +147,7 @@ def test_plain_proteoscribe_unconditional_matches_flax(jax_model):
     _, _, _, x, t, _ = jax_model
     model = JaxProteoScribe(SMALL, conditional=False)
     variables = model.init(jax.random.key(1), jnp.asarray(x[:1]), jnp.asarray(t[:1]))
-    port = proteoscribe_from_jax(variables, SMALL)
+    port = proteoscribe_from_jax(variables, PORT_SMALL)
     assert not port.conditional
     want = np.asarray(model.apply(variables, jnp.asarray(x), jnp.asarray(t)))
     with torch.no_grad():

@@ -22,7 +22,7 @@ from biom3_tpu.ops.pallas.bert_stack_tpu import (
     bert_stack_arrays as jax_bert_stack_arrays,
     fused_bert_cls as jax_fused_bert_cls,
 )
-from biom3_tpu_torch.io.from_jax import facilitator_from_jax, pencl_text_from_jax
+from biom3_tpu_torch.io.from_jax import facilitator_from_jax, pencl_text_from_jax, port_config
 from biom3_tpu_torch.ops.bert_stack import bert_embed, bert_stack_arrays, fused_bert_cls
 
 CFG = BertConfig(num_layers=2, hidden_size=128, num_heads=2,
@@ -48,7 +48,7 @@ def pencl():
     params = model.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32),
                          jnp.zeros((1, 8), jnp.int32), method=PenCL.init_all_params)
     params = _perturb(params, 0)
-    return cfg, model, params, pencl_text_from_jax(params, cfg)
+    return cfg, model, params, pencl_text_from_jax(params, port_config(cfg))
 
 
 @pytest.mark.parametrize("gelu", ["erf", "tanh"])
@@ -87,7 +87,7 @@ def test_facilitator_matches_flax():
     params = _perturb(model.init(jax.random.key(3), jnp.zeros((1, cfg.in_dim))), 3)
     z = np.random.default_rng(3).standard_normal((5, cfg.in_dim)).astype(np.float32)
     want = np.asarray(model.apply(params, jnp.asarray(z)))
-    port = facilitator_from_jax(params, cfg)
+    port = facilitator_from_jax(params, port_config(cfg))
     with torch.no_grad():
         got = port(torch.from_numpy(z)).numpy()
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
