@@ -50,7 +50,8 @@ RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 # is reported under its own name)
 KERNEL_GROUPS = (("gemm_kernel<false, false>", "gemm_bias_act"),
                  ("gemm_kernel<false, true>", "gemm_dx"), ("gemm_kernel<true, false>", "gemm_dw"),
-                 ("esm2_attn", "esm2_attention"), ("flash_attn", "flash_attention"),
+                 ("esm2_bwd", "esm2_attention_bwd"), ("esm2_attn", "esm2_attention"),
+                 ("flash_attn", "flash_attention"),
                  ("dense_attn", "dense_attention"), ("layernorm_bwd", "layernorm_bwd"),
                  ("layernorm", "layernorm"), ("esm2_embed", "esm2_embed"),
                  ("local_heads_kernel", "stage3_attention_core"),

@@ -248,7 +248,11 @@ esm2_embed_kernel(const int *__restrict__ ids, const bf16 *__restrict__ table,
 
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
 
-constexpr int LNB_CHUNKS = 4;  // d <= LNB_CHUNKS * 256 (checked by the wrapper)
+// d <= LNB_CHUNKS * 256 (checked by the wrapper): five chunks of 256
+// columns cover ESM2-650M's 1280.  A lane keeps x̂ and the dγ/dβ sums of
+// its columns in registers; dŷ·γ is read again (from L1/L2) for the
+// output, so the five chunks fit the registers without spilling.
+constexpr int LNB_CHUNKS = 5;
 
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restrict__ dy,
@@ -266,7 +270,7 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
   for (int row = blockIdx.x * ROWS_PER_BLOCK + warp; row < rows;
        row += gridDim.x * ROWS_PER_BLOCK) {
     const size_t off = (size_t)row * d;
-    float xv[LNB_CHUNKS][8], gv[LNB_CHUNKS][8], s = 0.f;
+    float xv[LNB_CHUNKS][8], s = 0.f;
 #pragma unroll
     for (int k = 0; k < LNB_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
@@ -287,23 +291,22 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
           q += xv[k][e] * xv[k][e];
         }
     const float rstd = rsqrtf(warp_sum(q) / d + eps);
-    // x̂ in xv, dŷ·γ in gv; the two row means of the backward
+    // x̂ in xv; the two row means of dŷ·γ and dŷ·γ·x̂
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int k = 0; k < LNB_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
       if (c < d) {
-        float g[8];
-        load8(dy, off + c, 1, gv[k]);
+        float gv[8], g[8];
+        load8(dy, off + c, 1, gv);
         load8(gamma, c, 1, g);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           xv[k][e] *= rstd;
-          dg[k][e] += gv[k][e] * xv[k][e];
-          db[k][e] += gv[k][e];
-          gv[k][e] *= g[e];
-          s1 += gv[k][e];
-          s2 += gv[k][e] * xv[k][e];
+          dg[k][e] += gv[e] * xv[k][e];
+          db[k][e] += gv[e];
+          s1 += gv[e] * g[e];
+          s2 += gv[e] * g[e] * xv[k][e];
         }
       }
     }
@@ -313,11 +316,13 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
     for (int k = 0; k < LNB_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
       if (c < d) {
-        float r[8], o[8];
+        float gv[8], g[8], r[8], o[8];
+        load8(dy, off + c, 1, gv);
+        load8(gamma, c, 1, g);
         if (res) load8(res, off + c, res_f32, r);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          o[e] = rstd * (gv[k][e] - s1 - xv[k][e] * s2);
+          o[e] = rstd * (gv[e] * g[e] - s1 - xv[k][e] * s2);
           if (res) o[e] += r[e];
         }
         if (dx_f32) {
@@ -475,7 +480,7 @@ B3_EXPORT int b3_col_sum(const void *x, int x_f32, int rows, int n, void *out, v
 // x (rows, d) f32 or bf16, dy (rows, d) f32, gamma (d,) f32, res (rows, d)
 // f32 or bf16 or null → dx (rows, d) f32 or bf16, optionally a bf16 copy
 // dx16 of it, and dgb (2d,) = [dγ | dβ]; partial (blocks, 2d) f32 scratch;
-// d % 8 == 0 and d <= 1024.
+// d % 8 == 0 and d <= 1280.
 B3_EXPORT int b3_layernorm_bwd(const void *x, int x_f32, const void *dy, const void *gamma,
                                const void *res, int res_f32, void *dx, int dx_f32, void *dx16,
                                void *dgb, void *partial, int rows, int d, int blocks, float eps,

@@ -20,7 +20,13 @@ from biom3_tpu_torch.config import ESM2Config, FacilitatorConfig, PenCLConfig, P
 from biom3_tpu_torch.io.state_dict import to_tensors
 from biom3_tpu_torch.models.esm2 import ESM2, esm2_state_dict
 from biom3_tpu_torch.models.facilitator import Facilitator
-from biom3_tpu_torch.models.pencl import PenCL, PenCLText, pencl_state_dict, text_state_dict
+from biom3_tpu_torch.models.pencl import (
+    PenCL,
+    PenCLText,
+    pencl_state_dict,
+    pencl_train_state_dict,
+    text_state_dict,
+)
 from biom3_tpu_torch.models.proteoscribe import ProteoScribe
 
 # --- Flax tree → reference state-dict keys ---------------------------------
@@ -241,5 +247,16 @@ def pencl_from_jax(params: dict, cfg: PenCLConfig, **kw) -> PenCL:
     dropped explicitly (``pencl_state_dict``)."""
     model = PenCL(cfg, **kw)
     model.load_state_dict(pencl_state_dict(to_tensors(pencl_params_to_torch(params, cfg))),
+                          strict=True)
+    return model.eval()
+
+
+def pencl_train_from_jax(params: dict, cfg: PenCLConfig, **kw) -> PenCL:
+    """A full Flax PenCL tree (``PenCL.init_all_params``) → the training
+    module ``PenCL(cfg, mlm_heads=True, **kw)``, both MLM heads carried
+    over (``lm_head_dense``, ``lm_head_layer_norm``, ``lm_head_bias``,
+    ``mlm_dense``, ``mlm_norm``, ``mlm_bias``)."""
+    model = PenCL(cfg, mlm_heads=True, **kw)
+    model.load_state_dict(pencl_train_state_dict(to_tensors(pencl_params_to_torch(params, cfg))),
                           strict=True)
     return model.eval()

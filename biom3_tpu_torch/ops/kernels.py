@@ -364,13 +364,30 @@ def esm2_attention(qkv: torch.Tensor, padding_mask: torch.Tensor, cos: torch.Ten
     return out
 
 
-def esm2_attention_plain(qkv, padding_mask, cos, sin, *, heads):
+def _esm2_heads(qkv, cos, sin, heads):
+    """(B, L, 3E) → q, k rotated in qkv's dtype and v, each (B, H, L, Dh)."""
     B, L, e3 = qkv.shape
     E = e3 // 3
     q, k, v = (t.reshape(B, L, heads, E // heads).transpose(1, 2)
                for t in qkv.split(E, dim=-1))
-    q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-    return flash_attention_plain(q, k, v, padding_mask).transpose(1, 2).reshape(B, L, E)
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
+def _esm2_probs(q, k, padding_mask):
+    """f32 softmax of the rotated scores with -1e9 added on PAD keys, as
+    the TPU kernel adds its ``padneg`` (esm2_block_tpu.py:105, :218): the
+    probabilities equal the -1e9 fill's (a PAD key's is 0 when a real key
+    exists; an all-PAD row is uniform), and the gradient is the TPU
+    kernel's, which reaches the scores of an all-PAD row."""
+    dots = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return torch.softmax(dots + NEG_INF * padding_mask.float()[:, None, None, :], dim=-1)
+
+
+def esm2_attention_plain(qkv, padding_mask, cos, sin, *, heads):
+    B, L, e3 = qkv.shape
+    q, k, v = _esm2_heads(qkv, cos, sin, heads)
+    p = _esm2_probs(q, k, padding_mask).to(v.dtype).float()
+    return (p @ v.float()).to(v.dtype).transpose(1, 2).reshape(B, L, e3 // 3)
 
 
 # --------------------------------------------------------------------------
@@ -525,10 +542,11 @@ def esm2_embed_plain(ids, table, *, pad_idx=1, mask_idx=32, token_dropout=True):
 
 # --------------------------------------------------------------------------
 # training backward: layernorm_bwd, col_sum (csrc/rowwise.cu),
-# stage3_attention_bwd (csrc/stage3_attn_bwd.cu)
+# stage3_attention_bwd (csrc/stage3_attn_bwd.cu), esm2_attention_bwd
+# (csrc/esm2_attn_bwd.cu)
 # --------------------------------------------------------------------------
 
-LNB_MAX_D = 1024      # the kernel keeps 4 chunks of 256 columns a row in registers
+LNB_MAX_D = 1280      # the kernel keeps 5 chunks of 256 columns a row in registers
 LNB_BLOCKS = 4 * 132  # row blocks of layernorm_bwd: four per SM
 
 
@@ -709,9 +727,68 @@ def stage3_attention_bwd_plain(qkv, dattn, *, heads, local_heads, window):
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dt)
 
 
+def esm2_attention_bwd(qkv: torch.Tensor, dattn: torch.Tensor, padding_mask: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor, *, heads: int) -> torch.Tensor:
+    """Gradient of ``esm2_attention`` with respect to its input: qkv (B, L,
+    3E) [q | k | v], the output gradient dattn (B, L, E), padding_mask (B,
+    L) int32 and the rotary tables (L, Dh) → dqkv (B, L, 3E) in qkv's
+    dtype, dq and dk in pre-rotation coordinates; every softmax is
+    recomputed."""
+    cd = _compute_dtypes(qkv)
+    _check("qkv", qkv, dtypes=cd, ndim=3, vectors=True)
+    B, L, e3 = qkv.shape
+    if e3 % 3 or (e3 // 3) % heads:
+        raise ValueError(f"qkv last dim {e3} is not 3·E with E divisible by heads={heads}")
+    E = e3 // 3
+    dh = E // heads
+    _check("dattn", dattn, dtypes=(qkv.dtype,), shape=(B, L, E), device=qkv.device, vectors=True)
+    _check("padding_mask", padding_mask, dtypes=(torch.int32,), shape=(B, L),
+           device=qkv.device)
+    _check("cos", cos, dtypes=(qkv.dtype,), shape=(L, dh), device=qkv.device, vectors=True)
+    _check("sin", sin, dtypes=(qkv.dtype,), shape=(L, dh), device=qkv.device, vectors=True)
+    if not qkv.is_cuda:
+        return esm2_attention_bwd_plain(qkv, dattn, padding_mask, cos, sin, heads=heads)
+    if dh not in (32, 64):
+        raise ValueError(f"esm2_attention_bwd kernel needs head dim 32 or 64, got {dh}")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((B, heads, L, 4), dtype=torch.float32, device=qkv.device)
+    _build.launch("b3_esm2_attention_bwd", _ptr(qkv), _ptr(dattn), _ptr(padding_mask), _ptr(cos),
+                  _ptr(sin), _ptr(dqkv), _ptr(stats), B, L, E, heads, _stream(qkv))
+    esm2_attention_bwd.launches += 1
+    return dqkv
+
+
+def _unrotate(d, cos, sin, rnd):
+    """Adjoint of ``apply_rotary``: d·cos + rotate_halfᵀ(rnd(d·sin)), with
+    rotate_halfᵀ(w) = [w2, -w1] (the TPU kernel's ``unrot``,
+    esm2_block_tpu.py:202-208)."""
+    w1, w2 = rnd(d * sin.float()).chunk(2, dim=-1)
+    return d * cos.float() + torch.cat([w2, -w1], dim=-1)
+
+
+def esm2_attention_bwd_plain(qkv, dattn, padding_mask, cos, sin, *, heads):
+    """The TPU kernel's backward (esm2_block_tpu.py:210-258): f32 sums, p
+    rounded to qkv's dtype for dV, dS before the dQ/dK products, and the
+    rotation's adjoint rounded where ``unrot`` rounds."""
+    dt = qkv.dtype
+    B, L, e3 = qkv.shape
+    E = e3 // 3
+    rnd = lambda z: z.to(dt).float()  # noqa: E731
+    q, k, v = _esm2_heads(qkv, cos, sin, heads)
+    p = _esm2_probs(q, k, padding_mask)
+    da = dattn.reshape(B, L, heads, E // heads).transpose(1, 2).float()
+    dv = rnd(p).transpose(-1, -2) @ da
+    dp = da @ v.float().transpose(-1, -2)
+    ds = rnd(p * (dp - (dp * p).sum(-1, keepdim=True)) * q.shape[-1] ** -0.5)
+    dq = _unrotate(ds @ k.float(), cos, sin, rnd)
+    dk = _unrotate(ds.transpose(-1, -2) @ q.float(), cos, sin, rnd)
+    merge = lambda z: z.transpose(1, 2).reshape(B, L, E)  # noqa: E731
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dt)
+
+
 KERNELS = (gemm_bias_act, stage3_attention_core, dense_attention, bias_layernorm,
            layernorm, embed_tokens, gather_head, esm2_embed, esm2_attention, flash_attention,
-           gemm_dx, gemm_dw, layernorm_bwd, col_sum, stage3_attention_bwd)
+           gemm_dx, gemm_dw, layernorm_bwd, col_sum, stage3_attention_bwd, esm2_attention_bwd)
 
 
 def reset_launches() -> None:

@@ -1,15 +1,32 @@
-"""Stage-3 training metrics.
+"""Training metrics.
 
-Port of the Stage-3 subset of ``biom3_tpu/training/metrics.py:163-217``
-(the reference's ``compute_ppl``, ``compute_hard_acc``, the time-split
+Port of ``biom3_tpu/training/metrics.py``: the Stage-1 contrastive
+classification metrics (:29-54) and the Stage-3 subset (:163-217: the
+reference's ``compute_ppl``, ``compute_hard_acc``, the time-split
 accuracy/perplexity and ``compute_pos_entropy``), with masks in place of
-per-sample Python loops.  BLOSUM soft accuracy, RankMe and the contrastive
-metrics are not ported yet.
+per-sample Python loops.  BLOSUM soft accuracy and RankMe are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def contrastive_metrics(logits: torch.Tensor) -> dict:
+    """Argmax accuracy of the (2B, 2B) contrastive logits (text rows ×
+    protein columns) for the text side, the protein side and their mean
+    probabilities (ref PL_wrapper.py:1334-1398); for single-label multiclass
+    sklearn's micro precision, recall and F1 all equal the accuracy."""
+    logits = logits.float()
+    y_true = torch.arange(logits.shape[0], device=logits.device)
+    p_text = torch.softmax(logits, dim=-1)
+    p_seq = torch.softmax(logits.T, dim=-1)
+    out = {}
+    for source, p in (("text", p_text), ("seq", p_seq), ("total", (p_seq + p_text) / 2)):
+        a = (p.argmax(-1) == y_true).float().mean()
+        out.update({f"{source}_{k}": a for k in ("accuracy", "precision", "recall", "f1")})
+    return out
 
 
 def _entropy(probs: torch.Tensor) -> torch.Tensor:

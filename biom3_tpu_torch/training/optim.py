@@ -15,14 +15,20 @@ Port of ``biom3_tpu/training/optim.py:22-75`` from optax to ``torch.optim``:
   config's value (default 0): the value is always passed explicitly.
   ``grad_clip`` clips the global gradient norm first
   (``optax.clip_by_global_norm``).
+* ``make_grouped_optimizer`` (``biom3_tpu/training/optim.py:78-132``,
+  Stage-1's per-tower learning rates): optax's ``multi_transform`` of one
+  AdamW per label becomes one ``torch.optim.AdamW`` with a parameter group
+  per label, each with its own rate and weight decay.
 * Adafactor is not ported: ``optax.adafactor`` and ``torch.optim.Adafactor``
-  are different algorithms.
+  are different algorithms.  Nor are bf16 Adam first moments (optax
+  ``mu_dtype``): ``torch.optim.AdamW`` keeps its moments in the
+  parameters' dtype.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Mapping
 
 import torch
 
@@ -90,3 +96,33 @@ def make_optimizer(name: str, params: Iterable[torch.Tensor], lr: float,
     else:
         raise ValueError(f"unknown optimizer {name!r}; choose AdamW/Adam/DeepSpeedCPUAdam")
     return Optimizer(opt, schedule, grad_clip)
+
+
+def make_grouped_optimizer(named_params: Iterable[tuple[str, torch.Tensor]],
+                           group_fn: Callable[[str], str], group_lrs: Mapping[str, float],
+                           weight_decay: float = 0.0, decay_groups: tuple = (),
+                           optimizer: str = "adamw", moment_dtype: str | None = None) -> Optimizer:
+    """AdamW with one parameter group per label: ``group_fn`` maps a
+    parameter's name to its label, ``group_lrs`` a label to its rate, and
+    the labels in ``decay_groups`` get ``weight_decay`` (the others 0)."""
+    name = optimizer.lower()
+    if name == "adafactor":
+        raise NotImplementedError("Adafactor is not ported: optax.adafactor and "
+                                  "torch.optim.Adafactor are different algorithms")
+    if name not in ("adamw", "deepspeedcpuadam"):
+        raise ValueError(f"unknown grouped optimizer {optimizer!r}; choose adamw")
+    if moment_dtype not in (None, "None", "float32"):
+        raise NotImplementedError(f"moment_dtype={moment_dtype!r} is not ported: "
+                                  "torch.optim.AdamW keeps its moments in the parameters' dtype")
+    groups: dict[str, list] = {}
+    for pname, p in named_params:
+        groups.setdefault(group_fn(pname), []).append(p)
+    unknown = sorted(set(groups) - set(group_lrs))
+    if unknown:
+        raise ValueError(f"parameter groups {unknown} have no learning rate")
+    opt = torch.optim.AdamW(
+        [{"params": ps, "lr": group_lrs[label], "name": label,
+          "weight_decay": weight_decay if label in decay_groups else 0.0}
+         for label, ps in groups.items()],
+        betas=(0.9, 0.999), eps=1e-8)
+    return Optimizer(opt, None, None)

@@ -1,0 +1,115 @@
+"""Stage-1 (PenCL) training task: the contrastive + MLM step.
+
+Port of ``biom3_tpu/training/stage1_task.py`` (the reference's
+``pfam_PL_PEN_CL.training_step``, ``Stage1_source/PL_wrapper.py:931-1114``):
+the loss over the whole batch — inter-modal InfoNCE, intra-modal InfoNCE
+(tracked but left out of the total for ``"pfam_ablated"``), text MLM and
+protein MLM — one optimizer step, and the per-tower AdamW groups.  One
+process holds the whole global batch (the JAX package's SPMD step over a
+device mesh is not ported).
+
+Dropout follows the model's mode: the train step puts the model in train
+mode, where the projection heads' and the BERT tower's dropout fire, as the
+JAX step's dropout key does; eval mode is the deterministic forward (a
+``None`` key there).  Dropout draws from torch's default generator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from biom3_tpu_torch.models.pencl import (
+    compute_inter_loss,
+    compute_intra_loss,
+    compute_masked_lang_loss,
+)
+from biom3_tpu_torch.training.metrics import contrastive_metrics
+from biom3_tpu_torch.training.optim import Optimizer, make_grouped_optimizer
+from biom3_tpu_torch.training.state import TrainState
+
+DATASET_TYPES = ("default", "masked", "pfam", "pfam_ablated")
+
+
+def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str = "pfam",
+                   text_mask_id: int, protein_mask_id: int):
+    """batch: ``{text,protein}_tokens`` (and ``_masked``), optionally the
+    ``pfam_*`` equivalents.  ``dataset_type`` selects the loss terms, the
+    reference's three Lightning wrappers:
+
+    * ``"default"``: the inter-modal loss only;
+    * ``"masked"``: inter + text and protein MLM;
+    * ``"pfam"``: SwissProt + Pfam batch, inter + intra + both MLM;
+    * ``"pfam_ablated"``: pfam without the intra loss in the total.
+
+    Returns (loss, aux) with every term and the contrastive logits."""
+    if dataset_type not in DATASET_TYPES:
+        raise ValueError(f"Unexpected dataset_type {dataset_type!r}")
+    has_pfam = "pfam_text_tokens" in batch
+    out = model(batch["text_tokens"], batch["protein_tokens"])
+    z_t_all, z_p_all = out["text_joint_latent"], out["seq_joint_latent"]
+    if has_pfam:
+        pf = model(batch["pfam_text_tokens"], batch["pfam_protein_tokens"])
+        z_t_all = torch.cat([z_t_all, pf["text_joint_latent"]])
+        z_p_all = torch.cat([z_p_all, pf["seq_joint_latent"]])
+    loss_align, logits = compute_inter_loss(z_p_all, z_t_all, z_p_all.shape[0] // 2,
+                                            temperature)
+    aux = {"loss_align": loss_align, "logits": logits}
+    loss = loss_align
+    if dataset_type in ("pfam", "pfam_ablated"):
+        aux["loss_intra"], _ = compute_intra_loss(z_p_all, temperature)
+        if dataset_type == "pfam":
+            loss = loss + aux["loss_intra"]
+    if dataset_type != "default":
+        def cat(key):
+            return torch.cat([batch[key], batch["pfam_" + key]]) if has_pfam else batch[key]
+
+        mlm = model(cat("text_tokens_masked"), cat("protein_tokens_masked"),
+                    compute_masked_logits=True)
+        aux["loss_text_mask"] = compute_masked_lang_loss(
+            mlm["text_masked_logits"], cat("text_tokens"), cat("text_tokens_masked"),
+            text_mask_id)
+        aux["loss_seq_mask"] = compute_masked_lang_loss(
+            mlm["protein_masked_logits"], cat("protein_tokens"), cat("protein_tokens_masked"),
+            protein_mask_id)
+        loss = loss + aux["loss_text_mask"] + aux["loss_seq_mask"]
+    aux["loss"] = loss
+    return loss, aux
+
+
+def make_stage1_train_step(state: TrainState, *, temperature: float, dataset_type: str = "pfam",
+                           text_mask_id: int, protein_mask_id: int):
+    """→ ``step(batch) -> aux``: one optimizer step on ``batch`` (token
+    tensors on the model's device) in train mode; aux holds the detached
+    loss terms and the contrastive metrics."""
+    model = state.model
+
+    def step(batch: dict) -> dict:
+        model.train()
+        loss, aux = stage1_loss_fn(model, batch, temperature=temperature,
+                                   dataset_type=dataset_type, text_mask_id=text_mask_id,
+                                   protein_mask_id=protein_mask_id)
+        loss.backward()
+        state.apply_gradients()
+        logits = aux.pop("logits").detach()
+        return {**{k: v.detach() for k, v in aux.items()}, **contrastive_metrics(logits)}
+
+    return step
+
+
+def _group_of(name: str) -> str:
+    tower = name.split(".", 1)[0]
+    return {"protein_encoder": "protein", "text_encoder": "text"}.get(tower, "heads")
+
+
+def make_stage1_optimizer(cfg, model: torch.nn.Module) -> Optimizer:
+    """Per-group AdamW: protein tower, text tower and projection heads, each
+    at its own rate (ref configure_optimizers, PL_wrapper.py:1309-1326), all
+    three with the config's weight decay.  ``"optimizer": "adafactor"`` and
+    ``"moment_dtype": "bfloat16"`` are not ported and raise."""
+    return make_grouped_optimizer(
+        model.named_parameters(), _group_of,
+        {"protein": cfg.float("protein_encoder_lr", 5e-4),
+         "text": cfg.float("text_encoder_lr", 5e-4),
+         "heads": cfg.float("head_lr", 5e-4)},
+        weight_decay=cfg.float("weight_decay", 0.0), decay_groups=("protein", "text", "heads"),
+        optimizer=cfg.get("optimizer", "adamw"), moment_dtype=cfg.get("moment_dtype"))

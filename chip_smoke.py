@@ -19,7 +19,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    local_heads 0 and = heads, head dim 64, ragged rows): bf16
    max|Δ|/max|ref| <= 2e-2 (the attention gradient per 32-column head
    group), with the kernel's, the plain version's and, where one exists,
-   one PyTorch call's time, and the least time the card could take;
+   one PyTorch call's time, and the least time the card could take; the
+   training kernels also at one ESM2-650M layer's backward (B=2, L=1024);
 4. full-width ``fused_stack_logits`` on the kernels (bf16, tanh GELU)
    against the plain f32 ProteoScribe, the full-width BERT tower and
    ``fused_esm2_cls`` against the plain f32 towers, and the PenCL graph
@@ -41,12 +42,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
    for ``layer_block``, ``block`` and ``unrolled`` with a profile of the
    first; then the training CLI (``biom3_tpu_torch.cli.run_train_stage3``)
    on a seeded synthetic data file: ``layer_block`` 4 steps with
-   ``--export_bin``, ``--resume`` to 6, ``block`` 2 steps.
+   ``--export_bin``, ``--resume`` to 6, ``block`` 2 steps;
+8. Stage-1 (PenCL) training at full width (ESM2-650M, PubMedBERT-base
+   widths, projection heads to 512) on seeded weights: (a) the ``pfam``
+   loss (all four terms) and every parameter gradient of ``PenCL(attn_impl=
+   "layer-block")`` in bf16 on the kernels against the plain f32 module
+   (dropout off, fixed masks, B=2 pairs, the projection heads' output
+   LayerNorms seeded small so that the contrastive terms' gradient, which
+   bf16 moves on torch ops too, is a small part of the whole); (b)
+   ``STAGE1_STEPS`` train steps on one fixed batch of 4 full-length pairs
+   must cut the loss and its MLM terms to 0.8x, with ms per step, peak memory and a profile for
+   ``layer_block``, and ms per step for ``xla`` with ``--remat`` at B=4 and
+   without it at B=1 (where its attention maps fit with room), beside
+   ``layer_block`` at B=1; (c) the training CLI
+   (``biom3_tpu_torch.cli.run_train_stage1``) on a seeded synthetic CSV:
+   ``layer_block`` 3 steps with ``--export_bin``, ``--resume`` to 5, then
+   ``run_pencl_inference --device cuda`` on the exported ``.bin``.
 
 Each path (phase 5, the CLI of phase 6, the graph engine of phase 6, the
-two training CLI modes of phase 7) runs with the launch counts set to 0
-just before it and read just after, and must have launched exactly its
-own kernels.  The line before the last is the kernels' JSON record, with
+two training CLI modes of phase 7, the Stage-1 training CLI runs and the
+inference CLI on their ``.bin`` in phase 8) runs with the launch counts
+set to 0 just before it and read just after, and must have launched
+exactly its own kernels.  The line before the last is the kernels' JSON record, with
 each kernel's time, its plain version's, the least time the card could
 take (``bound_ms``) and one PyTorch call's time where one computes the
 same function (``library_ms``); the last is ``{"ok": true, "device":
@@ -77,7 +94,21 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # it: at seeded weights the linear heads' to_q gradients are small and
 # bf16 rounding in the forward moves them as much on torch ops (PERF.md)
 LOSS_REL_TOL, GRAD_COS_MIN, TENSOR_COS_MIN, TENSOR_COS_SLACK = 1e-2, 0.999, 0.99, 0.1
+# phase 8a, the same gates.  A tensor whose f32 gradient norm is under
+# ZERO_GRAD_REL of the whole gradient's is zero up to rounding (a BERT key
+# bias), and its bf16 norm must stay under ZERO_GRAD_MAX of the whole's.
+# Phase 8 seeds the projection heads' output LayerNorms small
+# (``measure_stage1.seeded_stage1``): the seeded latents are nearly
+# parallel, which bf16 resolves poorly in the contrastive terms' gradient,
+# on torch ops as on the kernels; at the usual scale that gradient is most
+# of the whole, at the small one a small part of it (PERF.md)
+ZERO_GRAD_REL, ZERO_GRAD_MAX = 1e-6, 1e-4
 TRAIN_STEPS, TRAIN_B, TRAIN_LR = 40, 32, 1e-3
+# phase 8b: Stage-1 steps on one fixed batch of 4 pairs.  The mean of the
+# last 3 steps' loss must be under step 1's, and that of the MLM terms at
+# most STAGE1_MLM_FALL of step 1's: in 16 steps the seeded towers learn the
+# masked tokens, while the contrastive terms stay at log 7 (PERF.md)
+STAGE1_STEPS, STAGE1_LR, STAGE1_MLM_FALL = 16, 1e-3, 0.8
 
 # kernel → (source, TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -111,6 +142,8 @@ KERNEL_SOURCES = {
                       "biom3_tpu/ops/pallas/layer_block_tpu.py:419"),
     "col_sum": ("biom3_tpu_torch/csrc/rowwise.cu",
                 "biom3_tpu/ops/pallas/layer_block_tpu.py:419"),
+    "esm2_attention_bwd": ("biom3_tpu_torch/csrc/esm2_attn_bwd.cu",
+                           "biom3_tpu/ops/pallas/esm2_block_tpu.py:411"),
 }
 
 # path → the kernels it launches, and no other
@@ -124,6 +157,8 @@ PATH_KERNELS = {
                           "layernorm_bwd"},
     "train_block": {"gemm_bias_act", "stage3_attention_core", "stage3_attention_bwd",
                     "gemm_dx", "gemm_dw", "col_sum"},
+    "train_stage1": {"layernorm", "gemm_bias_act", "esm2_attention", "esm2_attention_bwd",
+                     "gemm_dx", "gemm_dw", "col_sum", "layernorm_bwd"},
 }
 
 
@@ -241,12 +276,13 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     training kernels' first calls are one Stage-3 layer's backward; every
     other kernel's first call is its Stage-3 call (``dense_attention``: its
     BERT call; the ESM kernels and ``flash_attention``: their ESM-width
-    call)."""
+    call).  ``ESM_BACKWARD`` slices out the training kernels' calls of one
+    ESM2 layer's backward at the ESM batch."""
     import torch
     import torch.nn.functional as F
 
     from biom3_tpu_torch.ops import kernels as K
-    from biom3_tpu_torch.ops.rotary import rotary_cos_sin
+    from biom3_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 
     dev, bf, f32 = g.device, torch.bfloat16, torch.float32
     L, d, H, NL, W, FF = 1024, 512, 16, 8, 128, 2048
@@ -288,6 +324,24 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
         b, l, e3 = qkv.shape
         return qkv.view(b, l, 3, h, e3 // 3 // h).permute(2, 0, 3, 1, 4)
 
+    def ln_bwd(x, dy, scale, *, eps, out_dtype, want_cd=False, **kw):
+        """The library call is aten's LayerNorm backward from the mean and
+        rstd (computed here, outside the timing), without the residual."""
+        rows, n = x.shape
+        xf32 = x.float()
+        shift = torch.zeros_like(scale)
+        _, mean, rstd = torch.native_layer_norm(xf32, (n,), scale, shift, eps)
+        out = rows * n * (torch.finfo(out_dtype).bits // 8 + 2 * want_cd) + 8 * n
+        return case("layernorm_bwd", x, dy, scale, eps=eps, out_dtype=out_dtype, want_cd=want_cd,
+                    **kw, flops=12 * rows * n, out=out,
+                    lib=lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, xf32, (n,), mean, rstd, scale, shift, [True, True, True]))
+
+    def col_sum(x):
+        rows, n = x.shape
+        return case("col_sum", x, flops=rows * n, out=n * 4,
+                    lib=lambda: torch.sum(x, 0, dtype=f32))
+
     def ln(x, scale, shift, eps, out_dtype=bf, want_f32=False):
         rows, n = x.shape
         out = rows * n * (2 + 4 * want_f32)
@@ -314,6 +368,21 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     w1, w2, wo, w3 = (rnd(d, FF, scale=d ** -0.5), rnd(FF, d, scale=FF ** -0.5),
                       rnd(d, d, scale=d ** -0.5), rnd(d, 3 * d, scale=d ** -0.5))
     dattn = rnd(B, L, d)
+    # one ESM2-650M layer's backward at the ESM batch
+    Me = Be * L
+    dye, dqe, dhe, atte, ge = rnd(Me, Ee), rnd(Me, 3 * Ee), rnd(Me, FFe), rnd(Me, Ee), rnd(Me, FFe)
+    he, due = rnd(Me, FFe, dtype=f32), rnd(Me, Ee, dtype=f32)
+    woe, w3e = rnd(Ee, Ee, scale=Ee ** -0.5), rnd(Ee, 3 * Ee, scale=Ee ** -0.5)
+    w1e, w2e = rnd(Ee, FFe, scale=Ee ** -0.5), rnd(FFe, Ee, scale=FFe ** -0.5)
+    # the attention gradient and its library yardstick: autograd through
+    # SDPA with the boolean key mask on the already-rotated q, k (the
+    # rotation and its adjoint left out), graph built once, backward timed
+    dae = rnd(Be, L, Ee)
+    qs, ks, vs = (t.contiguous() for t in heads_of(qkve, He))
+    qs, ks = apply_rotary(qs, cos, sin), apply_rotary(ks, cos, sin)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, vs))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
+    dsdpa = dae.view(Be, L, He, Ee // He).transpose(1, 2)
     return {
         "gemm_bias_act": [
             gemm(x, w3),
@@ -379,22 +448,29 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
             gemm_dx(dy, w2, gelu_of=h1),                       # dh1 = (dy·W2ᵀ)∘gelu'(h1)
             gemm_dx(dh1, w1, out_dtype=f32),                   # du = dh1·W1ᵀ
             gemm_dx(dqkv, w3, out_dtype=f32),                  # dxn1 = dqkv·W3ᵀ
+            # ESM2: (K, N) = (1280, 1280), (1280, 5120), (5120, 1280), (3840, 1280)
+            gemm_dx(dye, woe), gemm_dx(dye, w2e, gelu_of=he), gemm_dx(dhe, w1e, out_dtype=f32),
+            gemm_dx(dqe, w3e, out_dtype=f32),
         ],
-        "gemm_dw": [gemm_dw(mid, dy), gemm_dw(u, dh1), gemm_dw(x, dy), gemm_dw(u, dqkv)],
+        "gemm_dw": [gemm_dw(mid, dy), gemm_dw(u, dh1), gemm_dw(x, dy), gemm_dw(u, dqkv),
+                    # ESM2: dW2, dW1, dWo, dW3
+                    gemm_dw(ge, dye), gemm_dw(atte, dhe), gemm_dw(atte, dye), gemm_dw(atte, dqe)],
         "layernorm_bwd": [
-            case("layernorm_bwd", xf, dxa, s, residual=dy, out_dtype=f32, want_cd=True,
-                 flops=12 * M * d, out=M * d * 6 + 8 * d),        # LN2: dxa and its bf16 copy
-            case("layernorm_bwd", x, dxa, s, residual=xf, out_dtype=bf,
-                 flops=12 * M * d, out=M * d * 2 + 8 * d),        # LN1: dx
+            ln_bwd(xf, dxa, s, residual=dy, eps=1e-6, out_dtype=f32, want_cd=True),  # LN2
+            ln_bwd(x, dxa, s, residual=xf, eps=1e-6, out_dtype=bf),                  # LN1
+            # ESM2: LN2 and LN1 at d = 1280, both into the bf16 dx with dy added
+            ln_bwd(rnd(Me, Ee, scale=3.0), due, vec(Ee, 1.0), residual=dye, eps=1e-5,
+                   out_dtype=bf),
+            ln_bwd(rnd(Me, Ee, scale=3.0), due, vec(Ee, 1.0), residual=dye, eps=1e-5,
+                   out_dtype=bf),
         ],
-        "col_sum": [
-            case("col_sum", xf, flops=M * d, out=d * 4,
-                 lib=lambda: torch.sum(xf, 0, dtype=f32)),          # dbo
-            case("col_sum", dy, flops=M * d, out=d * 4,
-                 lib=lambda: torch.sum(dy, 0, dtype=f32)),          # db2
-            case("col_sum", dh1, flops=M * FF, out=FF * 4,
-                 lib=lambda: torch.sum(dh1, 0, dtype=f32)),         # db1
-        ],
+        # dbo, db2, db1; ESM2: dbo (= db2), db3, db1
+        "col_sum": [col_sum(xf), col_sum(dy), col_sum(dh1), col_sum(dye), col_sum(dqe),
+                    col_sum(dhe)],
+        "esm2_attention_bwd": [
+            case("esm2_attention_bwd", qkve, dae, pad, cos, sin, heads=He,
+                 flops=10 * He * L * live_keys(pad) * (Ee // He), out=Be * L * 3 * Ee * 2,
+                 lib=lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dsdpa, retain_graph=True))],
     }
 
 
@@ -434,6 +510,13 @@ def edge_cases(g) -> dict[str, list]:
     qe, table = rnd(3, Le, 768), rnd(33, 1280)
     fl = [rnd(3, 4, Le, 64) for _ in range(3)]
     fl32 = [rnd(2, 3, 130, 32) for _ in range(3)]      # head dim 32, no mask
+    # the attention gradient: a ragged PAD row and an all-PAD row at L=1000,
+    # and head dim 32 with a ragged tile at L=130
+    pad_b = torch.zeros(3, Le, dtype=torch.int32, device=dev)
+    pad_b[1, 517:], pad_b[2] = 1, 1
+    pad32 = torch.zeros(2, 130, dtype=torch.int32, device=dev)
+    pad32[1, 77:] = 1
+    c32, s32 = rotary_cos_sin(130, 32, dtype=bf, device=dev)
     # bf16 rows off the 8-row block and d off the warp's 256-column stride
     xl = rnd(1003, 264, scale=3.0)
     ln = (1.0 + 0.1 * torch.randn(264, generator=g, device=dev),
@@ -483,13 +566,44 @@ def edge_cases(g) -> dict[str, list]:
                                want_cd=True)],
         "col_sum": [pair("col_sum", torch.randn(1003, 264, generator=g, device=dev)),
                     pair("col_sum", rnd(7, 264))],
+        "esm2_attention_bwd": [
+            pair("esm2_attention_bwd", rnd(3, Le, 2304), rnd(3, Le, 768), pad_b, cos, sin,
+                 heads=12),
+            pair("esm2_attention_bwd", rnd(2, 130, 768), rnd(2, 130, 256), pad32, c32, s32,
+                 heads=8)],
     }
+
+
+# the training kernels' calls of one ESM2 layer's backward in kernel_cases
+ESM_BACKWARD = {"gemm_dx": slice(4, 8), "gemm_dw": slice(4, 8), "layernorm_bwd": slice(2, 4),
+                "col_sum": slice(3, 6)}
+
+
+def time_cases(cases) -> dict:
+    """ms of the kernels, their plain versions and, where every case has
+    one, the library calls (CUDA events), and the bound of the cases."""
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+
+    ms = event_ms(lambda: [c["run"]() for c in cases], TIMED_ITERS)
+    plain_ms = event_ms(lambda: [c["plain"]() for c in cases], TIMED_ITERS)
+    libs = [c["lib"] for c in cases]
+    library_ms = event_ms(lambda: [lib() for lib in libs], TIMED_ITERS) if all(libs) else None
+    t_ops = sum(c["flops"] for c in cases) / PEAK_FLOPS * 1e3
+    t_bytes = sum(c["bytes"] for c in cases) / PEAK_BYTES * 1e3
+    bound_ms = sum(max(c["flops"] / PEAK_FLOPS, c["bytes"] / PEAK_BYTES) for c in cases) * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms}
+
+
+def timing_text(t: dict) -> str:
+    lib_txt = "—" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    return (f"kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) library {lib_txt}")
 
 
 def phase_kernels() -> dict:
     import torch
 
-    from biom3_tpu_torch.cli.measure_pencl import event_ms
     from biom3_tpu_torch.cli.run_pencl_inference import DEMO_SEQUENCES
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -508,7 +622,7 @@ def phase_kernels() -> dict:
                "col_sum": 3}
     # dqkv: each 32-column head group against its own scale (the linear
     # heads' dk is ~1/L of the local heads' dv)
-    grouped = {"stage3_attention_bwd": 32}
+    grouped = {"stage3_attention_bwd": 32, "esm2_attention_bwd": 64}
 
     results = {}
     for name, cases in timed.items():
@@ -521,23 +635,14 @@ def phase_kernels() -> dict:
                 worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
         if worst_rel > REL_TOL:
             raise AssertionError(f"{name}: max|Δ|/max|ref| = {worst_rel:.3e} > {REL_TOL}")
-        cases = cases[:n_timed.get(name, 1)]
-        ms = event_ms(lambda: [c["run"]() for c in cases], TIMED_ITERS)
-        plain_ms = event_ms(lambda: [c["plain"]() for c in cases], TIMED_ITERS)
-        libs = [c["lib"] for c in cases]
-        library_ms = (event_ms(lambda: [lib() for lib in libs], TIMED_ITERS)
-                      if all(libs) else None)
-        t_ops = sum(c["flops"] for c in cases) / PEAK_FLOPS * 1e3
-        t_bytes = sum(c["bytes"] for c in cases) / PEAK_BYTES * 1e3
-        bound_ms = sum(max(c["flops"] / PEAK_FLOPS, c["bytes"] / PEAK_BYTES) for c in cases) * 1e3
-        results[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms,
-                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                         "library_ms": library_ms}
-        lib_txt = "—" if library_ms is None else f"{library_ms:.4f} ms"
+        results[name] = {"max_abs_err": worst_abs,
+                         **time_cases(cases[:n_timed.get(name, 1)])}
         say("kernels", f"{name}: max|Δ| {worst_abs:.3e} rel {worst_rel:.3e} "
-                       f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-                       f"({results[name]['bound_by']}) library {lib_txt}")
+                       f"{timing_text(results[name])}")
+    for name, part in ESM_BACKWARD.items():
+        cases = timed[name][part]
+        say("kernels", f"{name}, one ESM2-650M layer's backward (B=2, L=1024, {len(cases)} "
+                       f"calls): {timing_text(time_cases(cases))}")
     return results
 
 
@@ -1042,6 +1147,244 @@ def phase_train_cli() -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 8: Stage-1 (PenCL) training at full width
+# --------------------------------------------------------------------------
+
+def phase_stage1_grads(stage1: dict) -> None:
+    """The ``pfam`` loss and every parameter gradient of ``layer-block`` in
+    bf16 on the kernels against the plain f32 module, same parameters (the
+    f32 module's rounded to bf16, so that both see the same weights; the
+    projection heads' output LayerNorms seeded small) and batch,
+    dropout off; the same module in bf16 on torch ops is the yardstick of
+    the per-tensor gate (phase 7's rule).  A tensor whose f32 gradient is
+    zero up to rounding (a BERT key bias: softmax is shift-invariant along a
+    row) has no direction to compare; its norm is held under
+    ``ZERO_GRAD_MAX`` of the whole gradient's instead.  The f32 and torch-op
+    modules rematerialise each layer (no change to their numbers) to keep
+    their (L, L) attention maps out of memory."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_stage1 import (
+        PROTEIN_MASK_ID,
+        TEXT_MASK_ID,
+        seeded_stage1,
+        stage1_batch,
+    )
+    from biom3_tpu_torch.config import Config, PenCLConfig
+    from biom3_tpu_torch.models.pencl import PenCL
+    from biom3_tpu_torch.training.stage1_task import stage1_loss_fn
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PenCLConfig.from_stage_config(Config(stage1))
+    batch = stage1_batch(cfg, ([1022, 398], [700, 1022]), np.random.default_rng(SEED + 9), dev)
+    kw = dict(temperature=cfg.temperature, dataset_type="pfam", text_mask_id=TEXT_MASK_ID,
+              protein_mask_id=PROTEIN_MASK_ID)
+    cos = torch.nn.functional.cosine_similarity
+    ref = seeded_stage1(cfg, SEED + 9, remat=True)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.copy_(p.bfloat16())
+    ref = ref.to(dev)
+
+    def loss_and_grads(model):
+        model.eval()
+        loss, _ = stage1_loss_fn(model, batch, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: q.grad.float().flatten()
+                                      for n, q in model.named_parameters()}
+
+    def compare(impl):
+        model = PenCL(cfg, attn_impl=impl, dtype=torch.bfloat16, remat=impl == "plain",
+                      mlm_heads=True).to(dev)
+        model.load_state_dict(ref.state_dict())
+        loss, grads = loss_and_grads(model)
+        total = float(cos(torch.cat(list(grads.values())), torch.cat(list(g_ref.values())),
+                          dim=0))
+        per = {n: float(cos(grads[n], g_ref[n], dim=0)) for n in grads if n not in zero}
+        return loss, total, per, {n: float(grads[n].norm()) / ref_norm for n in zero}
+
+    t0 = time.perf_counter()
+    loss_ref, g_ref = loss_and_grads(ref)
+    ref_norm = float(torch.cat(list(g_ref.values())).norm())
+    zero = {n for n, g in g_ref.items() if float(g.norm()) < ZERO_GRAD_REL * ref_norm}
+    ops_loss, ops_total, torch_ops, ops_zero = compare("plain")
+    loss, total, per, lb_zero = compare("layer-block")
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    worst = min(per, key=per.get)
+    bad = [n for n, c in per.items() if c < TENSOR_COS_MIN and c < torch_ops[n] - TENSOR_COS_SLACK]
+    bad += [n for n, r in lb_zero.items() if r > ZERO_GRAD_MAX]
+    say("stage1", f"layer-block (bf16, kernels) vs plain f32 PenCL, pfam, B=2 pairs: loss "
+                  f"{loss:.6f} vs {loss_ref:.6f} (rel {rel:.3e}; bf16 torch ops {ops_loss:.6f}); "
+                  f"gradient cosine {total:.6f} (bf16 torch ops: {ops_total:.6f}); worst tensor "
+                  f"{worst} {per[worst]:.6f} (bf16 torch ops: {torch_ops[worst]:.6f}); "
+                  f"{sum(c < TENSOR_COS_MIN for c in per.values())} of {len(per)} tensors under "
+                  f"{TENSOR_COS_MIN} (torch ops: "
+                  f"{sum(c < TENSOR_COS_MIN for c in torch_ops.values())}); {len(zero)} with a "
+                  f"zero f32 gradient (e.g. {sorted(zero)[:2]}), norm / whole ≤ "
+                  f"{max(lb_zero.values(), default=0):.3e} (torch ops: "
+                  f"{max(ops_zero.values(), default=0):.3e}); {time.perf_counter() - t0:.1f} s")
+    if rel > LOSS_REL_TOL or total < GRAD_COS_MIN or bad:
+        off = [(n, per.get(n), torch_ops.get(n), lb_zero.get(n)) for n in bad]
+        raise AssertionError(f"layer-block: loss rel {rel}, gradient cosine {total}, tensors off "
+                             f"the gates {off}")
+    del ref, g_ref
+    torch.cuda.empty_cache()
+
+
+def phase_stage1_steps(stage1: dict) -> None:
+    """Train steps on one fixed batch of full-length pairs: the loss must
+    fall, and its MLM terms to ``STAGE1_MLM_FALL`` of step 1's, in
+    ``layer_block`` mode at B=4; ms per step (CUDA events, from the
+    third step on) and peak memory of each mode; a profile of
+    ``layer_block``."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import profile_ms
+    from biom3_tpu_torch.cli.measure_stage1 import (
+        PROTEIN_MASK_ID,
+        TEXT_MASK_ID,
+        seeded_stage1,
+        stage1_batch,
+    )
+    from biom3_tpu_torch.config import Config, PenCLConfig
+    from biom3_tpu_torch.models.pencl import PenCL
+    from biom3_tpu_torch.training.stage1_task import make_stage1_optimizer, make_stage1_train_step
+    from biom3_tpu_torch.training.state import TrainState
+
+    dev = torch.device("cuda")
+    cfg = PenCLConfig.from_stage_config(Config(stage1))
+    init = seeded_stage1(cfg, SEED + 10).state_dict()
+    rng = np.random.default_rng(SEED + 10)
+    batches = {B: stage1_batch(cfg, ([1022] * B, [1022] * B), rng, dev) for B in (4, 1)}
+    lrs = Config({"protein_encoder_lr": STAGE1_LR, "text_encoder_lr": STAGE1_LR,
+                  "head_lr": STAGE1_LR})
+    # (--layer-mode, pairs, --remat, steps): xla without remat keeps two
+    # f32 (L, L) maps per head and layer, ~1.3 GB per sequence at full
+    # width, so it runs at B=1 beside layer_block at B=1
+    runs = [("layer_block", 4, False, STAGE1_STEPS), ("xla", 4, True, 6), ("xla", 1, False, 6),
+            ("layer_block", 1, False, 6)]
+    for mode, B, remat, steps in runs:
+        with torch.device(dev):
+            model = PenCL(cfg, attn_impl="layer-block" if mode == "layer_block" else "plain",
+                          dtype=torch.bfloat16, remat=remat, mlm_heads=True)
+        model.load_state_dict(init)
+        state = TrainState(model, make_stage1_optimizer(lrs, model))
+        step = make_stage1_train_step(state, temperature=cfg.temperature, dataset_type="pfam",
+                                      text_mask_id=TEXT_MASK_ID, protein_mask_id=PROTEIN_MASK_ID)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(SEED)   # dropout
+        auxes = []
+        for i in range(steps):
+            if i == 2:
+                start.record()
+            auxes.append(step(batches[B]))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (steps - 2)
+        losses = np.array([float(a["loss"]) for a in auxes])
+        mlm = np.array([float(a["loss_text_mask"] + a["loss_seq_mask"]) for a in auxes])
+        say("stage1", f"{mode}{' --remat' if remat else ''}: {ms:.3f} ms/step at B={B} pairs, "
+                      f"pfam, full-length (steps 3-{steps}, CUDA events); loss at step 1 "
+                      f"{losses[0]:.4f} (MLM terms {mlm[0]:.4f}), mean of steps {steps - 2}-"
+                      f"{steps} {losses[-3:].mean():.4f} ({mlm[-3:].mean():.4f}); peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{mode}: non-finite loss {losses}")
+        if steps == STAGE1_STEPS:
+            if losses[-3:].mean() >= losses[0] or mlm[-3:].mean() > STAGE1_MLM_FALL * mlm[0]:
+                raise AssertionError(f"{mode}: loss {losses.round(4).tolist()}, MLM terms "
+                                     f"{mlm.round(4).tolist()}: the loss did not fall, or the "
+                                     f"MLM terms not to {STAGE1_MLM_FALL}x")
+            prof = profile_ms(lambda: step(batches[B]), calls=2)
+            say("stage1", f"{mode} profile at B={B}, device ms per step: " + json.dumps(
+                {k: round(v, 3) for k, v in prof.items()}))
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
+def phase_stage1_cli() -> dict:
+    """The Stage-1 training CLI at full width on a seeded synthetic CSV:
+    ``layer_block`` 3 steps with ``--export_bin``, ``--resume`` to 5; then
+    ``run_pencl_inference --device cuda`` on the exported ``.bin`` → each
+    path's launch counts."""
+    import contextlib
+    import csv
+    import io
+
+    import torch
+
+    from biom3_tpu_torch.cli import run_pencl_inference
+    from biom3_tpu_torch.cli import run_train_stage1 as cli
+    from biom3_tpu_torch.cli.measure_pencl import stage1_config
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.pipeline.stage1 import compute_scores
+
+    rng = np.random.default_rng(SEED)
+    words = ["protein", "enzyme", "binding", "membrane", "kinase", "the", "a", "of", "with",
+             "activity", "catalyzes", "transport"]
+    counts = {"train_stage1": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = pathlib.Path(tmp)
+        s1 = {**stage1_config(root), "batch_size": 2, "epochs": 1, "seed": SEED,
+              "dataset_type": "pfam"}
+        (root / "s1.json").write_text(json.dumps(s1))
+        with open(root / "swissprot.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["primary_Accession", "protein_sequence", "[final]text_caption"])
+            for i, n in enumerate(rng.integers(50, 1023, 10)):
+                w.writerow([f"P{i:05d}", "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)),
+                            " ".join(rng.choice(words, int(rng.integers(5, 30))))])
+        common = ["--json_path", str(root / "s1.json"), "--output_dir", str(root / "out"),
+                  "--data_path", str(root / "swissprot.csv"), "--device", "cuda",
+                  "--layer-mode", "layer_block"]
+        runs = [["--max_steps", "3", "--export_bin", str(root / "trained.bin")],
+                ["--max_steps", "5", "--resume"]]
+        for extra, want in zip(runs, ("exported params to", "resumed from step 3")):
+            buf = io.StringIO()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(common + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_counts = K.launch_counts()
+            out = buf.getvalue()
+            print(out, end="", flush=True)
+            check_path("train_stage1", run_counts)
+            for name, c in run_counts.items():
+                counts["train_stage1"][name] = counts["train_stage1"].get(name, 0) + c
+            if want not in out or "finished at step" not in out:
+                raise AssertionError(f"run_train_stage1 {extra}: expected {want!r} in the output")
+            say("stage1", f"CLI {' '.join(extra[:3])}: {wall:.2f} s wall (set-up, checkpoint "
+                          f"and export included); launches {run_counts}")
+
+        K.reset_launches()
+        run_pencl_inference.main(["--json_path", str(root / "s1.json"), "--model_path",
+                                  str(root / "trained.bin"), "--output_path",
+                                  str(root / "latents.pt"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts["pencl_trained"] = K.launch_counts()
+        saved = torch.load(root / "latents.pt", weights_only=False)
+    check_path("pencl", counts["pencl_trained"])
+    n = len(run_pencl_inference.DEMO_SEQUENCES)
+    z_t, z_p = (torch.as_tensor(np.asarray(saved[key])) for key in ("z_t", "z_p"))
+    if z_t.shape != (n, 512) or z_p.shape != (n, 512):
+        raise AssertionError(f"z_t {tuple(z_t.shape)}, z_p {tuple(z_p.shape)}: expected ({n}, 512)")
+    if not (z_t.isfinite().all() and z_p.isfinite().all()):
+        raise AssertionError("non-finite latents from the trained .bin")
+    scores = compute_scores(z_p, z_t)
+    for key, dim in (("protein_given_text_probs", 0), ("text_given_protein_probs", 1)):
+        if not torch.allclose(scores[key].sum(dim), torch.ones(n), atol=1e-5):
+            raise AssertionError(f"{key} does not sum to 1 along axis {dim}")
+    say("stage1", f"run_pencl_inference on the trained .bin: {n} demo pairs, finite latents, "
+                  f"valid scores; launches {counts['pencl_trained']}")
+    return counts
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -1059,6 +1402,11 @@ def main() -> None:
     phase_train_grads()
     phase_train_steps()
     counts.update(phase_train_cli())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        stage1 = stage1_config(pathlib.Path(tmp))
+        phase_stage1_grads(stage1)
+        phase_stage1_steps(stage1)
+    counts.update(phase_stage1_cli())
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],

@@ -62,6 +62,12 @@ SLICE_MODULES = [
     "biom3_tpu_torch.cli.run_e2e",
     "biom3_tpu_torch.cli.run_pencl_inference",
     "biom3_tpu_torch.cli.measure_pencl",
+    "biom3_tpu_torch.models.layers",
+    "biom3_tpu_torch.ops.esm2_block",
+    "biom3_tpu_torch.training.stage1_task",
+    "biom3_tpu_torch.data.stage1_data",
+    "biom3_tpu_torch.cli.run_train_stage1",
+    "biom3_tpu_torch.cli.measure_stage1",
 ]
 
 
@@ -122,7 +128,7 @@ def test_build_targets_sm90a_under_ignored_build_dir():
 
     names = {p.name for p in _build.sources()}
     assert {"gemm_bf16.cu", "stage3_attn.cu", "dense_attn.cu", "rowwise.cu", "esm2_attn.cu",
-            "flash_attn.cu", "stage3_attn_bwd.cu"} <= names
+            "flash_attn.cu", "stage3_attn_bwd.cu", "esm2_attn_bwd.cu"} <= names
     # one nvcc per source (run together), then one link
     for src in _build.sources():
         cmd = _build.compile_command(src, "out.o")
@@ -271,6 +277,15 @@ def _attn3_bwd(**over):
     return stage3_attention_bwd(a["qkv"], a["da"], heads=2, local_heads=1, window=8)
 
 
+def _esm_attn_bwd(**over):
+    from biom3_tpu_torch.ops.kernels import esm2_attention_bwd
+
+    a = dict(qkv=_t(2, 16, 96), da=_t(2, 16, 32), pad=torch.zeros(2, 16, dtype=torch.int32),
+             cos=_t(16, 16), sin=_t(16, 16))
+    a.update(over)
+    return esm2_attention_bwd(a["qkv"], a["da"], a["pad"], a["cos"], a["sin"], heads=2)
+
+
 # (wrapper, bad dtype, bad shape, non-contiguous) as keyword overrides
 BAD_INPUTS = {
     "gemm_bias_act": (_gemm, dict(a=_t(8, 16, dtype=torch.float64)), dict(w=_t(12, 24)),
@@ -303,6 +318,8 @@ BAD_INPUTS = {
     "col_sum": (_col_sum, dict(x=_t(8, 16).int()), dict(x=_t(16)), dict(x=_t(16, 8).t())),
     "stage3_attention_bwd": (_attn3_bwd, dict(da=_t(2, 32, 16).half()),
                              dict(da=_t(2, 32, 15)), dict(da=_t(32, 2, 16).transpose(0, 1))),
+    "esm2_attention_bwd": (_esm_attn_bwd, dict(pad=torch.zeros(2, 16, dtype=torch.int64)),
+                           dict(da=_t(2, 16, 48)), dict(da=_t(16, 2, 32).transpose(0, 1))),
 }
 
 
