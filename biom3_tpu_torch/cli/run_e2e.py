@@ -2,8 +2,10 @@
 
 Port of ``biom3_tpu/cli/run_e2e.py``: the same flags, prints and ``.pt``
 output, plus ``--device`` (default ``cuda``).  On ``cuda`` the engines run
-bf16 on the port's kernels; on ``cpu`` they run f32 on the kernels' plain
-versions.
+bf16 on the port's kernels, in int8 by default (``--ff-quant`` and
+``--proj-quant`` reach Stage 3 only, as in the JAX CLI; the text tower's
+int8 is its engine's default); on ``cpu`` they run f32 on the kernels'
+plain versions.
 
   python -m biom3_tpu_torch.cli.run_e2e --device cuda \\
       --stage1_json ... --stage1_model ... \\
@@ -34,10 +36,9 @@ def parse_arguments(argv=None):
     p.add_argument("--positions_per_step", type=int, default=1,
                    help=">1 enables blocked fast decoding (k-fold fewer forwards)")
     p.add_argument("--ff-quant", choices=["auto", "none", "int8"], default="auto",
-                   help="Stage-3 FF matmuls in int8 (not ported: only auto/none run)")
+                   help="Stage-3 FF matmuls in int8 (auto: int8 on cuda, none on cpu)")
     p.add_argument("--proj-quant", choices=["auto", "none", "int8"], default="auto",
-                   help="Stage-3 q/k/v/out projections in int8 (not ported: only "
-                        "auto/none run)")
+                   help="Stage-3 q/k/v/out projections in int8 (auto: int8 on cuda)")
     p.add_argument("--decode_order", choices=["path", "confidence"], default="path")
     p.add_argument("--sampler", choices=["ardm", "maskgit"], default="ardm")
     p.add_argument("--maskgit_steps", type=int, default=16)
@@ -45,7 +46,7 @@ def parse_arguments(argv=None):
                    help="partial design to fill (not ported yet)")
     p.add_argument("--inpaint_unknown", type=str, default="?")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda: bf16 on the port's kernels; cpu: f32 plain versions")
+                   help="cuda: bf16 and int8 on the port's kernels; cpu: f32 plain versions")
     return p.parse_args(argv)
 
 
@@ -58,9 +59,6 @@ def _refuse_unported(args) -> None:
     if args.decode_order == "confidence":
         raise NotImplementedError("--decode_order confidence is not ported yet "
                                   "(ROADMAP queue 1, item 2)")
-    if "int8" in (args.ff_quant, args.proj_quant):
-        raise NotImplementedError("int8 serving quantization is not ported yet "
-                                  "(ROADMAP queue 2, item 2)")
 
 
 def main(argv=None) -> None:
@@ -86,7 +84,9 @@ def main(argv=None) -> None:
 
     s3 = ProteoScribeEngine(load_json_config(args.stage3_json), args.stage3_model,
                             device=args.device, temperature=args.temperature,
-                            positions_per_step=args.positions_per_step)
+                            positions_per_step=args.positions_per_step,
+                            ff_quant=None if args.ff_quant == "auto" else args.ff_quant,
+                            proj_quant=None if args.proj_quant == "auto" else args.proj_quant)
     sequences = s3.generate_sequences(z_c, num_replicas=args.num_replicas, seed=args.seed)
 
     result = {"prompts": prompts, "z_t": z_t, "z_c": z_c, "sequences": sequences}

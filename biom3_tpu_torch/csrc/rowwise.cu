@@ -33,6 +33,13 @@
 //   reduction of the split-K weight gradients (gemm_bf16.cu).  Pass 1 sums
 //   a slab of rows per block (8 warps, 8 columns a lane); pass 2 sums the
 //   slabs.
+// * quant_rows — the dynamic per-token activation quant of the int8 serving
+//   recipe (biom3_tpu/ops/pallas/quant.py:35-47, run inside
+//   stack_kernel_tpu.py:765, bert_stack_tpu.py:198, esm2_stack_tpu.py:294
+//   ahead of every int8 product): amax = max(max|x|, 1e-6) over the row in
+//   f32, codes rint(x · (127 / amax)) clipped to ±127 (one reciprocal
+//   multiplier, round half to even, as jnp.round), scale amax · (1/127).
+//   Its codes and scales equal the plain version's bit for bit.
 //
 // What bounds them: device-memory bandwidth (a few bytes per FLOP).  One
 // warp per row keeps every reduction in registers and shuffles; rows are
@@ -121,7 +128,7 @@ __global__ void layernorm_kernel(const void *__restrict__ x, int x_f32,
     load8(x, off + c, x_f32, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = (v[e] - mean) * rstd * scale[c + e] + shift[c + e];
-    *reinterpret_cast<uint4 *>(y + off + c) = pack8(v);
+    if (y) *reinterpret_cast<uint4 *>(y + off + c) = pack8(v);
     if (y32) {
       float4 *yp = reinterpret_cast<float4 *>(y32 + off + c);
       yp[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -244,6 +251,30 @@ esm2_embed_kernel(const int *__restrict__ ids, const bf16 *__restrict__ table,
       *reinterpret_cast<uint4 *>(o + c) = pack8(v);
     }
   }
+}
+
+__global__ void quant_rows_kernel(const void *__restrict__ x, int x_f32, int8_t *__restrict__ q,
+                                  float *__restrict__ scale, int rows, int d) {
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t off = (size_t)row * d;
+  float v[8], amax = 0.f;
+  for (int c = lane * 8; c < d; c += 256) {
+    load8(x, off + c, x_f32, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  }
+  amax = fmaxf(warp_max(amax), 1e-6f);
+  const float mul = 127.0f / amax;
+  for (int c = lane * 8; c < d; c += 256) {
+    load8(x, off + c, x_f32, v);
+    __align__(8) int8_t o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      o[e] = static_cast<int8_t>(fminf(fmaxf(rintf(v[e] * mul), -127.f), 127.f));
+    *reinterpret_cast<uint2 *>(q + off + c) = *reinterpret_cast<const uint2 *>(o);
+  }
+  if (lane == 0) scale[row] = amax * (1.0f / 127.0f);
 }
 
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
@@ -432,6 +463,15 @@ B3_EXPORT int b3_layernorm(const void *x, int x_f32, const void *scale, const vo
                      static_cast<cudaStream_t>(stream)>>>(
       x, x_f32, static_cast<const float *>(scale), static_cast<const float *>(shift),
       static_cast<bf16 *>(y), static_cast<float *>(y32), rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, d) f32 or bf16 → q (rows, d) int8, scale (rows,) f32; d % 8 == 0.
+B3_EXPORT int b3_quant_rows(const void *x, int x_f32, void *q, void *scale, int rows, int d,
+                            void *stream) {
+  quant_rows_kernel<<<row_grid(rows), ROWS_PER_BLOCK * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, x_f32, static_cast<int8_t *>(q), static_cast<float *>(scale), rows, d);
   return static_cast<int>(cudaGetLastError());
 }
 

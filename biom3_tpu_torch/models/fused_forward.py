@@ -7,7 +7,9 @@ the (T, depth, d) time-bias table precomputed — and returns
 ``apply(x, t, z_c, pos) → (B, k, C) f32``, the sampler's
 ``apply_takes_positions`` contract (``ops.stack.stack_logits``).  The JAX
 package's ``_cond_mlp`` is the ``ConditioningMLP`` module's own forward
-here.
+here.  ``ff_quant``/``proj_quant="int8"`` pack the FF or the q/k/v/out
+matrices as per-output-channel int8 (``ops/quant.py``, from the f32
+weights, as the JAX package packs them, fused_forward.py:244-256).
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ from biom3_tpu_torch.models.proteoscribe import (
     ProteoScribe,
     sinusoidal_time_embedding,
 )
+from biom3_tpu_torch.ops.quant import quantize_weight_int8
 from biom3_tpu_torch.ops.stack import pack_stack_weights, stack_logits
+
+QUANT_MODES = ("none", "int8")
 
 
 def final_head(model: ProteoScribe, h: torch.Tensor) -> torch.Tensor:
@@ -41,7 +46,7 @@ def time_bias_table(model: ProteoScribe) -> torch.Tensor:
 
 @torch.no_grad()
 def make_stack_apply(model: ProteoScribe, *, dtype: torch.dtype = torch.bfloat16,
-                     gelu: str = "erf"):
+                     gelu: str = "erf", ff_quant: str = "none", proj_quant: str = "none"):
     """Pack ``model`` for ``ops.stack.stack_logits``; returns
     ``apply(x (B, L) int, t (B,) int, z_c (B, cond_dim) | None, pos (B, k)
     int) → (B, k, C) f32``.  The module stays the owner of the condition
@@ -49,28 +54,39 @@ def make_stack_apply(model: ProteoScribe, *, dtype: torch.dtype = torch.bfloat16
     cfg = model.config
     if cfg.n_blocks != 1:
         raise ValueError(f"the stack forward serves one block, got n_blocks={cfg.n_blocks}")
+    for name, mode in (("ff_quant", ff_quant), ("proj_quant", proj_quant)):
+        if mode not in QUANT_MODES:
+            raise ValueError(f"{name} must be one of {QUANT_MODES}, got {mode!r}")
     core = model.transformer
     layers = list(core.transformer_blocks[0])
     depth, d = cfg.depth, cfg.dim
 
-    def mats(get):
-        return torch.stack([get(layer).t() for layer in layers]).to(dtype).contiguous()
+    def mats(get, quant: str):
+        """(depth, d_in, d_out) in ``dtype``, or int8 (depth, d_out, d_in)
+        codes and their (depth, d_out) scales."""
+        if quant == "none":
+            return torch.stack([get(layer).t() for layer in layers]).to(dtype).contiguous(), None
+        q, s = quantize_weight_int8(torch.stack([get(layer).t() for layer in layers]))
+        return q.transpose(1, 2).contiguous(), s.contiguous()
 
     def vecs(get):
         return torch.stack([get(layer) for layer in layers]).float().contiguous()
 
+    (wq, sq), (wk, sk), (wv, sv), (wo, so) = (
+        mats(lambda m, n=n: getattr(m.attn, n).weight, proj_quant)
+        for n in ("to_q", "to_k", "to_v", "to_out"))
+    (w1, s1), (w2, s2) = (mats(lambda m: m.ff.w1.weight, ff_quant),
+                          mats(lambda m: m.ff.w2.weight, ff_quant))
     w = pack_stack_weights(
         core.x_emb_NN.weight.to(dtype).contiguous(),
         core.axial_pos_emb.table().to(dtype).contiguous(),
         vecs(lambda m: m.attn_norm.weight), vecs(lambda m: m.attn_norm.bias),
-        mats(lambda m: m.attn.to_q.weight), mats(lambda m: m.attn.to_k.weight),
-        mats(lambda m: m.attn.to_v.weight),
-        mats(lambda m: m.attn.to_out.weight), vecs(lambda m: m.attn.to_out.bias),
+        wq, wk, wv, wo, vecs(lambda m: m.attn.to_out.bias),
         vecs(lambda m: m.ff_norm.weight), vecs(lambda m: m.ff_norm.bias),
-        mats(lambda m: m.ff.w1.weight), vecs(lambda m: m.ff.w1.bias),
-        mats(lambda m: m.ff.w2.weight), vecs(lambda m: m.ff.w2.bias),
+        w1, vecs(lambda m: m.ff.w1.bias), w2, vecs(lambda m: m.ff.w2.bias),
         core.norm.weight.float().contiguous(), core.norm.bias.float().contiguous(),
         core.out.weight.t().to(dtype).contiguous(), core.out.bias.float().contiguous(),
+        s1, s2, sq, sk, sv, so,
     )
     # (T, depth, d): the flat MLP output is laid out (d, depth)
     table = time_bias_table(model).reshape(cfg.num_timesteps, d, depth).transpose(1, 2)

@@ -18,9 +18,11 @@ takes the JAX module's switches (``proteoscribe.py:142-162``, ``:205-236``,
 ``:387-391``):
 
 * ``attn_impl``: ``"plain"`` (torch ops), ``"block"`` (the attention
-  sub-block on ``ops/attn_block.py``'s kernels, LayerNorms and FF in torch)
-  or ``"layer-block"`` (the whole layer on ``ops/layer_block.py``'s
-  kernels; no dropout path, as the TPU kernel);
+  sub-block on ``ops/attn_block.py``'s kernels, LayerNorms and FF in torch),
+  ``"layer-block"`` (the whole layer on ``ops/layer_block.py``'s
+  kernels; no dropout path, as the TPU kernel) or ``"kernel"`` (torch ops
+  with the band-local heads on the forward-only ``local_window_attention``
+  kernel: the JAX module's ``attn_impl="pallas"``);
 * ``dtype``: the compute dtype of the projections, attention and FF; the
   parameters, LayerNorms, embeddings, conditioning MLPs, final norm and
   head stay f32 (Flax ``dtype=`` semantics);
@@ -47,7 +49,7 @@ from biom3_tpu_torch.ops.linear_attention import linear_attention
 from biom3_tpu_torch.ops.local_attention import local_window_attention
 
 LN_EPS = 1e-6
-ATTN_IMPLS = ("plain", "block", "layer-block")
+ATTN_IMPLS = ("plain", "block", "layer-block", "kernel")
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -106,8 +108,9 @@ class SplitHeadAttention(nn.Module):
         nl = cfg.local_heads
         outs = []
         if nl > 0:
-            outs.append(local_window_attention(q[:, :nl], k[:, :nl], v[:, :nl],
-                                               window=cfg.local_window))
+            outs.append(local_window_attention(
+                q[:, :nl], k[:, :nl], v[:, :nl], window=cfg.local_window,
+                impl="kernel" if self.attn_impl == "kernel" else "plain"))
         if cfg.global_heads > 0:
             outs.append(linear_attention(q[:, nl:], k[:, nl:], v[:, nl:]))
         out = torch.cat(outs, dim=1).transpose(1, 2).reshape(B, L, cfg.dim)

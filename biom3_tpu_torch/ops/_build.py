@@ -52,6 +52,9 @@ SIGNATURES = {
     "b3_esm2_attention_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "b3_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "b3_esm2_embed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "b3_gemm_i8": [_P] * 7 + [_I] * 6 + [_P],
+    "b3_quant_rows": [_P, _I, _P, _P, _I, _I, _P],
+    "b3_local_window_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
 }
 
 

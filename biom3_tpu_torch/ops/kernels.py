@@ -20,8 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from biom3_tpu_torch.ops import _build
+from biom3_tpu_torch.ops import local_attention as _local
 from biom3_tpu_torch.ops.linear_attention import linear_attention
-from biom3_tpu_torch.ops.local_attention import _band_mask, _look_around, local_window_attention
+from biom3_tpu_torch.ops.local_attention import _band_mask, _look_around
+from biom3_tpu_torch.ops.quant import quant_rows as _quant_rows_f32
 from biom3_tpu_torch.ops.rotary import apply_rotary
 
 _ACT = {"none": 0, "erf": 1, "tanh": 2}
@@ -257,8 +259,8 @@ def stage3_attention_core_plain(qkv, *, heads, local_heads, window):
                for t in qkv.split(d, dim=-1))
     outs = []
     if local_heads:
-        outs.append(local_window_attention(q[:, :local_heads], k[:, :local_heads],
-                                           v[:, :local_heads], window=window))
+        outs.append(_local.local_window_attention(q[:, :local_heads], k[:, :local_heads],
+                                                  v[:, :local_heads], window=window))
     if heads > local_heads:
         outs.append(linear_attention(q[:, local_heads:], k[:, local_heads:],
                                      v[:, local_heads:]))
@@ -422,24 +424,29 @@ def bias_layernorm_plain(h, bias, scale, shift, *, eps=1e-6):
 def layernorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, eps: float,
               out_dtype: torch.dtype, want_f32: bool = False):
     """LayerNorm over the last dim of x (rows, d), f32 or ``out_dtype`` in.
-    Returns y in ``out_dtype``, or (y, y in f32) with ``want_f32``."""
+    Returns y in ``out_dtype``, or (y, y in f32) with ``want_f32``.
+    ``out_dtype`` f32 writes the f32 output alone (the int8 FF's input)."""
     cd = _compute_dtypes(x)
     _check("x", x, dtypes=(torch.float32,) + cd, vectors=True)
     d = x.shape[-1]
     _check("scale", scale, dtypes=(torch.float32,), shape=(d,), device=x.device)
     _check("shift", shift, dtypes=(torch.float32,), shape=(d,), device=x.device)
-    if out_dtype not in cd:
-        raise TypeError(f"out_dtype {out_dtype} not in {cd}")
+    if out_dtype not in (torch.float32,) + cd:
+        raise TypeError(f"out_dtype {out_dtype} not in {(torch.float32,) + cd}")
     if not x.is_cuda:
         return layernorm_plain(x, scale, shift, eps=eps, out_dtype=out_dtype,
                                want_f32=want_f32)
     if d % 8:
         raise ValueError(f"layernorm kernel needs d % 8 == 0, got {d}")
-    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    y32 = torch.empty(x.shape, dtype=torch.float32, device=x.device) if want_f32 else None
+    f32_only = out_dtype == torch.float32
+    y = None if f32_only else torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    y32 = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        if want_f32 or f32_only else None
     _build.launch("b3_layernorm", _ptr(x), int(x.dtype == torch.float32), _ptr(scale),
                   _ptr(shift), _ptr(y), _ptr(y32), x.numel() // d, d, eps, _stream(x))
     layernorm.launches += 1
+    if f32_only:
+        y = y32
     return (y, y32) if want_f32 else y
 
 
@@ -786,9 +793,155 @@ def esm2_attention_bwd_plain(qkv, dattn, padding_mask, cos, sin, *, heads):
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dt)
 
 
+# --------------------------------------------------------------------------
+# int8 serving recipe: quant_rows (csrc/rowwise.cu), gemm_i8 (csrc/gemm_i8.cu)
+# --------------------------------------------------------------------------
+
+def quant_rows(x: torch.Tensor):
+    """Dynamic per-row symmetric int8 of x (rows, d), f32 or the compute
+    dtype → (codes (rows, d) int8, scales (rows,) f32): amax = max(max|x|,
+    1e-6) in f32, codes rint(x · (127 / amax)) clipped to ±127, scale
+    amax / 127 (``ops/quant.py::quant_rows``)."""
+    _check("x", x, dtypes=(torch.float32,) + _compute_dtypes(x), ndim=2, vectors=True)
+    rows, d = x.shape
+    if not x.is_cuda:
+        return quant_rows_plain(x)
+    if d % 8:
+        raise ValueError(f"quant_rows kernel needs d % 8 == 0, got {d}")
+    q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
+    a = torch.empty(rows, dtype=torch.float32, device=x.device)
+    _build.launch("b3_quant_rows", _ptr(x), int(x.dtype == torch.float32), _ptr(q), _ptr(a),
+                  rows, d, _stream(x))
+    quant_rows.launches += 1
+    return q, a
+
+
+def quant_rows_plain(x):
+    q, a = _quant_rows_f32(x)
+    return q, a[:, 0]
+
+
+def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+            bias: torch.Tensor | None = None, *, act: str = "none",
+            residual: torch.Tensor | None = None, out_dtype: torch.dtype) -> torch.Tensor:
+    """``act(f32(a · wᵀ) · a_scale[m] · w_scale[n] + bias) + residual`` →
+    (M, N) in ``out_dtype``: a (M, K) int8 codes with per-row scales (M,),
+    w (N, K) int8 codes with per-output-channel scales (N,), the product
+    summed exactly in int32; bias (N,) f32; residual (M, N) f32 or the
+    compute dtype."""
+    cd = _compute_dtypes(a)
+    _check("a", a, dtypes=(torch.int8,), ndim=2, vectors=True)
+    M, K = a.shape
+    _check("a_scale", a_scale, dtypes=(torch.float32,), shape=(M,), device=a.device)
+    _check("w", w, dtypes=(torch.int8,), ndim=2, device=a.device, vectors=True)
+    if w.shape[1] != K:
+        raise ValueError(f"w: shape {tuple(w.shape)} does not contract with a {tuple(a.shape)}")
+    N = w.shape[0]
+    _check("w_scale", w_scale, dtypes=(torch.float32,), shape=(N,), device=a.device)
+    if bias is not None:
+        _check("bias", bias, dtypes=(torch.float32,), shape=(N,), device=a.device)
+    if residual is not None:
+        _check("residual", residual, dtypes=(torch.float32,) + cd, shape=(M, N),
+               device=a.device, vectors=True)
+    if act not in _ACT:
+        raise ValueError(f"act must be one of {sorted(_ACT)}, got {act!r}")
+    if out_dtype not in (torch.float32,) + cd:
+        raise TypeError(f"out_dtype {out_dtype} not in {(torch.float32,) + cd}")
+    if not a.is_cuda:
+        return gemm_i8_plain(a, a_scale, w, w_scale, bias, act=act, residual=residual,
+                             out_dtype=out_dtype)
+    if K % 32 or N % 8:
+        raise ValueError(f"gemm_i8 needs K % 32 == 0 and N % 8 == 0, got K={K} N={N}")
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    _build.launch("b3_gemm_i8", _ptr(a), _ptr(a_scale), _ptr(w), _ptr(w_scale), _ptr(bias),
+                  _ptr(residual), _ptr(out), M, N, K, _ACT[act],
+                  int(residual is not None and residual.dtype == torch.bfloat16),
+                  int(out_dtype == torch.float32), _stream(a))
+    gemm_i8.launches += 1
+    return out
+
+
+def gemm_i8_plain(a, a_scale, w, w_scale, bias=None, *, act="none", residual=None,
+                  out_dtype=torch.float32):
+    """The int32 sum exact in f64 (|Σ| < 2^53), rounded once to f32, as the
+    kernel converts its int32 accumulator."""
+    acc = (a.double() @ w.double().t()).float()
+    y = acc * a_scale[:, None] * w_scale[None, :]
+    if bias is not None:
+        y = y + bias
+    if act != "none":
+        y = gelu(y, act)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
+def linear_i8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+              bias: torch.Tensor | None = None, *, act: str = "none",
+              residual: torch.Tensor | None = None, out_dtype: torch.dtype) -> torch.Tensor:
+    """x (M, K) → ``quant_rows`` → ``gemm_i8``: the int8 recipe's dynamic
+    activation quant followed by its dequantising product."""
+    q, a = quant_rows(x)
+    return gemm_i8(q, a, w, w_scale, bias, act=act, residual=residual, out_dtype=out_dtype)
+
+
+# --------------------------------------------------------------------------
+# local_window_attention  (csrc/local_attn.cu)
+# --------------------------------------------------------------------------
+
+LOCAL_TILE = {32: 128, 64: 64}   # query rows per block by head dim
+
+
+def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           window: int) -> torch.Tensor:
+    """q, k, v (B, H, L, D), L % window == 0 → (B, H, L, D) in v's dtype:
+    band attention over windows w-1..w+1 at the TPU kernel's rounding
+    points (``local_window_attention_plain``).  Forward only."""
+    _check("q", q, dtypes=(torch.float32, torch.bfloat16), ndim=4, vectors=True)
+    _check("k", k, dtypes=(q.dtype,), shape=q.shape, device=q.device, vectors=True)
+    _check("v", v, dtypes=(q.dtype,), shape=q.shape, device=q.device, vectors=True)
+    B, H, L, D = q.shape
+    if L % window:
+        raise ValueError(f"L={L} not divisible by window={window}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("local_window_attention is forward only (as its TPU kernel); "
+                           "train with attn_impl 'plain', 'block' or 'layer-block'")
+    if not q.is_cuda:
+        return local_window_attention_plain(q, k, v, window=window)
+    tq = min(window, LOCAL_TILE.get(D, 0))
+    if D not in LOCAL_TILE or window % tq:
+        raise ValueError(f"local_window_attention kernel needs head dim 32 or 64 and a "
+                         f"window that tiles by {tq}; got D={D} window={window}")
+    out = torch.empty_like(v)
+    _build.launch("b3_local_window_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(out), B * H, L,
+                  D, window, tq, float(D ** -0.5), int(q.dtype == torch.float32), _stream(q))
+    local_window_attention.launches += 1
+    return out
+
+
+def local_window_attention_plain(q, k, v, *, window):
+    """``local_window_attention_pallas``'s rounding points
+    (local_attention_tpu.py:34-68): q scaled in f32 before the dot;
+    e = exp(s − m) rounded to v's dtype unnormalised before the AV product;
+    the f32 sum divided by the f32 denominator after it."""
+    *lead, L, D = q.shape
+    nw = L // window
+
+    def bucket(x):
+        return x.reshape(*lead, nw, window, D).float()
+
+    bq = bucket(q) * D ** -0.5
+    dots = bq @ _look_around(bucket(k)).transpose(-1, -2)
+    dots = dots.masked_fill(_band_mask(nw, window, q.device)[:, None, :], NEG_INF)
+    e = torch.exp(dots - dots.amax(-1, keepdim=True))
+    out = (e.to(v.dtype).float() @ _look_around(bucket(v))) / e.sum(-1, keepdim=True)
+    return out.reshape(*lead, L, D).to(v.dtype)
+
+
 KERNELS = (gemm_bias_act, stage3_attention_core, dense_attention, bias_layernorm,
            layernorm, embed_tokens, gather_head, esm2_embed, esm2_attention, flash_attention,
-           gemm_dx, gemm_dw, layernorm_bwd, col_sum, stage3_attention_bwd, esm2_attention_bwd)
+           gemm_dx, gemm_dw, layernorm_bwd, col_sum, stage3_attention_bwd, esm2_attention_bwd,
+           gemm_i8, quant_rows, local_window_attention)
 
 
 def reset_launches() -> None:

@@ -6,6 +6,11 @@ window of W queries attends to the keys of windows w-1, w, w+1 under one
 softmax, with out-of-range windows masked at -1e9.  Used by the plain
 ``models/proteoscribe.py`` and as the plain version of the band-local heads
 of ``ops.kernels.stage3_attention_core``.
+
+``impl="plain"`` is the JAX package's ``impl="xla"``; ``impl="kernel"`` is
+its ``impl="pallas"``: the ``local_window_attention`` kernel
+(``csrc/local_attn.cu``), forward only, at the Pallas kernel's rounding
+points (on a CPU tensor its wrapper runs the same plain math).
 """
 
 from __future__ import annotations
@@ -32,11 +37,22 @@ def _look_around(x: torch.Tensor) -> torch.Tensor:
                       padded[..., 2:nw + 2, :, :]], dim=-2)
 
 
+IMPLS = ("plain", "kernel")
+
+
 def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           window: int) -> torch.Tensor:
+                           window: int, impl: str = "plain") -> torch.Tensor:
     """q, k, v: (..., L, D) with L % window == 0 → (..., L, D).  Scores and
     softmax in f32; the probabilities are cast to v's dtype before the
-    value product, as the reference does in bf16."""
+    value product, as the reference does in bf16.  ``impl="kernel"`` takes
+    (B, H, L, D) and runs the kernel."""
+    if impl not in IMPLS:
+        raise ValueError(f"local attention impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "kernel":
+        from biom3_tpu_torch.ops import kernels   # kernels imports this module
+
+        return kernels.local_window_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              window=window)
     *lead, L, D = q.shape
     if L % window:
         raise ValueError(f"sequence length {L} not divisible by window {window}")

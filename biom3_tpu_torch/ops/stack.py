@@ -12,6 +12,11 @@ a chain of kernels — ``embed_tokens`` → ``depth`` × (attention half, FF
 half; ``ops.stage3_layer``) → ``gather_head`` — with the residual in bf16
 between layers and in f32 inside a layer, the TPU kernel's rounding points
 (stack_kernel_tpu.py:540-560).
+
+The TPU kernel's int8 options (``ff_quant``/``proj_quant``) are the
+weights' type here: int8 w1/w2 (FF) or wq/wk/wv/wo (projections), each
+(depth, d_out, d_in) — ``gemm_i8``'s layout — with its (depth, d_out) f32
+scales ``s1, s2`` or ``sq, sk, sv, so`` from ``ops/quant.py``.
 """
 
 from __future__ import annotations
@@ -24,15 +29,22 @@ from biom3_tpu_torch.ops.stage3_layer import LN_EPS, attn_half, ff_half
 
 def pack_stack_weights(tok_table, pos_emb, ln1_scale, ln1_bias, wq, wk, wv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2, fn_scale, fn_bias, head_w,
-                       head_b) -> dict:
+                       head_b, s1=None, s2=None, sq=None, sk=None, sv=None,
+                       so=None) -> dict:
     """Gather the stack's weights into the dict ``stack_logits`` reads, with
-    q/k/v fused to one (depth, d, 3d) product."""
+    q/k/v fused to one (depth, d, 3d) product — (depth, 3d, d) in int8."""
+    proj8 = wq.dtype == torch.int8
     return dict(
         tok=tok_table, pos_emb=pos_emb, ln1_scale=ln1_scale, ln1_bias=ln1_bias,
-        wqkv=torch.cat([wq, wk, wv], dim=2).contiguous(), wo=wo, bo=bo,
-        ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, b1=b1, w2=w2, b2=b2,
+        wqkv=torch.cat([wq, wk, wv], dim=1 if proj8 else 2).contiguous(), wo=wo, bo=bo,
+        sqkv=torch.cat([sq, sk, sv], dim=1).contiguous() if proj8 else None, so=so,
+        ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, b1=b1, w2=w2, b2=b2, s1=s1, s2=s2,
         fn_scale=fn_scale, fn_bias=fn_bias, head_w=head_w, head_b=head_b,
     )
+
+
+def _layer(t, l):
+    return None if t is None else t[l]
 
 
 def stack_logits(ids: torch.Tensor, pos: torch.Tensor, bias: torch.Tensor, w: dict, *,
@@ -48,20 +60,23 @@ def stack_logits(ids: torch.Tensor, pos: torch.Tensor, bias: torch.Tensor, w: di
     for l in range(depth):
         x1 = attn_half(h, bias_l[l], w["ln1_scale"][l], w["ln1_bias"][l], w["wqkv"][l],
                        w["wo"][l], w["bo"][l], local_heads=local_heads, heads=heads,
-                       window=window, out_dtype=torch.float32)
+                       window=window, out_dtype=torch.float32, sqkv=_layer(w["sqkv"], l),
+                       so=_layer(w["so"], l))
         h = ff_half(x1, w["ln2_scale"][l], w["ln2_bias"][l], w["w1"][l], w["b1"][l],
-                    w["w2"][l], w["b2"][l], gelu=gelu, cdtype=cdtype, out_dtype=cdtype)
+                    w["w2"][l], w["b2"][l], gelu=gelu, cdtype=cdtype, out_dtype=cdtype,
+                    s1=_layer(w["s1"], l), s2=_layer(w["s2"], l))
     return gather_head(h, pos, w["fn_scale"], w["fn_bias"], w["head_w"], w["head_b"],
                        eps=LN_EPS)
 
 
 def fused_stack_logits(ids, pos, bias, tok_table, pos_emb, ln1_scale, ln1_bias, wq, wk, wv,
                        wo, bo, ln2_scale, ln2_bias, w1, b1, w2, b2, fn_scale, fn_bias,
-                       head_w, head_b, *, local_heads: int, heads: int, window: int = 128,
+                       head_w, head_b, s1=None, s2=None, sq=None, sk=None, sv=None, so=None,
+                       *, local_heads: int, heads: int, window: int = 128,
                        gelu: str = "erf") -> torch.Tensor:
     """Full serving forward → (B, k, C) f32 logits at the decode positions."""
     w = pack_stack_weights(tok_table, pos_emb, ln1_scale, ln1_bias, wq, wk, wv, wo, bo,
                            ln2_scale, ln2_bias, w1, b1, w2, b2, fn_scale, fn_bias, head_w,
-                           head_b)
+                           head_b, s1, s2, sq, sk, sv, so)
     return stack_logits(ids, pos, bias, w, local_heads=local_heads, heads=heads,
                         window=window, gelu=gelu)

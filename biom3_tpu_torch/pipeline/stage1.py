@@ -17,7 +17,11 @@ paths, as in the JAX engine:
 
 On ``cuda`` the towers run bf16 with tanh GELU (the JAX engine's
 perf-mode choice, stage1.py:114); on ``cpu`` they run f32 with exact GELU
-on the kernels' plain versions.  The int8 modes are not ported.
+on the kernels' plain versions.  The JAX engine's four int8 knobs
+(stage1.py:71-93) keep their meaning: ``ff_quant``/``proj_quant`` for the
+ESM2 tower, ``bert_ff_quant``/``bert_proj_quant`` for BERT; ``None`` (auto)
+is ``"int8"`` on ``cuda`` on the fused-stack path, ``"none"`` on ``cpu``,
+and the graph path never quantizes.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from biom3_tpu_torch.ops.esm2_stack import esm2_stack_arrays, fused_esm2_cls
 from biom3_tpu_torch.tokenizers import TextTokenizer, esm_batch_encode
 
 TOWER_IMPLS = ("fused-stack", "graph")
+QUANT_MODES = ("none", "int8")
 
 
 @torch.no_grad()
@@ -56,7 +61,9 @@ def compute_scores(z_p, z_t) -> dict:
 class PenCLEngine:
     def __init__(self, stage_config: Config, model_path: str | None = None, *,
                  device: str | torch.device = "cpu", text_tokenizer=None,
-                 text_only: bool = False, tower_impl: str = "fused-stack"):
+                 text_only: bool = False, tower_impl: str = "fused-stack",
+                 ff_quant: str | None = None, proj_quant: str | None = None,
+                 bert_ff_quant: str | None = None, bert_proj_quant: str | None = None):
         if tower_impl not in TOWER_IMPLS:
             raise ValueError(f"tower_impl must be one of {TOWER_IMPLS}, got {tower_impl!r}")
         self.stage_config = stage_config
@@ -66,6 +73,16 @@ class PenCLEngine:
         on_cuda = self.device.type == "cuda"
         self.dtype = torch.bfloat16 if on_cuda else torch.float32
         self.gelu = "tanh" if on_cuda else "erf"
+        auto = "int8" if on_cuda and tower_impl == "fused-stack" else "none"
+        self.ff_quant, self.proj_quant, self.bert_ff_quant, self.bert_proj_quant = (
+            auto if q is None else q for q in (ff_quant, proj_quant, bert_ff_quant,
+                                               bert_proj_quant))
+        quant = (self.ff_quant, self.proj_quant, self.bert_ff_quant, self.bert_proj_quant)
+        if any(q not in QUANT_MODES for q in quant):
+            raise ValueError(f"quant modes must be in {QUANT_MODES}, got {quant}")
+        if tower_impl == "graph" and "int8" in quant:
+            raise ValueError("the graph tower path never quantizes; int8 needs "
+                             "tower_impl='fused-stack'")
         if text_only:
             model, keep = PenCLText(self.config, attn_impl="kernel"), text_state_dict
         else:
@@ -84,9 +101,12 @@ class PenCLEngine:
             if name != "protein_encoder":
                 child.to(self.device)
         self.model = model
-        self._bert_arrays = bert_stack_arrays(model.bert, self.dtype)
+        self._bert_arrays = bert_stack_arrays(model.bert, self.dtype, ff_quant=self.bert_ff_quant,
+                                              proj_quant=self.bert_proj_quant)
         if not text_only:
-            self._esm_arrays = esm2_stack_arrays(model.esm, self.dtype, self.device)
+            self._esm_arrays = esm2_stack_arrays(model.esm, self.dtype, self.device,
+                                                 ff_quant=self.ff_quant,
+                                                 proj_quant=self.proj_quant)
 
     @property
     def text_tokenizer(self):

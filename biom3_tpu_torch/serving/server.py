@@ -1,0 +1,436 @@
+"""Text→protein serving: the three-stage pipeline behind an HTTP API.
+
+Port of ``biom3_tpu/serving/server.py``: one process keeps the three stage
+engines on the card and serves concurrent requests.
+
+  * **Fixed device shapes.** Stage 3 dominates; its device batch is pinned
+    to ``rows_per_dispatch`` (prompt × replica rows, padded by repetition).
+    Stage-1/2 embed calls pad the prompt list the same way.
+  * **Device calls are serialized**: HTTP handler threads only enqueue and
+    wait on futures; the dispatcher threads (generate, embed) take the
+    pipeline's ``_device_lock`` around every device call.
+  * **Row-level packing**: rows of different prompts share one Stage-3
+    dispatch, each with its own z_c, decode order and noise stream; row
+    occupancy shows in ``/v1/metrics``.
+
+Endpoints (stdlib ``http.server``; JSON in/out):
+  * ``POST /v1/generate`` ``{"prompt": str | "prompts": [str],
+    "num_replicas": int?, "seed": int?}`` → designed sequences per prompt;
+  * ``POST /v1/embed`` ``{"prompt" | "prompts"}`` → z_t and z_c rows;
+  * ``POST /v1/profile`` ``{"seconds": float?, "log_dir": str?}`` →
+    a ``torch.profiler`` window over the daemon's work, written as a
+    Chrome trace;
+  * ``POST /v1/inpaint`` → HTTP 501: inpainting is not ported yet (ROADMAP
+    queue 1, item 7);
+  * ``GET /healthz`` → liveness and the device platform (``gpu`` on the
+    card);
+  * ``GET /v1/metrics`` → scheduler counters (occupancy, latency, errors),
+    the embed cache, device rows and memory.
+"""
+
+from __future__ import annotations
+
+import json
+import resource
+import threading
+import time
+from collections import OrderedDict
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from biom3_tpu_torch.serving.batcher import MicroBatcher
+from biom3_tpu_torch.serving.continuous import host_rng, row_streams
+
+INPAINT_REFUSAL = "inpainting is not ported yet (ROADMAP queue 1, item 7)"
+
+
+class ServingPipeline:
+    """Wraps the three stage engines with fixed-shape batched entry points."""
+
+    def __init__(self, stage1_engine, stage2_engine, stage3_engine, *,
+                 rows_per_dispatch: int = 16, default_replicas: int = 2,
+                 max_replicas: int = 64, seed: int = 0, embed_cache: int = 4096):
+        self.s1, self.s2, self.s3 = stage1_engine, stage2_engine, stage3_engine
+        self.device = stage3_engine.device
+        self.rows_per_dispatch = rows_per_dispatch
+        self.default_replicas = default_replicas
+        self.max_replicas = max_replicas
+        self.seed = seed
+        # the packed path's unseeded rows draw their streams from here
+        self._host_rng = host_rng(seed)
+        self._rng_lock = threading.Lock()
+        self._row_fn = None   # the packed path's trajectory dispatch, built on first use
+        # device-level packing counters: ROWS per fixed-shape dispatch
+        self._dev_lock = threading.Lock()
+        self._dispatches = 0
+        self._rows_live = 0
+        self._rows_padded = 0
+        # serializes device calls across the dispatcher threads; held per
+        # device call, not across a whole request
+        self._device_lock = threading.Lock()
+        # prompt → (z_t row, z_c row) LRU: a hit skips the BERT tower and
+        # the Facilitator; embed_cache=0 disables it
+        self._embed_cache_cap = int(embed_cache)
+        self._embed_cache: OrderedDict[str, tuple] = OrderedDict()
+        self._cache_lock = threading.Lock()
+        self._cache_hits = 0
+        self._cache_misses = 0
+
+    def _record_dispatch(self, live_rows: int) -> None:
+        """Account one fixed-shape device dispatch carrying ``live_rows``
+        useful rows (every scheduler reports here)."""
+        with self._dev_lock:
+            self._dispatches += 1
+            self._rows_live += live_rows
+            self._rows_padded += self.rows_per_dispatch - live_rows
+
+    def embed(self, prompts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        """prompts → (z_t, z_c); prompts seen before (across requests or
+        earlier in this batch) come from the LRU cache, the rest run once
+        each, padded to a fixed device batch.  Cached rows are the values
+        the towers produced, so results are identical with or without the
+        cache.  A miss counts once per prompt computed; every other
+        occurrence — a cached prompt, or a prompt repeated within the batch
+        — counts as a hit (each is a tower row not computed)."""
+        if not prompts:
+            raise ValueError("embed() needs at least one prompt")
+        rows: dict[str, tuple] = {}
+        if self._embed_cache_cap:
+            with self._cache_lock:
+                for p in set(prompts):
+                    hit = self._embed_cache.get(p)
+                    if hit is not None:
+                        self._embed_cache.move_to_end(p)
+                        rows[p] = hit
+        misses = [p for p in dict.fromkeys(prompts) if p not in rows]
+        if self._embed_cache_cap:
+            with self._cache_lock:
+                self._cache_misses += len(misses)
+                self._cache_hits += len(prompts) - len(misses)
+        if misses:
+            padded = misses + [misses[-1]] * (-len(misses) % self.rows_per_dispatch)
+            with self._device_lock:
+                z_t = self.s1.embed_text(padded, batch_size=self.rows_per_dispatch)
+                z_c = np.asarray(self.s2(z_t))
+            z_t = np.asarray(z_t)
+            for i, p in enumerate(misses):
+                rows[p] = (z_t[i], z_c[i])
+            if self._embed_cache_cap:
+                with self._cache_lock:
+                    for p in misses:
+                        self._embed_cache[p] = rows[p]
+                        self._embed_cache.move_to_end(p)
+                    while len(self._embed_cache) > self._embed_cache_cap:
+                        self._embed_cache.popitem(last=False)
+        return (np.stack([rows[p][0] for p in prompts]),
+                np.stack([rows[p][1] for p in prompts]))
+
+    def embed_cache_stats(self) -> dict:
+        with self._cache_lock:
+            return {"capacity": self._embed_cache_cap, "size": len(self._embed_cache),
+                    "hits": self._cache_hits, "misses": self._cache_misses}
+
+    def _run_rows_packed(self, requests: list[dict], z_c: np.ndarray) -> list[dict]:
+        """Pack (request, replica) rows into fixed ``rows_per_dispatch``
+        dispatches of the engine's whole-trajectory row function; returns
+        one ``{"prompt", "sequences"}`` per request.  Each row carries its
+        own decode order and noise stream (``row_streams``), so a seeded
+        request reproduces in any batch."""
+        if self._row_fn is None:
+            self._row_fn = self.s3.make_trajectory_row_fn()
+        rows = [(i, k) for i, r in enumerate(requests)
+                for k in range(int(r.get("num_replicas") or self.default_replicas))]
+        with self._rng_lock:
+            streams = [row_streams(self._host_rng, requests[i].get("seed"), k,
+                                   self.s3.config.max_seq_len) for i, k in rows]
+        sequences: dict[tuple[int, int], str] = {}
+        R = self.rows_per_dispatch
+        for start in range(0, len(rows), R):
+            chunk = list(range(start, min(start + R, len(rows))))
+            pad = chunk + [chunk[-1]] * (R - len(chunk))
+            self._record_dispatch(len(chunk))
+            with self._device_lock:
+                ids = self._row_fn(z_c[[rows[j][0] for j in pad]],
+                                   np.stack([streams[j][0] for j in pad]),
+                                   np.stack([streams[j][1] for j in pad])).cpu().numpy()
+            for n, j in enumerate(chunk):
+                sequences[rows[j]] = self.s3.vocab.clean_sequence(
+                    self.s3.vocab.decode_ids(ids[n]))
+        return [{"prompt": r["prompt"],
+                 "sequences": [sequences[(i, k)] for k in
+                               range(int(r.get("num_replicas") or self.default_replicas))]}
+                for i, r in enumerate(requests)]
+
+    def generate(self, requests: list[dict]) -> list[dict]:
+        """Batch entry point: each request is ``{"prompt": str,
+        "num_replicas": int, "seed": int?}``; returns one dict per request."""
+        with torch.inference_mode():
+            _, z_c = self.embed([r["prompt"] for r in requests])
+            return self._run_rows_packed(requests, z_c)
+
+    def warmup(self, *, include_generate: bool = True) -> dict:
+        """One padded dummy dispatch per device path before traffic: the
+        first client then waits on no kernel build or load.  Returns
+        wall-clock seconds per path.  ``include_generate=False`` skips the
+        packed path (a server whose scheduler warms its own dispatch)."""
+        times = {}
+        with torch.inference_mode():
+            t0 = time.time()
+            _, z_c = self.embed(["warmup prompt"])
+            times["embed_s"] = round(time.time() - t0, 1)
+            if include_generate:
+                t0 = time.time()
+                self._run_rows_packed([{"prompt": "warmup prompt", "num_replicas": 1}], z_c)
+                times["generate_s"] = round(time.time() - t0, 1)
+        return times
+
+    def device_stats(self) -> dict:
+        with self._dev_lock:
+            total = self._rows_live + self._rows_padded
+            return {"dispatches": self._dispatches, "rows_live": self._rows_live,
+                    "rows_padded": self._rows_padded,
+                    "row_occupancy": round(self._rows_live / total, 3) if total else 0.0}
+
+    def memory_stats(self) -> dict:
+        """Device memory in MB (``torch.cuda.memory_stats``) and the host's
+        peak resident set."""
+        out = {"host_max_rss_mb": round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                                        / 1024, 1)}
+        if self.device.type == "cuda":
+            ms = torch.cuda.memory_stats(self.device)
+            out["device_mb"] = {
+                "allocated": round(ms.get("allocated_bytes.all.current", 0) / 2**20, 1),
+                "peak_allocated": round(ms.get("allocated_bytes.all.peak", 0) / 2**20, 1),
+                "reserved": round(ms.get("reserved_bytes.all.current", 0) / 2**20, 1),
+            }
+        return out
+
+
+class BioM3Server:
+    """HTTP front end with continuous micro-batching over a ServingPipeline.
+
+    ``continuous=None`` (auto) serves exact path-order ARDM on the
+    chunk-boundary ``ContinuousGenerateBatcher`` — every engine of the port
+    supports it; ``False`` takes ``packed_scheduler``: the row-granular
+    ``TrajectoryBatcher`` (``"trajectory"``, default) or the
+    request-granular ``MicroBatcher`` (``"micro"``).  Inpainting is refused
+    (HTTP 501)."""
+
+    def __init__(self, pipeline: ServingPipeline, *, host: str = "127.0.0.1", port: int = 8000,
+                 max_wait_s: float = 0.05, request_timeout_s: float = 600.0,
+                 continuous: bool | None = None, packed_scheduler: str = "trajectory"):
+        if packed_scheduler not in ("trajectory", "micro"):
+            raise ValueError(f"packed_scheduler must be 'trajectory' or 'micro', "
+                             f"got {packed_scheduler!r}")
+        self.pipeline = pipeline
+        self.request_timeout_s = request_timeout_s
+        self.packed_scheduler = packed_scheduler
+        if continuous is None:
+            continuous = pipeline.s3.supports_continuous_stepping()
+        self.continuous = bool(continuous)
+        if self.continuous:
+            from biom3_tpu_torch.serving.continuous import ContinuousGenerateBatcher
+
+            self._gen_batcher = ContinuousGenerateBatcher(pipeline)
+        elif packed_scheduler == "trajectory":
+            from biom3_tpu_torch.serving.trajectory import TrajectoryBatcher
+
+            self._gen_batcher = TrajectoryBatcher(pipeline, max_wait_s=max_wait_s)
+        else:
+            self._gen_batcher = MicroBatcher(pipeline.generate,
+                                             max_batch=pipeline.rows_per_dispatch,
+                                             max_wait_s=max_wait_s, name="generate-batcher")
+        self._embed_batcher = MicroBatcher(self._run_embed_batch,
+                                           max_batch=pipeline.rows_per_dispatch,
+                                           max_wait_s=max_wait_s, name="embed-batcher")
+        # torch.profiler is process-global: one window at a time
+        self._profile_lock = threading.Lock()
+        self.httpd = ThreadingHTTPServer((host, port), self._make_handler())
+        self.host, self.port = self.httpd.server_address[:2]
+        self._serve_thread: threading.Thread | None = None
+
+    @property
+    def generate_mode(self) -> str:
+        return "continuous" if self.continuous else self.packed_scheduler
+
+    def _run_embed_batch(self, prompts: list[str]) -> list[dict]:
+        with torch.inference_mode():
+            z_t, z_c = self.pipeline.embed(prompts)
+        return [{"z_t": z_t[i].tolist(), "z_c": z_c[i].tolist()} for i in range(len(prompts))]
+
+    # -- lifecycle -----------------------------------------------------
+
+    def warmup(self) -> dict:
+        """One dummy dispatch of every device path this server will run (the
+        embed, then the scheduler's own dispatch where it has one)."""
+        own = hasattr(self._gen_batcher, "warmup")
+        times = self.pipeline.warmup(include_generate=not own)
+        if own:
+            times[f"generate_{self.generate_mode}_s"] = self._gen_batcher.warmup()
+        return times
+
+    def start(self) -> None:
+        self._serve_thread = threading.Thread(target=self.httpd.serve_forever,
+                                              name="biom3-http", daemon=True)
+        self._serve_thread.start()
+
+    def serve_forever(self) -> None:
+        self.httpd.serve_forever()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._gen_batcher.close()
+        self._embed_batcher.close()
+        if self._serve_thread is not None:
+            self._serve_thread.join(timeout=10)
+
+    def metrics(self) -> dict:
+        return {
+            "generate_mode": self.generate_mode,
+            "inpaint_mode": "not ported",
+            "generate": self._gen_batcher.stats.as_dict(),
+            "embed": self._embed_batcher.stats.as_dict(),
+            "embed_cache": self.pipeline.embed_cache_stats(),
+            "device": self.pipeline.device_stats(),
+            "memory": self.pipeline.memory_stats(),
+        }
+
+    def profile(self, seconds: float, log_dir: str | None) -> dict:
+        """A ``torch.profiler`` window of ``seconds`` over the daemon's
+        threads' work, written as a Chrome trace under ``log_dir``."""
+        import os
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        log_dir = log_dir or tempfile.mkdtemp(prefix="biom3_profile_")
+        os.makedirs(log_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.pipeline.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            time.sleep(seconds)
+        path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        return {"log_dir": log_dir, "trace": path, "seconds": float(seconds)}
+
+    # -- HTTP plumbing ---------------------------------------------------
+
+    def _make_handler(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # noqa: D102 — quiet under load
+                pass
+
+            def _reply(self, code: int, payload: dict) -> None:
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802 (http.server API)
+                if self.path == "/healthz":
+                    self._reply(200, {
+                        "status": "ok",
+                        "platform": "gpu" if server.pipeline.device.type == "cuda" else "cpu",
+                        "rows_per_dispatch": server.pipeline.rows_per_dispatch,
+                        "continuous": server.continuous,
+                    })
+                elif self.path == "/v1/metrics":
+                    self._reply(200, server.metrics())
+                else:
+                    self._reply(404, {"error": f"no route {self.path}"})
+
+            def _read_json(self) -> dict:
+                length = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(length) or b"{}")
+
+            def do_POST(self):  # noqa: N802
+                try:
+                    req = self._read_json()
+                except json.JSONDecodeError as exc:
+                    self._reply(400, {"error": f"bad json: {exc}"})
+                    return
+                if not isinstance(req, dict):
+                    self._reply(400, {"error": "body must be a JSON object"})
+                    return
+                try:
+                    if self.path == "/v1/generate":
+                        self._generate(req)
+                    elif self.path == "/v1/inpaint":
+                        self._reply(501, {"error": INPAINT_REFUSAL})
+                    elif self.path == "/v1/embed":
+                        self._embed(req)
+                    elif self.path == "/v1/profile":
+                        self._profile(req)
+                    else:
+                        self._reply(404, {"error": f"no route {self.path}"})
+                except Exception as exc:  # noqa: BLE001 — HTTP boundary
+                    self._reply(500, {"error": str(exc)})
+
+            def _prompts(self, req: dict):
+                prompts = req.get("prompts")
+                if prompts is None and "prompt" in req:
+                    prompts = [req["prompt"]]
+                # a real list: a bare string would fan out per character
+                if not isinstance(prompts, list) or not prompts or not all(
+                        isinstance(p, str) and p.strip() for p in prompts):
+                    self._reply(400, {"error": "prompts must be a non-empty list of non-empty "
+                                               "strings (or one prompt)"})
+                    return None
+                return prompts
+
+            def _generate(self, req: dict) -> None:
+                prompts = self._prompts(req)
+                if prompts is None:
+                    return
+                n_rep, cap = req.get("num_replicas"), server.pipeline.max_replicas
+                if n_rep is not None and (not isinstance(n_rep, int) or isinstance(n_rep, bool)
+                                          or not 1 <= n_rep <= cap):
+                    self._reply(400, {"error": f"num_replicas must be an int in [1, {cap}], "
+                                               f"got {n_rep!r}"})
+                    return
+                seed = req.get("seed")
+                if seed is not None and (not isinstance(seed, int) or isinstance(seed, bool)
+                                         or not 0 <= seed < 2**32):
+                    self._reply(400, {"error": f"seed must be an int in [0, 2^32), got {seed!r}"})
+                    return
+                futures = [server._gen_batcher.submit(
+                    {"prompt": p, "num_replicas": n_rep, "seed": seed}) for p in prompts]
+                self._reply(200, {"results": [f.result(timeout=server.request_timeout_s)
+                                              for f in futures]})
+
+            def _embed(self, req: dict) -> None:
+                prompts = self._prompts(req)
+                if prompts is None:
+                    return
+                futures = [server._embed_batcher.submit(p) for p in prompts]
+                self._reply(200, {"results": [f.result(timeout=server.request_timeout_s)
+                                              for f in futures]})
+
+            def _profile(self, req: dict) -> None:
+                seconds = req.get("seconds", 5)
+                if (not isinstance(seconds, (int, float)) or isinstance(seconds, bool)
+                        or not 0 < seconds <= 60):
+                    self._reply(400, {"error": "seconds must be a number in (0, 60]"})
+                    return
+                log_dir = req.get("log_dir")
+                if log_dir is not None and not isinstance(log_dir, str):
+                    self._reply(400, {"error": "log_dir must be a string"})
+                    return
+                if not server._profile_lock.acquire(blocking=False):
+                    self._reply(409, {"error": "a profile capture is already running"})
+                    return
+                try:
+                    out = server.profile(float(seconds), log_dir)
+                finally:
+                    server._profile_lock.release()
+                self._reply(200, out)
+
+        return Handler

@@ -1,0 +1,320 @@
+"""Row-granular packed scheduling for whole-trajectory dispatches.
+
+Port of ``biom3_tpu/serving/trajectory.py`` for the fast mode the port
+serves: blocked path-order ARDM (``--preset latency``: k=8, temperature 0,
+L/k forwards a design), whose trajectories have no useful admission
+boundaries inside them.
+
+  * **row granularity** — (request, replica) rows pack across request
+    boundaries into fixed ``rows_per_dispatch`` batches, so a partial
+    request's leftover rows ride the next dispatch instead of padding;
+  * **depth-1 dispatch pipelining** — dispatch N+1 is enqueued (its result
+    copied to pinned host memory without a wait) BEFORE dispatch N's
+    results are fetched, so the fetch and the host-side decode hide under
+    the device's work;
+  * **adaptive coalescing** — a partial batch waits for stragglers only
+    while the wait is free (a dispatch in flight keeps the device busy; the
+    window stretches toward the measured dispatch time).
+
+Each row decodes in its own order with its own noise stream
+(``serving.continuous.row_streams``, ``diffusion.sampler.row_gumbel``), so
+a seeded request reproduces bit for bit in any dispatch and needs no solo
+padded dispatch, which the JAX scheduler gives it (its RNG is per
+dispatch).
+
+Two faults of the JAX scheduler are fixed here: the in-flight dispatch is
+swapped only under ``_cv``, and the rows of a dispatch being enqueued stay
+reachable (``_dispatching``) until they are in flight, so ``close()``'s
+sweep fails them instead of leaving their clients to time out.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from biom3_tpu_torch.serving.batcher import BatcherStats
+from biom3_tpu_torch.serving.continuous import KEY_WORDS, host_rng, row_streams
+
+
+class TrajectoryBatcher:
+    """Drop-in for ``MicroBatcher(pipeline.generate, ...)``: same
+    ``submit(request) → Future`` / ``stats`` / ``close()`` surface, but
+    scheduling (request, replica) rows into fixed-shape whole-trajectory
+    dispatches with depth-1 pipelining."""
+
+    def __init__(self, pipeline, *, max_wait_s: float = 0.02,
+                 name: str = "generate-trajectory"):
+        self.pipeline = pipeline
+        self._row_fn = pipeline.s3.make_trajectory_row_fn()
+        self._vocab = pipeline.s3.vocab
+        self._device = pipeline.s3.device
+        self.R = pipeline.rows_per_dispatch
+        self.L = pipeline.s3.config.max_seq_len
+        self.max_wait_s = max_wait_s
+        self._host_rng = host_rng(getattr(pipeline, "seed", 0))
+        self._pending: deque[dict] = deque()
+        self._cv = threading.Condition()
+        # unresolved submitted groups (close()'s drain signal)
+        self._outstanding = 0
+        self._closed = False
+        self._closing = False
+        # rows taken off _pending whose dispatch is being enqueued, and the
+        # dispatch in flight (rows, host ids, event, t_enqueue); both swapped
+        # under _cv only
+        self._dispatching: list | None = None
+        self._flight = None
+        self.stats = BatcherStats()
+        # EMA of dispatch wall-clock: the free coalescing budget while a
+        # dispatch is in flight
+        self._ema_dispatch_s = 0.0
+        self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self._thread.start()
+
+    # -- client surface ------------------------------------------------
+
+    def submit(self, request: dict) -> Future:
+        if request.get("masked_ids") is not None:
+            raise ValueError("this engine's trajectory scheduler cannot carry inpaint rows "
+                             "(inpaint is not ported yet: ROADMAP queue 1, item 7)")
+        fut: Future = Future()
+        n_rep = int(request.get("num_replicas") or self.pipeline.default_replicas)
+        group = {"request": request, "future": fut, "n_rep": n_rep, "next_rep": 0,
+                 "remaining": n_rep, "z_c": None, "sequences": {}}
+        with self._cv:
+            if self._closed or self._closing:
+                raise RuntimeError("batcher is closed")
+            with self.stats._lock:
+                self.stats.requests += 1
+            self._pending.append(group)
+            self._outstanding += 1
+            self._cv.notify_all()
+        return fut
+
+    def warmup(self) -> float:
+        """One padded dummy dispatch (stats untouched); returns wall-clock
+        seconds."""
+        t0 = time.time()
+        C = self.pipeline.s3.config.cond_dim
+        inv = np.tile(np.arange(self.L, dtype=np.int32), (self.R, 1))
+        kd = np.zeros((self.R, KEY_WORDS), np.uint32)
+        with torch.inference_mode():
+            with self.pipeline._device_lock:
+                ids = self._row_fn(np.zeros((self.R, C), np.float32), inv, kd)
+            ids.cpu()
+        return round(time.time() - t0, 1)
+
+    def close(self, timeout: float = 30.0, drain_s: float = 120.0) -> None:
+        """Draining shutdown: refuse new submissions, let queued and
+        in-flight rows finish (bounded by ``drain_s``), then stop and fail
+        any stragglers — queued, being enqueued or in flight."""
+        with self._cv:
+            self._closing = True
+            self._cv.notify_all()
+        deadline = time.monotonic() + drain_s
+        while time.monotonic() < deadline:
+            with self._cv:
+                if self._outstanding == 0:
+                    break
+            time.sleep(0.05)
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=timeout)
+        self._fail_groups(None, RuntimeError("batcher is closed"), count_errors=False)
+
+    # -- scheduler -----------------------------------------------------
+
+    def _loop(self) -> None:
+        with torch.inference_mode():
+            while True:
+                with self._cv:
+                    while not self._closed and not self._pending and self._flight is None:
+                        self._cv.wait(timeout=0.1)
+                    if self._closed:
+                        return
+                try:
+                    self._embed_pending()
+                    if not self._dispatch_next():
+                        with self._cv:
+                            flight, self._flight = self._flight, None
+                        if flight is not None:
+                            self._collect(flight)
+                except Exception as exc:  # noqa: BLE001 — fail fast: an
+                    # unexpected scheduler error must reach the waiting
+                    # clients, not strand their futures until the timeout
+                    self._fail_groups(None, exc)
+
+    def _embed_pending(self) -> None:
+        """One padded embed call for every queued group still lacking z_c;
+        a failure fails ONLY the groups whose embed it was."""
+        with self._cv:
+            need = [g for g in self._pending if g["z_c"] is None][: self.R]
+        if not need:
+            return
+        try:
+            _, z_c = self.pipeline.embed([g["request"]["prompt"] for g in need])
+        except Exception as exc:  # noqa: BLE001 — forwarded per group
+            self._fail_groups(need, exc)
+            return
+        for i, g in enumerate(need):
+            g["z_c"] = z_c[i]
+
+    def _ready_rows(self) -> list:
+        """(group, replica) rows dispatchable right now, FIFO, stopping at
+        the first group still awaiting its embed."""
+        rows = []
+        for g in self._pending:
+            if g["z_c"] is None:
+                break
+            for rep in range(g["next_rep"], g["n_rep"]):
+                rows.append((g, rep))
+                if len(rows) >= self.R:
+                    return rows
+        return rows
+
+    def _dispatch_next(self) -> bool:
+        """Build and enqueue at most one dispatch; returns True if one was
+        enqueued.  Waits (adaptively) for stragglers only while the batch
+        is partial AND the wait costs nothing."""
+        with self._cv:
+            rows = self._ready_rows()
+        if not rows:
+            return False
+        if len(rows) < self.R:
+            window = self.max_wait_s
+            if self._flight is not None:
+                window = max(window, 2.0 * self._ema_dispatch_s)
+            deadline = time.monotonic() + min(window, 1.0)
+            while time.monotonic() < deadline:
+                with self._cv:
+                    rows = self._ready_rows()
+                    if len(rows) >= self.R or self._closing:
+                        break
+                    need_embed = any(g["z_c"] is None for g in self._pending)
+                    if not need_embed:
+                        self._cv.wait(timeout=min(0.005, max(deadline - time.monotonic(),
+                                                             0.001)))
+                if need_embed:
+                    self._embed_pending()
+            with self._cv:
+                rows = self._ready_rows()
+            if not rows:
+                return False
+        self._dispatch(rows[: self.R])
+        return True
+
+    def _dispatch(self, rows) -> None:
+        """Enqueue one fixed-shape dispatch for ``rows`` (padded by repeating
+        the last row); fetch/decode of the PREVIOUS dispatch happens after,
+        overlapping this one's execution."""
+        zc = np.empty((self.R, len(rows[0][0]["z_c"])), np.float32)
+        inv = np.empty((self.R, self.L), np.int32)
+        kd = np.empty((self.R, KEY_WORDS), np.uint32)
+        streams = [row_streams(self._host_rng, g["request"].get("seed"), rep, self.L)
+                   for g, rep in rows]
+        for i in range(self.R):
+            j = min(i, len(rows) - 1)
+            zc[i] = rows[j][0]["z_c"]
+            inv[i], kd[i] = streams[j]
+        with self._cv:
+            for g, rep in rows:
+                g["next_rep"] = max(g["next_rep"], rep + 1)
+                if g["next_rep"] >= g["n_rep"] and g in self._pending:
+                    self._pending.remove(g)
+            self._dispatching = rows
+        t0 = time.monotonic()
+        try:
+            with self.pipeline._device_lock:
+                ids_dev = self._row_fn(zc, inv, kd)
+                host, event = self._to_host(ids_dev)
+        except Exception as exc:  # noqa: BLE001 — this dispatch's rows
+            with self._cv:
+                self._dispatching = None
+            self._fail_groups([g for g, _ in rows], exc)
+            return
+        self.pipeline._record_dispatch(len(rows))
+        with self._cv:
+            prev, self._flight = self._flight, (rows, host, event, t0)
+            self._dispatching = None
+        if prev is not None:
+            self._collect(prev)
+
+    def _to_host(self, ids: torch.Tensor):
+        """Start the copy of a dispatch's ids to host memory without waiting
+        for it → (host tensor, event to wait on, or None on the CPU)."""
+        if self._device.type != "cuda":
+            return ids, None
+        host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+        host.copy_(ids, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _collect(self, flight) -> None:
+        """Fetch + decode one dispatch's results and resolve finished
+        groups."""
+        rows, host, event, t0 = flight
+        try:
+            if event is not None:
+                event.synchronize()
+            ids = host.numpy()
+        except Exception as exc:  # noqa: BLE001 — this dispatch's rows
+            self._fail_groups([g for g, _ in rows], exc)
+            return
+        wall = time.monotonic() - t0
+        if wall < 10.0:
+            # pacing EMA; first-use builds and loads are excluded
+            self._ema_dispatch_s = (wall if self._ema_dispatch_s == 0.0
+                                    else 0.7 * self._ema_dispatch_s + 0.3 * wall)
+        self.stats.record(len(rows), wall, False)
+        for i, (g, rep) in enumerate(rows):
+            seq = self._vocab.clean_sequence(self._vocab.decode_ids(ids[i]))
+            with self._cv:
+                g["sequences"][rep] = seq
+                g["remaining"] -= 1
+                done = g["remaining"] == 0 and not g.get("settled")
+                if done:
+                    g["settled"] = True
+                    self._outstanding -= 1
+            if done and not g["future"].done():
+                g["future"].set_result({
+                    "prompt": g["request"]["prompt"],
+                    "sequences": [g["sequences"][r] for r in range(g["n_rep"])],
+                })
+
+    def _fail_groups(self, groups, exc: BaseException, *, count_errors: bool = True) -> None:
+        """Fail ``groups`` (or, with ``groups=None``, every queued, enqueuing
+        and in-flight group — the escalation / close-sweep path)."""
+        with self._cv:
+            if groups is None:
+                found = {id(g): g for g in self._pending}
+                for part in (self._dispatching, self._flight and self._flight[0]):
+                    for g, _rep in part or ():
+                        found[id(g)] = g
+                self._flight = self._dispatching = None
+                self._pending.clear()
+                groups = list(found.values())
+            else:
+                seen = set()
+                groups = [g for g in groups if not (id(g) in seen or seen.add(id(g)))]
+                for g in groups:
+                    try:
+                        self._pending.remove(g)
+                    except ValueError:
+                        pass
+            unsettled = [g for g in groups if not g.get("settled")]
+            for g in unsettled:
+                g["settled"] = True
+            self._outstanding -= len(unsettled)
+        if count_errors and unsettled:
+            with self.stats._lock:
+                self.stats.errors += len(unsettled)
+        for g in unsettled:
+            if not g["future"].done():
+                g["future"].set_exception(exc)

@@ -21,19 +21,38 @@ Phases, one line each; any failure raises and the script exits non-zero:
    group), with the kernel's, the plain version's and, where one exists,
    one PyTorch call's time, and the least time the card could take; the
    training kernels also at one ESM2-650M layer's backward (B=2, L=1024);
+   The int8 serving recipe: ``gemm_i8`` at the three models' shapes (its
+   library call ``torch._int_mm``, the int32 product only), ``quant_rows``
+   on f32 and bf16 rows, whose codes and scales must equal the plain
+   version's bit for bit, and ``local_window_attention`` (B=4, H=8, L=1024,
+   D=32, bf16; edge cases one window, D=64, f32; library call SDPA with a
+   boolean (L, L) band mask);
 4. full-width ``fused_stack_logits`` on the kernels (bf16, tanh GELU)
    against the plain f32 ProteoScribe, the full-width BERT tower and
-   ``fused_esm2_cls`` against the plain f32 towers, and the PenCL graph
-   path (bf16, the flash kernel) against the plain f32 PenCL: min cosine
-   >= 0.999;
+   ``fused_esm2_cls`` against the plain f32 towers, each also in int8
+   (against its bf16 kernel chain and the plain f32 module), the PenCL graph
+   path (bf16, the flash kernel) against the plain f32 PenCL, and
+   ``ProteoScribe(attn_impl="kernel")`` in bf16 against the plain f32 module
+   (the ``stage3_graph`` path): min cosine >= 0.999; ms per forward of the
+   stack at B=2 and B=32 and of the towers, int8 against bf16;
 5. the text→protein CLI (``biom3_tpu_torch.cli.run_e2e``) at full width on
    seeded random weights: 1 prompt, 2 replicas, exact mode (1024 denoise
-   steps); checks the sequences;
+   steps), at its default (int8 on the card), then with ``--ff-quant none
+   --proj-quant none`` (Stage 3 in bf16, the ``e2e_bf16`` path); checks the
+   sequences;
 6. the PenCL CLI (``biom3_tpu_torch.cli.run_pencl_inference``) at full
    width on seeded random weights in the published ``.bin`` layout (LM,
-   contact and MLM heads and buffers included): the 5 demo pairs; checks
-   the latents and scores; then ``PenCLEngine(tower_impl="graph")`` on the
-   same file;
+   contact and MLM heads and buffers included): the 5 demo pairs at its
+   default (int8); checks the latents and scores; then a ``PenCLEngine``
+   with its four quant knobs at ``"none"`` (the bf16 tower chain,
+   ``pencl_bf16``) and ``PenCLEngine(tower_impl="graph")`` on the same file;
+   serving, at full width on phase 5's files: an in-process ``BioM3Server``
+   (``rows_per_dispatch=4``, default flags: continuous, exact mode, int8)
+   answers 3 concurrent requests x 2 replicas (one prompt twice, one seeded
+   request twice: identical sequences), then ``--preset latency`` through
+   the trajectory scheduler (both the ``serve`` path), then the
+   ``run_server`` CLI as a subprocess: one request, SIGTERM, exit code 0;
+   seqs/s, p50 request latency and row occupancy on a line of their own;
 7. Stage-3 training at full width on seeded weights: the loss and every
    parameter gradient of ``ProteoScribe(attn_impl="layer-block")``, then
    ``"block"``, in bf16 on the kernels against the plain f32 module (fixed
@@ -59,9 +78,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``layer_block`` 3 steps with ``--export_bin``, ``--resume`` to 5, then
    ``run_pencl_inference --device cuda`` on the exported ``.bin``.
 
-Each path (phase 5, the CLI of phase 6, the graph engine of phase 6, the
-two training CLI modes of phase 7, the Stage-1 training CLI runs and the
-inference CLI on their ``.bin`` in phase 8) runs with the launch counts
+Each path (phase 4's graph-path ProteoScribe, both runs of phase 5, the
+three PenCL runs of phase 6, the serving runs, the two training CLI modes
+of phase 7, the Stage-1 training CLI runs and the inference CLI on their
+``.bin`` in phase 8) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
 exactly its own kernels.  The line before the last is the kernels' JSON record, with
 each kernel's time, its plain version's, the least time the card could
@@ -72,6 +92,7 @@ same function (``library_ms``); the last is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
 import subprocess
@@ -87,6 +108,7 @@ SEED = 0
 TIMED_ITERS = 20   # calls per kernel timing
 ESM_LAYERS, BERT_LAYERS = 33, 12
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8 = 1979e12   # H100 SXM dense int8 operations/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # phase 7 gates: bf16 training on the kernels vs the plain f32 module.  A
 # tensor under TENSOR_COS_MIN passes only where the same module in bf16 on
@@ -144,13 +166,27 @@ KERNEL_SOURCES = {
                 "biom3_tpu/ops/pallas/layer_block_tpu.py:419"),
     "esm2_attention_bwd": ("biom3_tpu_torch/csrc/esm2_attn_bwd.cu",
                            "biom3_tpu/ops/pallas/esm2_block_tpu.py:411"),
+    "gemm_i8": ("biom3_tpu_torch/csrc/gemm_i8.cu",
+                "biom3_tpu/ops/pallas/stack_kernel_tpu.py:765"),
+    "quant_rows": ("biom3_tpu_torch/csrc/rowwise.cu", "biom3_tpu/ops/pallas/quant.py:35"),
+    "local_window_attention": ("biom3_tpu_torch/csrc/local_attn.cu",
+                               "biom3_tpu/ops/pallas/local_attention_tpu.py:73"),
 }
+BIT_EQUAL = {"quant_rows"}   # codes and scales equal to the plain version's
 
 # path → the kernels it launches, and no other
+INT8 = {"gemm_i8", "quant_rows"}
+E2E_INT8 = INT8 | {"stage3_attention_core", "dense_attention", "bias_layernorm", "layernorm",
+                   "embed_tokens", "gather_head"}
 PATH_KERNELS = {
-    "e2e": {"gemm_bias_act", "stage3_attention_core", "dense_attention", "bias_layernorm",
-            "layernorm", "embed_tokens", "gather_head"},
-    "pencl": {"gemm_bias_act", "dense_attention", "layernorm", "esm2_embed", "esm2_attention"},
+    "e2e": E2E_INT8,
+    # Stage 3 in bf16; the text tower stays at its engine's int8 default
+    "e2e_bf16": E2E_INT8 | {"gemm_bias_act"},
+    "serve": E2E_INT8,
+    "stage3_graph": {"local_window_attention"},
+    "pencl": INT8 | {"dense_attention", "layernorm", "esm2_embed", "esm2_attention"},
+    "pencl_bf16": {"gemm_bias_act", "dense_attention", "layernorm", "esm2_embed",
+                   "esm2_attention"},
     "pencl_graph": {"flash_attention"},
     "train_layer_block": {"layernorm", "gemm_bias_act", "stage3_attention_core",
                           "stage3_attention_bwd", "gemm_dx", "gemm_dw", "col_sum",
@@ -282,6 +318,7 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     import torch.nn.functional as F
 
     from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.ops.quant import quantize_weight_int8
     from biom3_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 
     dev, bf, f32 = g.device, torch.bfloat16, torch.float32
@@ -297,11 +334,31 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     def vec(n, base=0.0, scale=0.1):
         return (base + scale * torch.randn(n, generator=g, device=dev)).float()
 
-    def case(name, *args, flops=0, out=0, lib=None, **kw):
+    def case(name, *args, flops=0, out=0, lib=None, peak=PEAK_FLOPS, **kw):
         tensors = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
         return {"run": lambda: getattr(K, name)(*args, **kw),
                 "plain": lambda: getattr(K, name + "_plain")(*args, **kw),
-                "flops": flops, "bytes": nbytes(*tensors) + out, "lib": lib}
+                "flops": flops, "bytes": nbytes(*tensors) + out, "lib": lib, "peak": peak}
+
+    def gemm8(m, k, n, *, bias=True, out_dtype=bf, **kw):
+        """One int8 product at (m, k, n): seeded activation codes and their
+        row scales, per-output-channel weight codes (N, K); the library
+        call is the int32 product alone (``torch._int_mm``)."""
+        a8, sa = K.quant_rows_plain(rnd(m, k))
+        w8, sw = quantize_weight_int8(rnd(k, n, dtype=f32, scale=k ** -0.5))
+        w8 = w8.t().contiguous()
+        size = torch.finfo(out_dtype).bits // 8
+        return case("gemm_i8", a8, sa, w8, sw, vec(n) if bias else None, out_dtype=out_dtype,
+                    **kw, flops=2 * m * k * n, out=m * n * size, peak=PEAK_INT8,
+                    lib=lambda: torch._int_mm(a8, w8.t()))
+
+    def quant(x):
+        rows, n = x.shape
+        return case("quant_rows", x, flops=3 * rows * n, out=rows * n + rows * 4)
+
+    def band_mask(L, W):
+        win = torch.arange(L, device=dev) // W
+        return (win[:, None] - win[None, :]).abs() <= 1
 
     def gemm(a, w, bias=None, out_dtype=None, **kw):
         m, k, n = a.shape[0], a.shape[1], w.shape[1]
@@ -380,10 +437,37 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
     dae = rnd(Be, L, Ee)
     qs, ks, vs = (t.contiguous() for t in heads_of(qkve, He))
     qs, ks = apply_rotary(qs, cos, sin), apply_rotary(ks, cos, sin)
+    rotated = (qs, ks, vs)
     qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, vs))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
     dsdpa = dae.view(Be, L, He, Ee // He).transpose(1, 2)
+    # the standalone local attention at the stage3_graph path's shape
+    ql = [rnd(B, NL, L, d // H) for _ in range(3)]
+    bandm = band_mask(L, W)
     return {
+        # one Stage-3 layer's four int8 products, then BERT's and ESM's
+        "gemm_i8": [
+            gemm8(M, d, 3 * d, bias=False),
+            gemm8(M, d, d, residual=xf, out_dtype=f32),
+            gemm8(M, d, FF, act="tanh", out_dtype=f32),
+            gemm8(M, FF, d, residual=xf),
+            gemm8(Bb * Lb, E, 3 * E),
+            gemm8(Bb * Lb, E, E, residual=xb, out_dtype=f32),
+            gemm8(Bb * Lb, E, FFb, act="tanh", out_dtype=f32),
+            gemm8(Bb * Lb, FFb, E, residual=rnd(Bb * Lb, E, dtype=f32), out_dtype=f32),
+            gemm8(Me, Ee, 3 * Ee),
+            gemm8(Me, Ee, Ee, residual=xe, out_dtype=f32),
+            gemm8(Me, Ee, FFe, act="tanh", out_dtype=f32),
+            gemm8(Me, FFe, Ee, residual=rnd(Me, Ee, dtype=f32)),
+        ],
+        # a Stage-3 layer's four activation quants (LN1 output, head
+        # outputs, f32 LN2 output, f32 GELU output), then BERT's and ESM's
+        "quant_rows": [quant(x), quant(rnd(M, d)), quant(xf), quant(rnd(M, FF, dtype=f32)),
+                       quant(xb), quant(rnd(Me, Ee, dtype=f32)), quant(rnd(Me, FFe, dtype=f32))],
+        "local_window_attention": [
+            case("local_window_attention", *ql, window=W,
+                 flops=4 * (d // H) * band_pairs(B, L, W, NL), out=nbytes(ql[0]),
+                 lib=lambda: F.scaled_dot_product_attention(*ql, attn_mask=bandm))],
         "gemm_bias_act": [
             gemm(x, w3),
             gemm(x, wo, vec(d), residual=xf, out_dtype=f32),
@@ -430,9 +514,13 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
                         for k in (1, 8)],
         "esm2_embed": [case("esm2_embed", ids, rnd(33, Ee), flops=Be * L * Ee,
                             out=Be * L * Ee * 2)],
+        # library: SDPA with the key mask on the already-rotated q, k (the
+        # rotation left out), as for esm2_attention_bwd
         "esm2_attention": [case("esm2_attention", qkve, pad, cos, sin, heads=He,
                                 flops=4 * He * L * live_keys(pad) * (Ee // He),
-                                out=Be * L * Ee * 2)],
+                                out=Be * L * Ee * 2,
+                                lib=lambda: F.scaled_dot_product_attention(
+                                    *rotated, attn_mask=fmask))],
         "flash_attention": [
             case("flash_attention", *fq, pad, flops=4 * He * L * live_keys(pad) * (Ee // He),
                  out=nbytes(fq[0]),
@@ -521,7 +609,29 @@ def edge_cases(g) -> dict[str, list]:
     xl = rnd(1003, 264, scale=3.0)
     ln = (1.0 + 0.1 * torch.randn(264, generator=g, device=dev),
           0.1 * torch.randn(264, generator=g, device=dev))
+    a8 = torch.randint(-127, 128, (1000, 96), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (200, 96), generator=g, device=dev, dtype=torch.int8)
+    s8 = [torch.rand(n, generator=g, device=dev) * 0.01 for n in (1000, 200)]
+    a8b = torch.randint(-127, 128, (37, 64), generator=g, device=dev, dtype=torch.int8)
+    w8b = torch.randint(-127, 128, (8, 64), generator=g, device=dev, dtype=torch.int8)
+    s8b = [torch.rand(n, generator=g, device=dev) for n in (37, 8)]
+    loc = [[rnd(2, 3, 128, 32) for _ in range(3)], [rnd(2, 4, 512, 64) for _ in range(3)],
+           [torch.randn(1, 2, 256, 32, generator=g, device=dev) for _ in range(3)],
+           [torch.randn(1, 2, 256, 64, generator=g, device=dev) for _ in range(3)]]
     return {
+        # int8: M, N, K off the 128x128x64 tile (K a multiple of 32), a bf16
+        # residual and erf GELU; quant rows off the 8-row block and the
+        # 256-column stride; local attention on one window (both
+        # neighbours masked), head dim 64, and f32
+        "gemm_i8": [pair("gemm_i8", a8, s8[0], w8, s8[1], bias, act="erf", residual=r,
+                         out_dtype=bf),
+                    pair("gemm_i8", a8b, s8b[0], w8b, s8b[1], out_dtype=torch.float32)],
+        "quant_rows": [pair("quant_rows", xl),
+                       pair("quant_rows", torch.randn(7, 5120, generator=g, device=dev))],
+        "local_window_attention": [pair("local_window_attention", *loc[0], window=128),
+                                   pair("local_window_attention", *loc[1], window=128),
+                                   pair("local_window_attention", *loc[2], window=64),
+                                   pair("local_window_attention", *loc[3], window=64)],
         "gemm_bias_act": [(lambda: K.gemm_bias_act(a, w, bias, **kw),
                            lambda: K.gemm_bias_act_plain(a, w, bias, **kw))],
         "stage3_attention_core": [
@@ -588,9 +698,9 @@ def time_cases(cases) -> dict:
     plain_ms = event_ms(lambda: [c["plain"]() for c in cases], TIMED_ITERS)
     libs = [c["lib"] for c in cases]
     library_ms = event_ms(lambda: [lib() for lib in libs], TIMED_ITERS) if all(libs) else None
-    t_ops = sum(c["flops"] for c in cases) / PEAK_FLOPS * 1e3
+    t_ops = sum(c["flops"] / c["peak"] for c in cases) * 1e3
     t_bytes = sum(c["bytes"] for c in cases) / PEAK_BYTES * 1e3
-    bound_ms = sum(max(c["flops"] / PEAK_FLOPS, c["bytes"] / PEAK_BYTES) for c in cases) * 1e3
+    bound_ms = sum(max(c["flops"] / c["peak"], c["bytes"] / PEAK_BYTES) for c in cases) * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms}
 
@@ -619,7 +729,7 @@ def phase_kernels() -> dict:
     # timed calls: one Stage-3 layer's four forward products; every
     # training kernel's calls of one layer's backward
     n_timed = {"gemm_bias_act": 4, "gemm_dx": 4, "gemm_dw": 4, "layernorm_bwd": 2,
-               "col_sum": 3}
+               "col_sum": 3, "gemm_i8": 4, "quant_rows": 4}
     # dqkv: each 32-column head group against its own scale (the linear
     # heads' dk is ~1/L of the local heads' dv)
     grouped = {"stage3_attention_bwd": 32, "esm2_attention_bwd": 64}
@@ -631,6 +741,9 @@ def phase_kernels() -> dict:
             got, want = flat(run()), flat(plain())
             torch.cuda.synchronize()
             for a, b in zip(got, want):
+                if name in BIT_EQUAL and not torch.equal(a, b):
+                    raise AssertionError(f"{name}: {int((a != b).sum())} of {a.numel()} "
+                                         f"values differ from the plain version's")
                 err_abs, err_rel = rel_err(a, b, group=grouped.get(name, 0))
                 worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
         if worst_rel > REL_TOL:
@@ -650,70 +763,160 @@ def phase_kernels() -> dict:
 # phase 4: full-width forwards on the kernels vs the plain f32 modules
 # --------------------------------------------------------------------------
 
-def phase_models(pencl) -> None:
+def phase_models(pencl) -> dict:
     """``pencl``: the seeded full-width f32 PenCL (tanh GELU) on the host;
-    it is back there when this returns."""
+    it is back there when this returns.  Returns the ``stage3_graph``
+    path's launch counts."""
     import torch
 
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
     from biom3_tpu_torch.config import BertConfig, ProteoScribeConfig
     from biom3_tpu_torch.io.state_dict import seeded_init_
     from biom3_tpu_torch.models.bert import BertEncoder
     from biom3_tpu_torch.models.fused_forward import make_stack_apply
     from biom3_tpu_torch.models.pencl import PenCL
     from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.ops import kernels as K
     from biom3_tpu_torch.ops.bert_stack import bert_embed, bert_stack_arrays, fused_bert_cls
     from biom3_tpu_torch.ops.esm2_stack import esm2_stack_arrays, fused_esm2_cls
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    int8 = dict(ff_quant="int8", proj_quant="int8")
+
+    def gate(what: str, cos: float) -> None:
+        if cos < COS_MIN:
+            raise AssertionError(f"{what}: min cosine {cos} < {COS_MIN}")
+
+    def inputs(B, k):
+        ids = torch.randint(0, cfg.num_classes, (B, cfg.max_seq_len), generator=g, device=dev)
+        ids = ids * (torch.rand(ids.shape, generator=g, device=dev) < 0.5)   # half absorbing
+        t = torch.randint(0, cfg.num_timesteps, (B,), generator=g, device=dev)
+        z = torch.randn((B, cfg.cond_dim), generator=g, device=dev)
+        pos = torch.randint(0, cfg.max_seq_len, (B, k), generator=g, device=dev)
+        return ids, t, z, pos
+
     cfg = ProteoScribeConfig()
     model = seeded_init_(ProteoScribe(cfg), SEED).to(dev).eval()
     B, k = 4, 8
-    ids = torch.randint(0, cfg.num_classes, (B, cfg.max_seq_len), generator=g, device=dev)
-    ids = ids * (torch.rand(ids.shape, generator=g, device=dev) < 0.5)   # half absorbing
-    t = torch.randint(0, cfg.num_timesteps, (B,), generator=g, device=dev)
-    z = torch.randn((B, cfg.cond_dim), generator=g, device=dev)
-    pos = torch.randint(0, cfg.max_seq_len, (B, k), generator=g, device=dev)
+    ids, t, z, pos = inputs(B, k)
+    bf16_apply = make_stack_apply(model, dtype=torch.bfloat16, gelu="tanh")
+    int8_apply = make_stack_apply(model, dtype=torch.bfloat16, gelu="tanh", **int8)
     with torch.no_grad():
         ref = model(ids, t, z)
         want = torch.gather(ref, 1, pos[..., None].expand(-1, -1, ref.shape[-1]))
-        got = make_stack_apply(model, dtype=torch.bfloat16, gelu="tanh")(ids, t, z, pos)
+        got = bf16_apply(ids, t, z, pos)
+        got8 = int8_apply(ids, t, z, pos)
     torch.cuda.synchronize()
-    cos = min_cosine(got, want)
+    cos, cos8, cos8b = min_cosine(got, want), min_cosine(got8, want), min_cosine(got8, got)
     say("models", f"fused_stack_logits (B={B}, k={k}, bf16, tanh) vs plain f32: "
-                  f"min logit cosine {cos:.6f}, max|Δ| {float((got - want).abs().max()):.3e}")
-    if cos < COS_MIN:
-        raise AssertionError(f"stack logit cosine {cos} < {COS_MIN}")
+                  f"min logit cosine {cos:.6f}, max|Δ| {float((got - want).abs().max()):.3e}; "
+                  f"int8 FF + projections vs plain f32 {cos8:.6f}, vs bf16 {cos8b:.6f}")
+    gate("stack logits bf16", cos)
+    gate("stack logits int8 vs f32", cos8)
+    gate("stack logits int8 vs bf16", cos8b)
+    times = {}
+    for Bt in (2, 32):
+        args = inputs(Bt, 1)
+        with torch.no_grad():
+            times[Bt] = {name: event_ms(lambda fn=fn: fn(*args), 5)
+                         for name, fn in (("bf16", bf16_apply), ("int8", int8_apply))}
+    say("models", "stack forward ms (k=1, CUDA events, 5 calls): " + "; ".join(
+        f"B={Bt} bf16 {v['bf16']:.3f} int8 {v['int8']:.3f}" for Bt, v in times.items()))
 
-    bcfg = BertConfig(vocab_size=30522)
-    bert = seeded_init_(BertEncoder(bcfg), SEED).to(dev).eval()
-    x_ids = torch.randint(0, bcfg.vocab_size, (2, 512), generator=g, device=dev)
+    # the graph path: the plain module with the band-local heads on the
+    # local_window_attention kernel, bf16, full logits
+    graph = ProteoScribe(cfg, attn_impl="kernel", dtype=torch.bfloat16).to(dev).eval()
+    graph.load_state_dict(model.state_dict())
+    K.reset_launches()
     with torch.no_grad():
-        want = bert(x_ids)["hidden"][:, 0]
-        x0 = bert_embed(bert, x_ids, dtype=torch.bfloat16)
-        got = fused_bert_cls(x0, **bert_stack_arrays(bert, torch.bfloat16),
-                             heads=bcfg.num_heads, gelu="tanh")
+        full = graph(ids, t, z)
     torch.cuda.synchronize()
-    cos = min_cosine(got, want)
-    say("models", f"fused_bert_cls (B=2, L=512, bf16, tanh) vs plain f32 tower: "
-                  f"min CLS cosine {cos:.6f}")
-    if cos < COS_MIN:
-        raise AssertionError(f"BERT CLS cosine {cos} < {COS_MIN}")
-    del model, bert
+    counts = K.launch_counts()
+    check_path("stage3_graph", counts)
+    if counts["local_window_attention"] != cfg.depth:
+        raise AssertionError(f"local_window_attention launched {counts['local_window_attention']}"
+                             f" times, expected {cfg.depth}")
+    cos = min_cosine(full.reshape(-1, full.shape[-1]), ref.reshape(-1, ref.shape[-1]))
+    say("models", f"ProteoScribe(attn_impl=kernel) (B={B}, bf16, every position) vs plain f32: "
+                  f"min logit cosine {cos:.6f}; launches {counts}")
+    gate("graph-path logits", cos)
+    del model, graph, bf16_apply, int8_apply
+
+    # BERT at its own initializer (N(0, 0.02²) matrices and tables, zero
+    # biases, unit LayerNorms; HF BertPreTrainedModel._init_weights), where
+    # the int8 gate applies; the port's generic seeding (N(0, 1/fan_in),
+    # perturbed norms and biases) is reported beside it: at that weight
+    # scale the post-LN tower's int8 recipe drifts past 0.999 in f32 too
+    bcfg = BertConfig(vocab_size=30522)
+    bert = BertEncoder(bcfg).to(dev).eval()
+    x_ids = torch.randint(0, bcfg.vocab_size, (2, 512), generator=g, device=dev)
+    for seeding in ("seeded_init_", "bert_init"):
+        with torch.no_grad():
+            if seeding == "seeded_init_":
+                seeded_init_(bert.cpu(), SEED).to(dev)
+            else:
+                for name, prm in bert.named_parameters():
+                    if prm.dim() >= 2:
+                        prm.normal_(0.0, 0.02, generator=g)
+                    elif name.endswith("weight"):
+                        prm.fill_(1.0)
+                    else:
+                        prm.zero_()
+        arrays = {q: bert_stack_arrays(bert, torch.bfloat16, **(int8 if q == "int8" else {}))
+                  for q in ("bf16", "int8")}
+        with torch.no_grad():
+            want = bert(x_ids)["hidden"][:, 0]
+            x0 = bert_embed(bert, x_ids, dtype=torch.bfloat16)
+            run = {q: (lambda a=a: fused_bert_cls(x0, **a, heads=bcfg.num_heads, gelu="tanh"))
+                   for q, a in arrays.items()}
+            got, got8 = run["bf16"](), run["int8"]()
+            bert_ms = {q: event_ms(fn, 5) for q, fn in run.items()}
+        torch.cuda.synchronize()
+        cos, cos8, cos8b = min_cosine(got, want), min_cosine(got8, want), min_cosine(got8, got)
+        say("models", f"fused_bert_cls ({seeding}, B=2, L=512, bf16, tanh) vs plain f32 tower: "
+                      f"min CLS cosine {cos:.6f}; int8 vs f32 {cos8:.6f}, vs bf16 {cos8b:.6f}; "
+                      f"ms per call bf16 {bert_ms['bf16']:.3f} int8 {bert_ms['int8']:.3f}")
+        gate("BERT CLS bf16", cos)
+        if seeding == "bert_init":
+            gate("BERT CLS int8 vs f32", cos8)
+            gate("BERT CLS int8 vs bf16", cos8b)
+        else:
+            # the recipe's own drift at this seeding: the int8 chain's plain
+            # versions in f32 on the host, against the f32 tower there
+            cpu = copy.deepcopy(bert).cpu()
+            ids_cpu = x_ids.cpu()
+            with torch.no_grad():
+                ref_cpu = cpu(ids_cpu)["hidden"][:, 0]
+                out_cpu = fused_bert_cls(bert_embed(cpu, ids_cpu, dtype=torch.float32),
+                                         **bert_stack_arrays(cpu, torch.float32, **int8),
+                                         heads=bcfg.num_heads, gelu="tanh")
+            say("models", f"fused_bert_cls ({seeding}): the int8 recipe in f32 (plain "
+                          f"versions, host) vs the f32 tower: min CLS cosine "
+                          f"{min_cosine(out_cpu, ref_cpu):.6f}")
+            del cpu
+    del bert, arrays, run
 
     ref = pencl.to(dev)
     ecfg = ref.config.esm
     x_p = esm_ids([1024, 400], 1024, g)
+    arrays = {q: esm2_stack_arrays(ref.esm, torch.bfloat16, **(int8 if q == "int8" else {}))
+              for q in ("bf16", "int8")}
     with torch.no_grad():
         want = ref.esm(x_p)["hidden"][:, 0]
-        got = fused_esm2_cls(x_p, **esm2_stack_arrays(ref.esm, torch.bfloat16),
-                             heads=ecfg.attention_heads, gelu="tanh")
+        run = {q: (lambda a=a: fused_esm2_cls(x_p, **a, heads=ecfg.attention_heads, gelu="tanh"))
+               for q, a in arrays.items()}
+        got, got8 = run["bf16"](), run["int8"]()
+        esm_ms = {q: event_ms(fn, 3) for q, fn in run.items()}
     torch.cuda.synchronize()
-    cos = min_cosine(got, want)
+    cos, cos8, cos8b = min_cosine(got, want), min_cosine(got8, want), min_cosine(got8, got)
     say("models", f"fused_esm2_cls (B=2, L=1024, lengths 1024/400, bf16, tanh) vs plain f32 "
-                  f"tower: min CLS cosine {cos:.6f}")
-    if cos < COS_MIN:
-        raise AssertionError(f"ESM2 CLS cosine {cos} < {COS_MIN}")
+                  f"tower: min CLS cosine {cos:.6f}; int8 vs f32 {cos8:.6f}, vs bf16 "
+                  f"{cos8b:.6f}; ms per call bf16 {esm_ms['bf16']:.3f} int8 {esm_ms['int8']:.3f}")
+    gate("ESM2 CLS bf16", cos)
+    gate("ESM2 CLS int8 vs f32", cos8)
+    gate("ESM2 CLS int8 vs bf16", cos8b)
+    del arrays, run
 
     with torch.device(dev):
         graph = PenCL(ref.config, attn_impl="kernel", gelu="tanh")
@@ -726,11 +929,11 @@ def phase_models(pencl) -> None:
     cos = min(min_cosine(got[key], want[key]) for key in want)
     say("models", f"PenCL graph path (B=2, attn_impl=kernel, bf16) vs plain f32 PenCL: "
                   f"min latent cosine {cos:.6f}")
-    if cos < COS_MIN:
-        raise AssertionError(f"PenCL graph latent cosine {cos} < {COS_MIN}")
+    gate("PenCL graph latents", cos)
     del graph, want, got
     pencl.cpu()
     torch.cuda.empty_cache()
+    return {"stage3_graph": counts}
 
 
 def check_path(path: str, counts: dict) -> None:
@@ -784,50 +987,174 @@ def write_stage_files(root: pathlib.Path) -> dict:
             "steps": stage[3]["diffusion_steps"]}
 
 
-def phase_e2e() -> dict:
+def phase_e2e(root: pathlib.Path, files: dict) -> dict:
+    """``run_e2e`` at its default (Stage 3 and the text tower in int8), then
+    with Stage 3 in bf16 (``--ff-quant none --proj-quant none``) → each
+    path's launch counts."""
     import torch
 
     from biom3_tpu_torch.cli import run_e2e
     from biom3_tpu_torch.ops import kernels as K
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        root = pathlib.Path(tmp)
-        files = write_stage_files(root)
-        (root / "prompts.txt").write_text(
-            "PROTEIN NAME: kinase. FUNCTION: catalyzes transport with atp binding activity\n")
-        out = root / "e2e.pt"
+    (root / "prompts.txt").write_text(
+        "PROTEIN NAME: kinase. FUNCTION: catalyzes transport with atp binding activity\n")
+    counts = {}
+    for path, extra in (("e2e", []), ("e2e_bf16", ["--ff-quant", "none", "--proj-quant", "none"])):
+        out = root / f"{path}.pt"
         K.reset_launches()
         t0 = time.perf_counter()
         run_e2e.main([*files["flags"], "--prompts", str(root / "prompts.txt"),
                       "--output_path", str(out), "--device", "cuda", "--num_replicas", "2",
-                      "--positions_per_step", "1", "--seed", str(SEED)])
+                      "--positions_per_step", "1", "--seed", str(SEED), *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = K.launch_counts()
+        counts[path] = K.launch_counts()
         saved = torch.load(out, weights_only=False)
+        z_t, z_c = np.asarray(saved["z_t"]), np.asarray(saved["z_c"])
+        if z_t.shape != (1, 512) or z_c.shape != (1, 512):
+            raise AssertionError(f"z_t {z_t.shape}, z_c {z_c.shape}: expected (1, 512)")
+        if not (np.isfinite(z_t).all() and np.isfinite(z_c).all()):
+            raise AssertionError("non-finite z_t / z_c")
+        seqs = [s for rep in saved["sequences"].values() for s in rep]
+        if len(seqs) != 2:
+            raise AssertionError(f"expected 2 sequences, got {len(seqs)}")
+        check_sequences(seqs)
+        if seqs[0] == seqs[1]:
+            raise AssertionError("the two replicas are identical")
+        check_path(path, counts[path])
+        forwards = files["steps"]          # exact mode: one forward per step, one batch
+        if counts[path]["stage3_attention_core"] != files["depth"] * forwards:
+            raise AssertionError(f"stage3_attention_core launched "
+                                 f"{counts[path]['stage3_attention_core']} times, expected "
+                                 f"{files['depth']} x {forwards}")
+        say("e2e", f"{path}: 1 prompt x 2 replicas, exact mode ({forwards} steps) {' '.join(extra)}"
+                   f": {wall:.2f} s wall; lengths {[len(s) for s in seqs]}; "
+                   f"launches {counts[path]}")
+    return counts
 
-    z_t, z_c = np.asarray(saved["z_t"]), np.asarray(saved["z_c"])
-    if z_t.shape != (1, 512) or z_c.shape != (1, 512):
-        raise AssertionError(f"z_t {z_t.shape}, z_c {z_c.shape}: expected (1, 512)")
-    if not (np.isfinite(z_t).all() and np.isfinite(z_c).all()):
-        raise AssertionError("non-finite z_t / z_c")
-    seqs = [s for rep in saved["sequences"].values() for s in rep]
-    if len(seqs) != 2:
-        raise AssertionError(f"expected 2 sequences, got {len(seqs)}")
+
+def check_sequences(seqs) -> None:
     for s in seqs:
         if not 0 < len(s) <= 1024 or set(s) - VALID:
             raise AssertionError(f"invalid sequence (len {len(s)}): {s[:80]!r}")
-    if seqs[0] == seqs[1]:
-        raise AssertionError("the two replicas are identical")
-    check_path("e2e", counts)
-    forwards = files["steps"]          # exact mode: one forward per step, one batch
-    if counts["stage3_attention_core"] != files["depth"] * forwards:
-        raise AssertionError(f"stage3_attention_core launched "
-                             f"{counts['stage3_attention_core']} times, expected "
-                             f"{files['depth']} x {forwards}")
-    say("e2e", f"1 prompt x 2 replicas, exact mode ({forwards} steps): {wall:.2f} s wall; "
-               f"lengths {[len(s) for s in seqs]}; launches {counts}")
-    return counts
+
+
+# --------------------------------------------------------------------------
+# serving: BioM3Server in process (continuous, then --preset latency), then
+# the run_server CLI as a subprocess
+# --------------------------------------------------------------------------
+
+SERVE_PROMPTS = ("PROTEIN NAME: kinase. FUNCTION: catalyzes transport with atp binding activity",
+                 "membrane transport protein")
+
+
+def http_json(url: str, payload: dict | None = None, timeout: float = 600.0) -> dict:
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def serve_requests(base: str) -> dict:
+    """3 concurrent requests x 2 replicas: one prompt twice (an embed-cache
+    hit) with the same seed (identical sequences), another prompt unseeded
+    → seqs/s, p50 request latency, the sequences."""
+    import threading
+
+    reqs = [{"prompt": SERVE_PROMPTS[0], "num_replicas": 2, "seed": 7},
+            {"prompt": SERVE_PROMPTS[0], "num_replicas": 2, "seed": 7},
+            {"prompt": SERVE_PROMPTS[1], "num_replicas": 2}]
+    out, lat = [None] * 3, [0.0] * 3
+
+    def client(i):
+        t0 = time.perf_counter()
+        out[i] = http_json(f"{base}/v1/generate", reqs[i])["results"][0]["sequences"]
+        lat[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(o is None for o in out):
+        raise AssertionError("a serving request did not answer")
+    check_sequences([s for o in out for s in o])
+    if out[0] != out[1]:
+        raise AssertionError("the seeded request sent twice gave different sequences")
+    return {"seqs_per_s": 6 / wall, "p50_s": float(np.median(lat)), "wall_s": wall}
+
+
+def phase_serve(root: pathlib.Path, files: dict) -> dict:
+    """The serving slice at full width on seeded weights → the ``serve``
+    path's launch counts (both in-process servers)."""
+    import signal
+
+    import torch
+
+    from biom3_tpu_torch.cli import run_server
+    from biom3_tpu_torch.ops import kernels as K
+
+    counts: dict = {}
+    base_flags = [*files["flags"], "--device", "cuda", "--port", "0", "--rows_per_dispatch", "4"]
+    for label, extra in (("continuous, exact, int8", []), ("--preset latency", ["--preset",
+                                                                                 "latency"])):
+        server = run_server.build_server(run_server.parse_arguments(base_flags + extra))
+        server.start()
+        base = f"http://{server.host}:{server.port}"
+        try:
+            health = http_json(f"{base}/healthz")
+            if health["platform"] != "gpu" or health["continuous"] != (not extra):
+                raise AssertionError(f"healthz: {health}")
+            K.reset_launches()
+            res = serve_requests(base)
+            torch.cuda.synchronize()
+            run_counts = K.launch_counts()
+            m = http_json(f"{base}/v1/metrics")
+        finally:
+            server.close()
+        check_path("serve", run_counts)
+        for name, c in run_counts.items():
+            counts[name] = counts.get(name, 0) + c
+        occ, cache = m["device"]["row_occupancy"], m["embed_cache"]
+        if not 0 < occ <= 1 or cache["hits"] < 1 or m["generate"]["errors"]:
+            raise AssertionError(f"metrics: {m}")
+        say("serve", f"{label}: 3 requests x 2 replicas at rows_per_dispatch 4: "
+                     f"{res['wall_s']:.2f} s wall; embed cache {cache}; device "
+                     f"{m['device']}; device memory {m['memory'].get('device_mb')}")
+        say("serve", f"{label}: seqs/s {res['seqs_per_s']:.4f} p50 request latency "
+                     f"{res['p50_s']:.3f} s row occupancy {occ}")
+
+    # the CLI as a subprocess: one request, SIGTERM, exit code 0
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "biom3_tpu_torch.cli.run_server", *base_flags,
+                             "--num_replicas", "1"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        base = None
+        while base is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"run_server exited: {proc.stderr.read()[-3000:]}")
+            if line.startswith("serving on "):
+                base = line.split()[-1]
+        up = time.perf_counter() - t0
+        seqs = http_json(f"{base}/v1/generate", {"prompt": SERVE_PROMPTS[1]})["results"][0]
+        check_sequences(seqs["sequences"])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"run_server exited {rc} on SIGTERM: {proc.stderr.read()[-3000:]}")
+    say("serve", f"run_server CLI: up in {up:.2f} s, 1 request answered, SIGTERM → exit 0 "
+                 f"({time.perf_counter() - t0:.2f} s in all)")
+    return {"serve": counts}
 
 
 # --------------------------------------------------------------------------
@@ -923,6 +1250,25 @@ def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
                  f"launches {counts['pencl']}")
 
     engine = PenCLEngine(Config(stage1), str(root / "pencl.bin"), device="cuda",
+                         ff_quant="none", proj_quant="none", bert_ff_quant="none",
+                         bert_proj_quant="none")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    b_t, b_p = engine.embed(cli.DEMO_CAPTIONS, cli.DEMO_SEQUENCES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["pencl_bf16"] = K.launch_counts()
+    del engine
+    torch.cuda.empty_cache()
+    check_path("pencl_bf16", counts["pencl_bf16"])
+    cos_t, cos = min_cosine(torch.as_tensor(b_t), z_t), min_cosine(torch.as_tensor(b_p), z_p)
+    say("pencl", f"bf16 towers (PenCLEngine, the four quant knobs none), {n} demo pairs: "
+                 f"{wall:.2f} s wall; min cosine vs the CLI's int8 latents: z_p {cos:.6f}, z_t "
+                 f"{cos_t:.6f} (BERT's int8 gate is phase 4's, at its own initializer)")
+    if cos < COS_MIN:
+        raise AssertionError(f"bf16 vs int8 protein latent cosine {cos} < {COS_MIN}")
+
+    engine = PenCLEngine(Config(stage1), str(root / "pencl.bin"), device="cuda",
                          tower_impl="graph")
     K.reset_launches()
     t0 = time.perf_counter()
@@ -937,9 +1283,10 @@ def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
     if counts["pencl_graph"]["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched {counts['pencl_graph']['flash_attention']} "
                              f"times, expected {want}")
-    cos = min(min_cosine(torch.as_tensor(g_t), z_t), min_cosine(torch.as_tensor(g_p), z_p))
+    cos = min(min_cosine(torch.as_tensor(g_t), torch.as_tensor(b_t)),
+              min_cosine(torch.as_tensor(g_p), torch.as_tensor(b_p)))
     say("pencl", f"graph path (PenCLEngine tower_impl=graph), {n} demo pairs: {wall:.2f} s wall; "
-                 f"min latent cosine vs the CLI's fused-stack latents {cos:.6f}")
+                 f"min latent cosine vs the bf16 fused-stack latents {cos:.6f}")
     if cos < COS_MIN:
         raise AssertionError(f"graph vs fused-stack latent cosine {cos} < {COS_MIN}")
     return counts
@@ -1395,8 +1742,11 @@ def main() -> None:
         root = pathlib.Path(tmp)
         stage1 = stage1_config(root)
         pencl = seeded_pencl(stage1)
-        phase_models(pencl)
-        counts = {"e2e": phase_e2e()}
+        counts = phase_models(pencl)
+        (root / "e2e").mkdir()
+        files = write_stage_files(root / "e2e")
+        counts.update(phase_e2e(root / "e2e", files))
+        counts.update(phase_serve(root / "e2e", files))
         counts.update(phase_pencl(root, stage1, pencl))
         del pencl
     phase_train_grads()

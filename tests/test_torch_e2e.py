@@ -141,13 +141,28 @@ def test_run_e2e_cli_cpu(stage_files, tmp_path):
             assert "<START>" not in s and "<PAD>" not in s
 
 
+def _e2e_args(*flag):
+    from biom3_tpu_torch.cli import run_e2e
+
+    return run_e2e.parse_arguments(
+        [f for n in (1, 2, 3) for f in (f"--stage{n}_json", "x", f"--stage{n}_model", "x")]
+        + ["--prompts", "p", "--output_path", "o", *flag])
+
+
 @pytest.mark.parametrize("flag", [["--sampler", "maskgit"], ["--decode_order", "confidence"],
-                                  ["--inpaint_sequence", "MK??"], ["--ff-quant", "int8"]])
+                                  ["--inpaint_sequence", "MK??"],
+                                  ["--ff-quant", "int8", "--inpaint_sequence", "MK??"]])
 def test_run_e2e_refuses_unported_flags(flag):
     from biom3_tpu_torch.cli import run_e2e
 
-    args = run_e2e.parse_arguments(
-        [f for n in (1, 2, 3) for f in (f"--stage{n}_json", "x", f"--stage{n}_model", "x")]
-        + ["--prompts", "p", "--output_path", "o", *flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_e2e._refuse_unported(args)
+        run_e2e._refuse_unported(_e2e_args(*flag))
+
+
+def test_run_e2e_takes_the_int8_flags():
+    """int8 is ported: the quant flags pass, and reach Stage 3 only."""
+    from biom3_tpu_torch.cli import run_e2e
+
+    args = _e2e_args("--ff-quant", "int8", "--proj-quant", "none")
+    run_e2e._refuse_unported(args)
+    assert (args.ff_quant, args.proj_quant) == ("int8", "none")

@@ -68,6 +68,13 @@ SLICE_MODULES = [
     "biom3_tpu_torch.data.stage1_data",
     "biom3_tpu_torch.cli.run_train_stage1",
     "biom3_tpu_torch.cli.measure_stage1",
+    "biom3_tpu_torch.ops.quant",
+    "biom3_tpu_torch.serving",
+    "biom3_tpu_torch.serving.batcher",
+    "biom3_tpu_torch.serving.continuous",
+    "biom3_tpu_torch.serving.trajectory",
+    "biom3_tpu_torch.serving.server",
+    "biom3_tpu_torch.cli.run_server",
 ]
 
 
@@ -128,7 +135,8 @@ def test_build_targets_sm90a_under_ignored_build_dir():
 
     names = {p.name for p in _build.sources()}
     assert {"gemm_bf16.cu", "stage3_attn.cu", "dense_attn.cu", "rowwise.cu", "esm2_attn.cu",
-            "flash_attn.cu", "stage3_attn_bwd.cu", "esm2_attn_bwd.cu"} <= names
+            "flash_attn.cu", "stage3_attn_bwd.cu", "esm2_attn_bwd.cu", "gemm_i8.cu",
+            "local_attn.cu"} <= names
     # one nvcc per source (run together), then one link
     for src in _build.sources():
         cmd = _build.compile_command(src, "out.o")
@@ -286,6 +294,31 @@ def _esm_attn_bwd(**over):
     return esm2_attention_bwd(a["qkv"], a["da"], a["pad"], a["cos"], a["sin"], heads=2)
 
 
+def _gemm_i8(**over):
+    from biom3_tpu_torch.ops.kernels import gemm_i8
+
+    a = dict(a=torch.randint(-127, 128, (8, 32), dtype=torch.int8), sa=_t(8),
+             w=torch.randint(-127, 128, (24, 32), dtype=torch.int8), sw=_t(24), bias=_t(24))
+    a.update(over)
+    return gemm_i8(a["a"], a["sa"], a["w"], a["sw"], a["bias"], out_dtype=torch.float32)
+
+
+def _quant_rows(**over):
+    from biom3_tpu_torch.ops.kernels import quant_rows
+
+    a = dict(x=_t(8, 16))
+    a.update(over)
+    return quant_rows(a["x"])
+
+
+def _local(**over):
+    from biom3_tpu_torch.ops.kernels import local_window_attention
+
+    a = dict(q=_t(2, 2, 32, 16), k=_t(2, 2, 32, 16), v=_t(2, 2, 32, 16))
+    a.update(over)
+    return local_window_attention(a["q"], a["k"], a["v"], window=8)
+
+
 # (wrapper, bad dtype, bad shape, non-contiguous) as keyword overrides
 BAD_INPUTS = {
     "gemm_bias_act": (_gemm, dict(a=_t(8, 16, dtype=torch.float64)), dict(w=_t(12, 24)),
@@ -320,6 +353,11 @@ BAD_INPUTS = {
                              dict(da=_t(2, 32, 15)), dict(da=_t(32, 2, 16).transpose(0, 1))),
     "esm2_attention_bwd": (_esm_attn_bwd, dict(pad=torch.zeros(2, 16, dtype=torch.int64)),
                            dict(da=_t(2, 16, 48)), dict(da=_t(16, 2, 32).transpose(0, 1))),
+    "gemm_i8": (_gemm_i8, dict(a=_t(8, 32)), dict(sw=_t(23)),
+                dict(w=torch.randint(-127, 128, (32, 24), dtype=torch.int8).t())),
+    "quant_rows": (_quant_rows, dict(x=_t(8, 16).int()), dict(x=_t(16)), dict(x=_t(16, 8).t())),
+    "local_window_attention": (_local, dict(k=_t(2, 2, 32, 16, dtype=torch.float64)),
+                               dict(q=_t(2, 2, 30, 16)), dict(v=_t(2, 2, 16, 32).transpose(2, 3))),
 }
 
 
@@ -346,6 +384,39 @@ def test_launch_counts_untouched_on_cpu():
 
 
 # --- the port's copies equal the JAX package's modules ----------------------
+
+def test_batcher_copy_equals_the_jax_package():
+    """``serving/batcher.py`` is pure Python: the port keeps the classes
+    verbatim."""
+    import inspect
+
+    from biom3_tpu.serving import batcher as jax_batcher
+    from biom3_tpu_torch.serving import batcher
+
+    for name in ("BatcherStats", "MicroBatcher"):
+        assert inspect.getsource(getattr(batcher, name)) == \
+            inspect.getsource(getattr(jax_batcher, name)), name
+
+
+def test_quant_copy_equals_the_jax_package():
+    """``ops/quant.py`` is jnp in the JAX package and torch in the port: the
+    same functions, bit for bit (and ``tests/test_torch_quant.py`` on ties
+    and zero rows)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from biom3_tpu.ops.pallas import quant as jax_quant
+    from biom3_tpu_torch.ops import quant
+
+    x = np.random.default_rng(0).standard_normal((4, 32, 24)).astype(np.float32)
+    for name, arg in (("quantize_weight_int8", x), ("quant_rows", x[0]), ("quant_cols", x[0])):
+        want = getattr(jax_quant, name)(jnp.asarray(arg))
+        got = getattr(quant, name)(torch.from_numpy(arg))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert [n for n in dir(jax_quant) if n.startswith("quant")] == \
+        [n for n in dir(quant) if n.startswith("quant")]
+
 
 def test_config_copy_parses_like_the_jax_package(tmp_path):
     import dataclasses
