@@ -1,0 +1,245 @@
+"""The forward GEMM kernels on one CUDA card: ``gemm_bias_act`` and ``gemm_i8``.
+
+    python -m biom3_tpu_torch.cli.measure_gemm [--batches 4 32] [--out build/measure_gemm.json]
+
+For each Stage-3 batch B (M = B·1024 rows, d = 512, FF 2048): one layer's
+four forward products, as the stack runs them (q/k/v 512→1536 bf16 out;
+out-projection 512→512 with an f32 residual, f32 out; W1 512→2048 with
+tanh GELU; W2 2048→512 with an f32 residual), in bf16 through
+``gemm_bias_act`` and in int8 through ``gemm_i8``.  Each product is held
+against its plain version (max|Δ|/max|ref| <= 2e-2), then the four are
+timed together by CUDA events beside one PyTorch call each (``matmul``;
+``torch._int_mm``, the int32 product only), with the least time the card
+could take (operations at 989 TFLOP/s bf16 or 1979 TOP/s int8, bytes at
+3.35 TB/s), the rate in TFLOP/s or TOP/s and each product's own time.
+Also the host cost of one wrapper call (enqueue only, no synchronise) of
+each GEMM and of ``layernorm``, a kernel that takes no tensor maps, and
+the SASS counts of the tensor-core and TMA instructions in each kernel of
+the built library (``cuobjdump -sass``).  Prints one JSON object and
+writes it to ``--out``.
+
+Two versions in one call (the same card): run this file from another
+checkout's root with that checkout first on the path, e.g.
+``cd parent && PYTHONPATH=. python ../biom3_tpu_torch/cli/measure_gemm.py``;
+it then builds and times that checkout's kernels.  Exits non-zero without
+a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+REL_TOL = 2e-2
+ITERS = 20
+PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM data sheet
+L, D, FF = 1024, 512, 2048
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def stage3_gemm_cases(B: int, g) -> dict[str, list[dict]]:
+    """``{"gemm_bias_act": [...], "gemm_i8": [...]}``: one Stage-3 layer's
+    four forward products at batch B on ``g``'s device, each case
+    ``{"run", "plain", "flops", "bytes", "lib", "peak"}`` (bytes: every
+    input read once, every output written once)."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.ops.quant import quantize_weight_int8
+
+    dev, bf, f32 = g.device, torch.bfloat16, torch.float32
+    M = B * L
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def vec(n):
+        return 0.1 * torch.randn(n, generator=g, device=dev)
+
+    def case(name, *args, flops, out, lib, peak, **kw):
+        tensors = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
+        return {"run": lambda: getattr(K, name)(*args, **kw),
+                "plain": lambda: getattr(K, name + "_plain")(*args, **kw),
+                "flops": flops, "bytes": nbytes(*tensors) + out, "lib": lib, "peak": peak}
+
+    def gemm(a, w, bias=None, out_dtype=bf, **kw):
+        m, k, n = a.shape[0], a.shape[1], w.shape[1]
+        return case("gemm_bias_act", a, w, bias, out_dtype=out_dtype, **kw, flops=2 * m * k * n,
+                    out=m * n * (torch.finfo(out_dtype).bits // 8), peak=PEAK_BF16,
+                    lib=lambda: torch.matmul(a, w))
+
+    def gemm8(k, n, bias=True, out_dtype=bf, **kw):
+        a8, sa = K.quant_rows_plain(rnd(M, k))
+        w8, sw = quantize_weight_int8(rnd(k, n, dtype=f32, scale=k ** -0.5))
+        w8 = w8.t().contiguous()
+        return case("gemm_i8", a8, sa, w8, sw, vec(n) if bias else None, out_dtype=out_dtype,
+                    **kw, flops=2 * M * k * n, out=M * n * (torch.finfo(out_dtype).bits // 8),
+                    peak=PEAK_INT8, lib=lambda: torch._int_mm(a8, w8.t()))
+
+    x, xf, mid = rnd(M, D), rnd(M, D, dtype=f32), rnd(M, FF)
+    return {
+        "gemm_bias_act": [
+            gemm(x, rnd(D, 3 * D, scale=D ** -0.5)),
+            gemm(x, rnd(D, D, scale=D ** -0.5), vec(D), residual=xf, out_dtype=f32),
+            gemm(x, rnd(D, FF, scale=D ** -0.5), vec(FF), act="tanh"),
+            gemm(mid, rnd(FF, D, scale=FF ** -0.5), vec(D), residual=xf),
+        ],
+        "gemm_i8": [
+            gemm8(D, 3 * D, bias=False),
+            gemm8(D, D, residual=xf, out_dtype=f32),
+            gemm8(D, FF, act="tanh", out_dtype=f32),
+            gemm8(FF, D, residual=xf),
+        ],
+    }
+
+
+def check(cases) -> tuple[float, float]:
+    """Worst (max|Δ|, max|Δ|/max|ref|) of the cases' kernels against their
+    plain versions; raises over ``REL_TOL``."""
+    import torch
+
+    worst = (0.0, 0.0)
+    for c in cases:
+        got, want = c["run"]().float(), c["plain"]().float()
+        torch.cuda.synchronize()
+        if not bool(got.isfinite().all()):
+            raise AssertionError("kernel output has non-finite values")
+        diff = float((got - want).abs().max())
+        worst = max(worst[0], diff), max(worst[1], diff / max(float(want.abs().max()), 1e-30))
+    if worst[1] > REL_TOL:
+        raise AssertionError(f"max|Δ|/max|ref| = {worst[1]:.3e} > {REL_TOL}")
+    return worst
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host µs per call of ``fn`` (the enqueue: checks, allocation, tensor
+    maps, launch), the device drained before and after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def host_costs(g) -> dict[str, float]:
+    """Host µs of one wrapper call of each GEMM at the Stage-3 B=4 q/k/v
+    product and of ``layernorm`` (no tensor maps) on its input rows."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    cases = stage3_gemm_cases(4, g)
+    x = torch.randn(4 * L, D, generator=g, device=g.device)
+    ones, zeros = torch.ones(D, device=g.device), torch.zeros(D, device=g.device)
+    return {"gemm_bias_act": host_us(cases["gemm_bias_act"][0]["run"]),
+            "gemm_i8": host_us(cases["gemm_i8"][0]["run"]),
+            "layernorm": host_us(lambda: K.layernorm(x, ones, zeros, eps=1e-6,
+                                                     out_dtype=torch.bfloat16))}
+
+
+def timing(cases) -> dict:
+    """ms of the cases' kernels and library calls, the bound and the rate."""
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+
+    ms = event_ms(lambda: [c["run"]() for c in cases], ITERS)
+    library_ms = event_ms(lambda: [c["lib"]() for c in cases], ITERS)
+    t_ops = sum(c["flops"] / c["peak"] for c in cases) * 1e3
+    t_bytes = sum(c["bytes"] for c in cases) / PEAK_BYTES * 1e3
+    bound = sum(max(c["flops"] / c["peak"], c["bytes"] / PEAK_BYTES) for c in cases) * 1e3
+    flops = sum(c["flops"] for c in cases)
+    return {"ms": ms, "per_product_ms": [event_ms(c["run"], ITERS) for c in cases],
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "rate_t_per_s": flops / ms / 1e9, "library_rate_t_per_s": flops / library_ms / 1e9}
+
+
+def sass_counts(lib_path) -> dict[str, dict[str, int]]:
+    """Kernel (demangled where ``cu++filt`` exists) → counts of ``SASS_OPS``
+    in its SASS, for the kernels that have any."""
+    from biom3_tpu_torch.ops import _build
+
+    bindir = pathlib.Path(_build.nvcc_path()).parent
+    sass = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    counts: dict[str, collections.Counter] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = collections.Counter()
+        elif name is not None:
+            counts[name].update(pattern.findall(line))
+    names = [n for n, c in counts.items() if c]
+    filt = bindir / "cu++filt"
+    if not filt.is_file():
+        filt = shutil.which("c++filt")
+    shown = names
+    if filt and names:
+        shown = subprocess.run([str(filt)], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    return {s: {op: counts[n][op] for op in SASS_OPS} for n, s in zip(names, shown)}
+
+
+def parse_arguments(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batches", type=int, nargs="+", default=[4, 32])
+    p.add_argument("--out", type=str, default=None)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    import torch
+
+    from biom3_tpu_torch.ops import _build
+    from biom3_tpu_torch.ops import kernels as K
+
+    args = parse_arguments(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("measure_gemm needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    _build.library()
+    result = {"card": smi, "package": str(pathlib.Path(K.__file__).resolve().parents[1]),
+              "torch": torch.__version__}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B in args.batches:
+        for name, cases in stage3_gemm_cases(B, g).items():
+            err_abs, err_rel = check(cases)
+            result[f"{name}_B{B}"] = {"max_abs_err": err_abs, "max_rel_err": err_rel,
+                                      **timing(cases)}
+            print(f"{name} B={B}: {json.dumps(result[f'{name}_B{B}'])}", flush=True)
+        del cases
+        torch.cuda.empty_cache()
+    result["host_us_per_call"] = host_costs(g)
+    print(f"host: {json.dumps(result['host_us_per_call'])}", flush=True)
+    try:
+        result["sass"] = sass_counts(_build.LIB_PATH)
+    except (OSError, subprocess.CalledProcessError, RuntimeError) as e:
+        result["sass"] = {"error": repr(e)}
+    text = json.dumps(result)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        pathlib.Path(args.out).write_text(text + "\n")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

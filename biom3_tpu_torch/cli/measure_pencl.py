@@ -48,8 +48,8 @@ WALLS = 7         # warm calls per wall-time median
 RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 # kernel name fragment → profile group (the port's kernels; anything else
 # is reported under its own name)
-KERNEL_GROUPS = (("gemm_kernel<false, false>", "gemm_bias_act"),
-                 ("gemm_kernel<false, true>", "gemm_dx"), ("gemm_kernel<true, false>", "gemm_dw"),
+KERNEL_GROUPS = (("gemm_bias_act_wgmma", "gemm_bias_act"), ("gemm_i8_wgmma", "gemm_i8"),
+                 ("gemm_wmma<false, true>", "gemm_dx"), ("gemm_wmma<true, false>", "gemm_dw"),
                  ("esm2_bwd", "esm2_attention_bwd"), ("esm2_attn", "esm2_attention"),
                  ("flash_attn", "flash_attention"),
                  ("dense_attn", "dense_attention"), ("layernorm_bwd", "layernorm_bwd"),
@@ -148,9 +148,10 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory(prefix="measure_pencl_") as tmp:
         stage1 = Config(stage1_config(pathlib.Path(tmp)))
         t0 = time.perf_counter()
-        engines = {"fused-stack": PenCLEngine(stage1, None, device="cuda")}
+        engines = {"fused-stack": PenCLEngine(stage1, None, device="cuda", dtype=torch.bfloat16)}
         say("engine_setup_s", time.perf_counter() - t0, "(seeded init, packing the stacks)")
-        engines["graph"] = PenCLEngine(stage1, None, device="cuda", tower_impl="graph")
+        engines["graph"] = PenCLEngine(stage1, None, device="cuda", dtype=torch.bfloat16,
+                                       tower_impl="graph")
         eng = engines["fused-stack"]
         esm = eng.config.esm
         rng = np.random.default_rng(0)

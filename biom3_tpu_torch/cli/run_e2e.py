@@ -1,11 +1,12 @@
 """Unified text→protein pipeline CLI on PyTorch/CUDA.
 
 Port of ``biom3_tpu/cli/run_e2e.py``: the same flags, prints and ``.pt``
-output, plus ``--device`` (default ``cuda``).  On ``cuda`` the engines run
-bf16 on the port's kernels, in int8 by default (``--ff-quant`` and
-``--proj-quant`` reach Stage 3 only, as in the JAX CLI; the text tower's
-int8 is its engine's default); on ``cpu`` they run f32 on the kernels'
-plain versions.
+output, plus ``--device`` (default ``cuda``) and ``--dtype`` (``cli/dtype.py``:
+``auto`` = bf16 on cuda, f32 on cpu).  In bf16 on ``cuda`` the engines run
+the port's kernels, in int8 by default (``--ff-quant`` and ``--proj-quant``
+reach Stage 3 only, as in the JAX CLI; the text tower's int8 is its
+engine's default); in f32 they run the PyTorch modules (erf GELU, no int8)
+on either device.
 
   python -m biom3_tpu_torch.cli.run_e2e --device cuda \\
       --stage1_json ... --stage1_model ... \\
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 
+from biom3_tpu_torch.cli.dtype import add_dtype_argument, resolve_dtype
 from biom3_tpu_torch.config import load_json_config
 from biom3_tpu_torch.io.torch_io import save_torch_file
 
@@ -36,9 +38,9 @@ def parse_arguments(argv=None):
     p.add_argument("--positions_per_step", type=int, default=1,
                    help=">1 enables blocked fast decoding (k-fold fewer forwards)")
     p.add_argument("--ff-quant", choices=["auto", "none", "int8"], default="auto",
-                   help="Stage-3 FF matmuls in int8 (auto: int8 on cuda, none on cpu)")
+                   help="Stage-3 FF matmuls in int8 (auto: int8 in bf16 on cuda, else none)")
     p.add_argument("--proj-quant", choices=["auto", "none", "int8"], default="auto",
-                   help="Stage-3 q/k/v/out projections in int8 (auto: int8 on cuda)")
+                   help="Stage-3 q/k/v/out projections in int8 (auto: int8 in bf16 on cuda)")
     p.add_argument("--decode_order", choices=["path", "confidence"], default="path")
     p.add_argument("--sampler", choices=["ardm", "maskgit"], default="ardm")
     p.add_argument("--maskgit_steps", type=int, default=16)
@@ -46,19 +48,20 @@ def parse_arguments(argv=None):
                    help="partial design to fill (not ported yet)")
     p.add_argument("--inpaint_unknown", type=str, default="?")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda: bf16 and int8 on the port's kernels; cpu: f32 plain versions")
+                   help="cuda (the kernels in bf16) or cpu")
+    add_dtype_argument(p)
     return p.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
     """The JAX CLI's paths that the port does not have yet, and where they wait."""
     if args.inpaint_sequence is not None:
-        raise NotImplementedError("--inpaint_sequence is not ported yet (ROADMAP queue 1, item 7)")
+        raise NotImplementedError("--inpaint_sequence is not ported yet (ROADMAP queue 1, item 4)")
     if args.sampler == "maskgit":
-        raise NotImplementedError("--sampler maskgit is not ported yet (ROADMAP queue 1, item 2)")
+        raise NotImplementedError("--sampler maskgit is not ported yet (ROADMAP queue 1, item 3)")
     if args.decode_order == "confidence":
         raise NotImplementedError("--decode_order confidence is not ported yet "
-                                  "(ROADMAP queue 1, item 2)")
+                                  "(ROADMAP queue 1, item 3)")
 
 
 def main(argv=None) -> None:
@@ -68,12 +71,13 @@ def main(argv=None) -> None:
 
     args = parse_arguments(argv)
     _refuse_unported(args)
+    dtype = resolve_dtype(args.dtype, args.device)
     with open(args.prompts) as f:
         prompts = [line.strip() for line in f if line.strip()]
     print(f"{len(prompts)} prompts")
 
     s1 = PenCLEngine(load_json_config(args.stage1_json), args.stage1_model,
-                     device=args.device, text_only=True)
+                     device=args.device, dtype=dtype, text_only=True)
     z_t = s1.embed_text(prompts)
     print(f"z_t: {z_t.shape}")
 
@@ -83,7 +87,7 @@ def main(argv=None) -> None:
     print(f"z_c: {z_c.shape}")
 
     s3 = ProteoScribeEngine(load_json_config(args.stage3_json), args.stage3_model,
-                            device=args.device, temperature=args.temperature,
+                            device=args.device, dtype=dtype, temperature=args.temperature,
                             positions_per_step=args.positions_per_step,
                             ff_quant=None if args.ff_quant == "auto" else args.ff_quant,
                             proj_quant=None if args.proj_quant == "auto" else args.proj_quant)

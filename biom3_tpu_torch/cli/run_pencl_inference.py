@@ -3,8 +3,10 @@
 Port of ``biom3_tpu/cli/run_pencl_inference.py``: the same flags
 (--json_path --model_path --output_path), prints and
 ``{'sequence','text_prompts','z_t','z_p'}`` ``.pt`` dict, plus ``--device``
-(default ``cuda``).  On ``cuda`` both towers run bf16 on the port's kernels;
-on ``cpu`` they run f32 on the kernels' plain versions.
+(default ``cuda``) and ``--dtype`` (``cli/dtype.py``: ``auto`` = bf16 on
+cuda, f32 on cpu).  In bf16 on ``cuda`` both towers run on the port's
+kernels (int8 by default); in f32 the ``PenCL`` module runs (erf GELU,
+plain attention) on either device.
 
   python -m biom3_tpu_torch.cli.run_pencl_inference --device cuda \\
       --json_path stage1.json --model_path pencl.bin --output_path pencl_out.pt
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 
 from biom3_tpu_torch.cli.demo_data import DEMO_CAPTIONS, DEMO_SEQUENCES
+from biom3_tpu_torch.cli.dtype import add_dtype_argument, resolve_dtype
 from biom3_tpu_torch.config import load_json_config
 from biom3_tpu_torch.io.torch_io import save_torch_file
 
@@ -25,7 +28,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--model_path", type=str, required=True)
     parser.add_argument("--output_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda: bf16 on the port's kernels; cpu: f32 plain versions")
+                        help="cuda (the kernels in bf16) or cpu")
+    add_dtype_argument(parser)
     return parser.parse_args(argv)
 
 
@@ -33,7 +37,8 @@ def main(argv=None) -> None:
     from biom3_tpu_torch.pipeline.stage1 import PenCLEngine, compute_scores
 
     args = parse_arguments(argv)
-    engine = PenCLEngine(load_json_config(args.json_path), args.model_path, device=args.device)
+    engine = PenCLEngine(load_json_config(args.json_path), args.model_path, device=args.device,
+                         dtype=resolve_dtype(args.dtype, args.device))
 
     z_t, z_p = engine.embed(DEMO_CAPTIONS, DEMO_SEQUENCES)
     scores = {k: v.cpu().numpy() for k, v in compute_scores(z_p, z_t).items()}

@@ -1,11 +1,13 @@
 """Online text→protein serving daemon on PyTorch/CUDA.
 
 Port of ``biom3_tpu/cli/run_server.py``: the same flags and presets, plus
-``--device`` (default ``cuda``, with no CPU fallback).  It loads the three
+``--device`` (default ``cuda``, with no CPU fallback) and ``--dtype``
+(``cli/dtype.py``: ``auto`` = bf16 on cuda, f32 on cpu).  It loads the three
 stages once and serves concurrent HTTP requests (``serving.BioM3Server``)
 with chunk-boundary continuous batching for exact mode and the
-row-granular trajectory scheduler for blocked mode; the engines serve in
-int8 on the card by default.  On ``cuda`` the kernels are built and loaded
+row-granular trajectory scheduler for blocked mode; in bf16 the engines
+serve on the kernels in int8 by default, in f32 through the PyTorch
+modules.  On ``cuda`` the kernels are built and loaded
 before the server binds its port, so no client waits on the build.
 
   python -m biom3_tpu_torch.cli.run_server --device cuda \\
@@ -20,8 +22,8 @@ before the server binds its port, so no client waits on the build.
 
 Refused (``NotImplementedError``, with the ROADMAP item that ports them):
 ``--preset throughput`` and ``--sampler maskgit``, ``--decode_order
-confidence`` (queue 1, item 2), ``--continuous_inpaint`` (item 7),
-``--mesh_dp``/``--mesh_fsdp`` above 1 (item 12).
+confidence`` (queue 1, item 3), ``--continuous_inpaint`` (item 4),
+``--mesh_dp``/``--mesh_fsdp`` above 1 (item 8).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import argparse
 import signal
 
+from biom3_tpu_torch.cli.dtype import add_dtype_argument, resolve_dtype
 from biom3_tpu_torch.config import load_json_config
 
 # Serving bundles, as the JAX CLI's: each sets the flags below unless the
@@ -86,9 +89,9 @@ def parse_arguments(argv=None):
     p.add_argument("--positions_per_step", type=int, default=None,
                    help=">1 enables blocked fast decoding; default 1")
     p.add_argument("--ff-quant", choices=["auto", "none", "int8"], default="auto",
-                   help="Stage-3 FF matmuls in int8 (auto: int8 on cuda)")
+                   help="Stage-3 FF matmuls in int8 (auto: int8 in bf16 on cuda)")
     p.add_argument("--proj-quant", choices=["auto", "none", "int8"], default="auto",
-                   help="Stage-3 q/k/v/out projections in int8 (auto: int8 on cuda)")
+                   help="Stage-3 q/k/v/out projections in int8 (auto: int8 in bf16 on cuda)")
     p.add_argument("--decode_order", choices=["path", "confidence"], default=None)
     p.add_argument("--sampler", choices=["ardm", "maskgit"], default=None)
     p.add_argument("--maskgit_steps", type=int, default=None)
@@ -108,7 +111,8 @@ def parse_arguments(argv=None):
     p.add_argument("--warmup", action="store_true",
                    help="one dummy dispatch of every serving path before accepting traffic")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda: the port's kernels (int8 by default); cpu: f32 plain versions")
+                   help="cuda (the kernels in bf16, int8 by default) or cpu")
+    add_dtype_argument(p)
     args = p.parse_args(argv)
     for flag, value in {**DEFAULTS, **PRESETS.get(args.preset, {})}.items():
         if getattr(args, flag) is None:
@@ -121,13 +125,13 @@ def refuse_unported(args) -> None:
     if args.sampler == "maskgit" or args.decode_order == "confidence":
         raise NotImplementedError("MaskGIT and confidence-order serving (--preset throughput, "
                                   "--sampler maskgit, --decode_order confidence) are not "
-                                  "ported yet (ROADMAP queue 1, item 2)")
+                                  "ported yet (ROADMAP queue 1, item 3)")
     if args.continuous_inpaint:
         raise NotImplementedError("--continuous_inpaint is not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
+                                  "(ROADMAP queue 1, item 4)")
     if args.mesh_dp * args.mesh_fsdp > 1:
         raise NotImplementedError("mesh serving (--mesh_dp/--mesh_fsdp > 1) is not ported yet "
-                                  "(ROADMAP queue 1, item 12)")
+                                  "(ROADMAP queue 1, item 8)")
 
 
 def build_server(args):
@@ -145,12 +149,13 @@ def build_server(args):
         from biom3_tpu_torch.ops import _build
 
         _build.library()   # build and load the kernels before the port is bound
+    dtype = resolve_dtype(args.dtype, args.device)
     s1 = PenCLEngine(load_json_config(args.stage1_json), args.stage1_model, device=args.device,
-                     text_only=True)
+                     dtype=dtype, text_only=True)
     s2 = FacilitatorEngine(load_json_config(args.stage2_json), args.stage2_model,
                            device=args.device)
     s3 = ProteoScribeEngine(
-        load_json_config(args.stage3_json), args.stage3_model, device=args.device,
+        load_json_config(args.stage3_json), args.stage3_model, device=args.device, dtype=dtype,
         temperature=args.temperature, chunk_steps=args.chunk_steps,
         positions_per_step=args.positions_per_step,
         ff_quant=None if args.ff_quant == "auto" else args.ff_quant,

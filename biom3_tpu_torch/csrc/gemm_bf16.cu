@@ -3,9 +3,9 @@
 // Replaces the in-kernel matrix products of the TPU kernels
 // (biom3_tpu/ops/pallas/stack_kernel_tpu.py:765 fused_stack_logits,
 // fused_layer_tpu.py:186/269 fused_attn_half/fused_ff_half,
-// bert_stack_tpu.py:198 fused_bert_cls, and the training blocks
-// attn_block_tpu.py:343/379 and layer_block_tpu.py:382/419).  Three modes
-// share one kernel template <TA, TB>:
+// bert_stack_tpu.py:198 fused_bert_cls, esm2_stack_tpu.py:294
+// fused_esm2_cls, and the training blocks attn_block_tpu.py:343/379 and
+// layer_block_tpu.py:382/419).  Three entry points:
 //
 // * b3_gemm_bias_act (forward): act(A·B + bias) + residual, A (M, K) and
 //   B (K, N) row-major — the JAX package's (d_in, d_out) layout — with an
@@ -20,23 +20,33 @@
 //   512 x 512 gradient still fill the card, and the f32 partials are summed
 //   in a fixed order by col_sum (rowwise.cu) — deterministic, no atomics.
 //
-// What bounds it on an H100: at the main path's shapes (M = B·L = 2048 to
-// 32768 rows, K and N of 512 to 3072) every product is well above the
-// card's ~295 FLOP/byte ridge, so it is tensor-core bound.  This first
-// version uses WMMA 16x16x16 bf16 tiles (mma.sync underneath) in a
-// 128x128x32 block tile with register-staged double buffering: one
-// __syncthreads per K step, global loads of step k+1 in flight while the
-// tensor cores work on step k.  A transposed operand is staged in shared
-// memory as it lies in device memory and read by a col_major fragment.
-// The epilogue runs per warp through a 1 KB shared staging tile (aliased
-// on the A buffers) so bias, GELU or its derivative, residual and the
-// output cast cost no extra pass over device memory.  wgmma/TMA is later
-// work.
+// What bounds it on an H100: the forward products of the main path (M =
+// B·L = 2048 to 32768 rows, K and N of 512 to 5120) do 2·K operations per
+// output element against K·2 bytes a row of A and 2-4 bytes an output: a
+// Stage-3 layer's products sit at ~250-600 operations a byte, around the
+// card's ~295 bf16 ridge, so at B = 4 bytes and tensor cores bound them
+// about equally and at B = 32 (and for the wide ESM2 products) the tensor
+// cores do.  The first version (WMMA 16x16x16 tiles, A and B staged through
+// registers into two shared buffers, a __syncthreads a K step) reached
+// ~119-155 TFLOP/s, 12-16 % of the 989 TFLOP/s peak.
+//
+// b3_gemm_bias_act now runs hopper_gemm.cuh's main loop: TMA loads of A
+// (K-major) and B (the (K, N) weight as it lies: MN-major, read through
+// wgmma's B-transpose bit) into a 3-4 stage ring, no register staging and
+// no __syncthreads; one producer warp, one or two consumer warpgroups
+// issuing wgmma m64n128k16 with one batch in flight; persistent blocks,
+// two an SM, so loads and one block's epilogue overlap the other's
+// products; the epilogue from the accumulator registers.  The tile (128x128
+// or 64x128) follows M and N (hopper::wide_tile).  gemm_dx and gemm_dw stay
+// on the WMMA template below (gemm_wmma), whose transposed operand is
+// staged in shared memory as it lies in device memory and read by a
+// col_major fragment; its epilogue runs per warp through a 1 KB shared
+// staging tile (aliased on the A buffers).
 #include <mma.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -64,7 +74,7 @@ struct Epilogue {
 
 template <bool TA, bool TB>
 __global__ void __launch_bounds__(THREADS)
-gemm_kernel(const bf16 *__restrict__ A, const bf16 *__restrict__ B, void *__restrict__ C,
+gemm_wmma(const bf16 *__restrict__ A, const bf16 *__restrict__ B, void *__restrict__ C,
             int M, int N, int K, int k_chunk, Epilogue ep) {
   __shared__ __align__(128) bf16 As[TILE_ELEMS];
   __shared__ __align__(128) bf16 Bs[TILE_ELEMS];
@@ -239,10 +249,19 @@ template <bool TA, bool TB>
 int launch(const void *A, const void *B, void *C, int M, int N, int K, int splits,
            const Epilogue &ep, cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split_count(K, splits));
-  gemm_kernel<TA, TB><<<grid, THREADS, 0, stream>>>(static_cast<const bf16 *>(A),
+  gemm_wmma<TA, TB><<<grid, THREADS, 0, stream>>>(static_cast<const bf16 *>(A),
                                                     static_cast<const bf16 *>(B), C, M, N, K,
                                                     split_chunk(K, splits), ep);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, int NWG, int STAGES>
+__global__ void __launch_bounds__(hopper::Tile<hopper::Op::BF16, BN, NWG, STAGES>::THREADS,
+                                  hopper::Tile<hopper::Op::BF16, BN, NWG, STAGES>::MIN_BLOCKS)
+gemm_bias_act_wgmma(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b, void *C, int M, int N, int K,
+                    hopper::Epilogue ep) {
+  hopper::gemm_body<hopper::Op::BF16, BN, NWG, STAGES>(&map_a, &map_b, C, M, N, K, ep);
 }
 
 }  // namespace
@@ -252,9 +271,15 @@ int launch(const void *A, const void *B, void *C, int M, int N, int K, int split
 B3_EXPORT int b3_gemm_bias_act(const void *A, const void *B, const void *bias,
                                const void *residual, void *pre, void *C, int M, int N, int K,
                                int act, int res_bf16, int out_f32, void *stream) {
-  const Epilogue ep{static_cast<const float *>(bias), residual, nullptr,
-                    static_cast<float *>(pre), act, res_bf16, out_f32};
-  return launch<false, false>(A, B, C, M, N, K, 1, ep, static_cast<cudaStream_t>(stream));
+  using hopper::Op;
+  const hopper::Epilogue ep{nullptr, nullptr, static_cast<const float *>(bias), residual,
+                            static_cast<float *>(pre), act, res_bf16, out_f32};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper::wide_tile(M, N))
+    return hopper::launch<Op::BF16, 128, 2, 3>(gemm_bias_act_wgmma<128, 2, 3>, A, B, C, M, N, K,
+                                               ep, s);
+  return hopper::launch<Op::BF16, 128, 1, 4>(gemm_bias_act_wgmma<128, 1, 4>, A, B, C, M, N, K, ep,
+                                             s);
 }
 
 // dX (M, N) = dY (M, K) · Wᵀ, W (N, K); act: ACT_NONE or ACT_DGELU_* with

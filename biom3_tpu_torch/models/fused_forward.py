@@ -10,9 +10,16 @@ package's ``_cond_mlp`` is the ``ConditioningMLP`` module's own forward
 here.  ``ff_quant``/``proj_quant="int8"`` pack the FF or the q/k/v/out
 matrices as per-output-channel int8 (``ops/quant.py``, from the f32
 weights, as the JAX package packs them, fused_forward.py:244-256).
+``stack_supported(cfg)`` is the shape gate of ``plan_stack_kernel``
+(fused_forward.py:94-101) for the port's kernels: the engine serves a
+config it refuses through the ``ProteoScribe`` module.  On the CPU the
+plain versions take any head dim and window, so only ``n_blocks`` binds
+``make_stack_apply`` itself.
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +33,39 @@ from biom3_tpu_torch.ops.quant import quantize_weight_int8
 from biom3_tpu_torch.ops.stack import pack_stack_weights, stack_logits
 
 QUANT_MODES = ("none", "int8")
+HEAD_DIMS = (32, 64)        # the attention kernels' head dims (ops/kernels.py)
+_LOGGED: set[str] = set()   # fallback reasons already logged in this process
+
+
+def log_once(msg: str) -> None:
+    """Log an engine's fallback from the kernels once per process."""
+    if msg not in _LOGGED:
+        _LOGGED.add(msg)
+        logging.getLogger("biom3_tpu_torch").warning(msg)
+
+
+def stack_supported(cfg) -> tuple[bool, str]:
+    """(True, "") when the stack forward's kernels take ``cfg``, else
+    (False, the first reason): one block, d divisible by the heads, a head
+    dim the attention kernels take, L a multiple of the window, and the
+    window tiled by ``stage3_attention_core``'s query tile.  d = heads ·
+    head dim is then a multiple of 32, which every GEMM (int8: K % 32) and
+    row-wise kernel (d % 8) takes."""
+    d, heads, L, W = cfg.dim, cfg.heads, cfg.max_seq_len, cfg.local_window
+    if cfg.n_blocks != 1:
+        return False, f"n_blocks={cfg.n_blocks} (the stack forward serves one block)"
+    if d % heads:
+        return False, f"dim={d} not divisible by heads={heads}"
+    dh = d // heads
+    if dh not in HEAD_DIMS:
+        return False, f"head dim {dh} (the attention kernels take {HEAD_DIMS})"
+    if cfg.local_heads:
+        if L % W:
+            return False, f"max_seq_len={L} not divisible by local_window={W}"
+        tile = min(W, 128 if dh == 32 else 64)
+        if W % tile or tile % 8:
+            return False, f"local_window={W} does not tile by {tile} query rows"
+    return True, ""
 
 
 def final_head(model: ProteoScribe, h: torch.Tensor) -> torch.Tensor:

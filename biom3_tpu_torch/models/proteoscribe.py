@@ -257,8 +257,10 @@ class ProteoScribe(nn.Module):
             bias = bias + core.y_mlp(z_c)
         return bias.reshape(t.shape[0], cfg.dim, cfg.n_blocks, cfg.depth)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                z_c: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, z_c: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+        """With ``positions`` (B, k) int, the final LayerNorm and head run at
+        those positions only → (B, k, C) (the sampler's gathered head)."""
         cfg, core = self.config, self.transformer
         L = x.shape[1]
         x_embed = core.x_emb_NN(x.long()) + core.axial_pos_emb.table()[None, :L]
@@ -271,4 +273,6 @@ class ProteoScribe(nn.Module):
                 h_in = h + bias[..., bi, li][:, None, :]
                 h = (torch.utils.checkpoint.checkpoint(layer, h_in, use_reentrant=False)
                      if remat else layer(h_in))
+        if positions is not None:
+            h = torch.gather(h, 1, positions.long()[..., None].expand(-1, -1, h.shape[-1]))
         return core.out(core.norm(h.float()))

@@ -5,23 +5,29 @@ Port of ``biom3_tpu/pipeline/stage1.py``: ``compute_scores``,
 text-only ``embed_text`` that the text→protein path calls.  Two tower
 paths, as in the JAX engine:
 
-* ``tower_impl="fused-stack"`` (default): the towers' CLS rows through
+* ``tower_impl="fused-stack"``: the towers' CLS rows through
   ``ops/bert_stack.fused_bert_cls`` and ``ops/esm2_stack.fused_esm2_cls``,
   the counterparts of the TPU kernels; the projection heads run f32 in
   plain torch.  The f32 ESM2 module stays on the host: only its stacked
   arrays go to the device.
-* ``tower_impl="graph"``: the ``PenCL`` module in the engine's dtype with
-  ``attn_impl="kernel"`` (the ``flash_attention`` kernel in both towers),
-  the counterpart of the JAX engine's ``tower_impl="flax"`` with
-  ``attn_impl="pallas:…"``.
+* ``tower_impl="graph"``: the ``PenCL`` module in the engine's dtype, the
+  counterpart of the JAX engine's ``tower_impl="flax"``, with
+  ``attn_impl="kernel"`` (the ``flash_attention`` kernel in both towers,
+  the JAX ``attn_impl="pallas:…"``) or ``"plain"`` (torch ops, ``"xla"``).
 
-On ``cuda`` the towers run bf16 with tanh GELU (the JAX engine's
-perf-mode choice, stage1.py:114); on ``cpu`` they run f32 with exact GELU
-on the kernels' plain versions.  The JAX engine's four int8 knobs
-(stage1.py:71-93) keep their meaning: ``ff_quant``/``proj_quant`` for the
-ESM2 tower, ``bert_ff_quant``/``bert_proj_quant`` for BERT; ``None`` (auto)
-is ``"int8"`` on ``cuda`` on the fused-stack path, ``"none"`` on ``cpu``,
-and the graph path never quantizes.
+``dtype`` has the JAX engine's meaning (stage1.py:44,58-93): ``float32``
+(the default) runs the graph path in f32 on the engine's device with erf
+GELU, plain attention and no quantization; ``bfloat16`` on ``cuda`` (perf
+mode) runs the fused-stack path with tanh GELU, and the JAX engine's four
+int8 knobs (stage1.py:71-93) left at ``None`` (auto) mean ``"int8"``:
+``ff_quant``/``proj_quant`` for the ESM2 tower,
+``bert_ff_quant``/``bert_proj_quant`` for BERT; ``bfloat16`` on ``cpu``
+runs the graph path in bf16.  ``tower_supported`` gates the fused-stack
+path and the flash kernel by the towers' shapes: in perf mode a config it
+refuses runs the graph path with plain attention, and the reason is logged
+once.  ``use_stack=True`` forces the fused-stack path (on ``cpu`` the
+kernels' plain versions in f32 with erf GELU and quant auto ``"none"``);
+``tower_impl`` names a path outright.  The graph path never quantizes.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from biom3_tpu_torch.config import Config, PenCLConfig
 from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init_
+from biom3_tpu_torch.models.fused_forward import HEAD_DIMS, log_once
 from biom3_tpu_torch.models.pencl import PenCL, PenCLText, pencl_state_dict, text_state_dict
 from biom3_tpu_torch.ops.bert_stack import bert_embed, bert_stack_arrays, fused_bert_cls
 from biom3_tpu_torch.ops.esm2_stack import esm2_stack_arrays, fused_esm2_cls
@@ -38,6 +45,26 @@ from biom3_tpu_torch.tokenizers import TextTokenizer, esm_batch_encode
 
 TOWER_IMPLS = ("fused-stack", "graph")
 QUANT_MODES = ("none", "int8")
+
+
+def tower_supported(cfg: PenCLConfig, *, text_only: bool = False) -> tuple[bool, str]:
+    """(True, "") when the towers' kernels take ``cfg`` (BERT, and ESM2
+    unless ``text_only``), else (False, the first reason): widths divisible
+    by the heads, head dims the attention kernels take, FF widths a
+    multiple of 32 (``gemm_i8``'s K; the head dims make the widths one)."""
+    towers = [("BERT", cfg.bert.hidden_size, cfg.bert.num_heads, cfg.bert.intermediate_size)]
+    if not text_only:
+        e = cfg.esm.embed_dim
+        towers.append(("ESM2", e, cfg.esm.attention_heads, 4 * e))
+    for name, width, heads, ff in towers:
+        if width % heads:
+            return False, f"{name} width {width} not divisible by {heads} heads"
+        if width // heads not in HEAD_DIMS:
+            return False, (f"{name} head dim {width // heads} (the attention kernels take "
+                           f"{HEAD_DIMS})")
+        if ff % 32:
+            return False, f"{name} FF width {ff} not a multiple of 32"
+    return True, ""
 
 
 @torch.no_grad()
@@ -60,33 +87,61 @@ def compute_scores(z_p, z_t) -> dict:
 
 class PenCLEngine:
     def __init__(self, stage_config: Config, model_path: str | None = None, *,
-                 device: str | torch.device = "cpu", text_tokenizer=None,
-                 text_only: bool = False, tower_impl: str = "fused-stack",
+                 device: str | torch.device = "cpu", dtype: torch.dtype = torch.float32,
+                 use_stack: bool | None = None, text_tokenizer=None, text_only: bool = False,
+                 tower_impl: str | None = None, attn_impl: str | None = None,
                  ff_quant: str | None = None, proj_quant: str | None = None,
                  bert_ff_quant: str | None = None, bert_proj_quant: str | None = None):
-        if tower_impl not in TOWER_IMPLS:
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        if tower_impl not in TOWER_IMPLS + (None,):
             raise ValueError(f"tower_impl must be one of {TOWER_IMPLS}, got {tower_impl!r}")
+        if attn_impl not in ("kernel", "plain", None):
+            raise ValueError(f"attn_impl must be 'kernel' or 'plain', got {attn_impl!r}")
         self.stage_config = stage_config
         self.config = PenCLConfig.from_stage_config(stage_config)
         self.device = torch.device(device)
-        self.text_only, self.tower_impl = text_only, tower_impl
+        self.text_only = text_only
         on_cuda = self.device.type == "cuda"
-        self.dtype = torch.bfloat16 if on_cuda else torch.float32
-        self.gelu = "tanh" if on_cuda else "erf"
-        auto = "int8" if on_cuda and tower_impl == "fused-stack" else "none"
+        perf = on_cuda and dtype == torch.bfloat16
+        supported, reason = tower_supported(self.config, text_only=text_only)
+        self.gate_reason = reason
+        if tower_impl is None:
+            if use_stack is None:
+                use_stack = perf and supported
+                if perf and not supported:
+                    log_once(f"PenCLEngine: running the PenCL module with plain attention: "
+                             f"{reason}")
+            tower_impl = "fused-stack" if use_stack else "graph"
+        elif use_stack is not None and use_stack != (tower_impl == "fused-stack"):
+            raise ValueError(f"use_stack={use_stack} contradicts tower_impl={tower_impl!r}")
+        self.tower_impl = tower_impl
+        self.use_fused_stack = tower_impl == "fused-stack"
+        if self.use_fused_stack and on_cuda and dtype != torch.bfloat16:
+            raise ValueError("the tower kernels run bf16 on cuda: pass dtype=torch.bfloat16 "
+                             "or use the graph path")
+        # the kernels' dtype on the fused-stack path (bf16 on the card, f32
+        # plain versions on the CPU); the module's otherwise
+        self.dtype = ((torch.bfloat16 if on_cuda else torch.float32) if self.use_fused_stack
+                      else dtype)
+        self.gelu = "tanh" if perf else "erf"
+        if attn_impl is None:
+            attn_impl = "kernel" if perf and supported else "plain"
+        self.attn_impl = attn_impl
+        auto = "int8" if perf and self.use_fused_stack else "none"
         self.ff_quant, self.proj_quant, self.bert_ff_quant, self.bert_proj_quant = (
             auto if q is None else q for q in (ff_quant, proj_quant, bert_ff_quant,
                                                bert_proj_quant))
         quant = (self.ff_quant, self.proj_quant, self.bert_ff_quant, self.bert_proj_quant)
         if any(q not in QUANT_MODES for q in quant):
             raise ValueError(f"quant modes must be in {QUANT_MODES}, got {quant}")
-        if tower_impl == "graph" and "int8" in quant:
+        if not self.use_fused_stack and "int8" in quant:
             raise ValueError("the graph tower path never quantizes; int8 needs "
                              "tower_impl='fused-stack'")
         if text_only:
-            model, keep = PenCLText(self.config, attn_impl="kernel"), text_state_dict
+            model, keep = PenCLText(self.config, attn_impl=attn_impl), text_state_dict
         else:
-            model = PenCL(self.config, attn_impl="kernel", gelu=self.gelu)
+            model = PenCL(self.config, attn_impl=attn_impl, gelu=self.gelu)
             keep = pencl_state_dict
         if model_path is not None:
             model.load_state_dict(keep(load_reference_state_dict(model_path)), strict=True)
@@ -94,7 +149,7 @@ class PenCLEngine:
             seeded_init_(model, seed=0)
         model.eval()
         self._text_tokenizer = text_tokenizer
-        if tower_impl == "graph":
+        if not self.use_fused_stack:
             self.model = model.to(device=self.device, dtype=self.dtype)
             return
         for name, child in model.named_children():
@@ -136,7 +191,7 @@ class PenCLEngine:
 
     @torch.no_grad()
     def _encode_text(self, ids: torch.Tensor) -> torch.Tensor:
-        if self.tower_impl == "graph":
+        if not self.use_fused_stack:
             return self.model.encode_text(ids)
         bert_cfg = self.config.bert
         x0 = bert_embed(self.model.bert, ids, eps=bert_cfg.layer_norm_eps, dtype=self.dtype)
@@ -151,7 +206,7 @@ class PenCLEngine:
         if self.text_only:
             raise ValueError("a text_only engine holds no protein tower")
         x_t, x_p = self._ids(x_t), self._ids(x_p)
-        if self.tower_impl == "graph":
+        if not self.use_fused_stack:
             out = self.model(x_t, x_p)
             return out["text_joint_latent"].float(), out["seq_joint_latent"].float()
         esm = self.config.esm

@@ -6,14 +6,23 @@ path-ordered ARDM sampler: for each conditioning vector z_c, generate
 the 29-token table and strip the markers; and the serving schedulers'
 device halves (``make_continuous_stepper``, ``make_trajectory_row_fn``).
 
-On ``cuda`` the engine runs bf16 through the kernels of the whole-stack
-forward (``models/fused_forward.make_stack_apply``) with tanh GELU, the
-JAX engine's accelerator choice (stage3.py:122-124), and with ``ff_quant``
-and ``proj_quant`` left at ``None`` (auto) in int8, as the JAX engine
-serves on an accelerator (stage3.py:131-134); on ``cpu`` the same path runs
-f32 on the kernels' plain versions with exact GELU and auto means
-``"none"``.  ``decode_order="confidence"`` and ``sampler_mode="maskgit"``
-are not ported (ROADMAP queue 1, item 2).
+``dtype`` has the JAX engine's meaning (stage3.py:36,79-83,109-134):
+
+* ``float32`` (the default) runs the ``ProteoScribe`` module in f32 on the
+  engine's device — erf GELU, no quantization, plain attention — with the
+  final LayerNorm and head at the decode positions only;
+* ``bfloat16`` on ``cuda`` runs the whole-stack forward on the kernels
+  (``models/fused_forward.make_stack_apply``) with tanh GELU and, with
+  ``ff_quant``/``proj_quant`` left at ``None`` (auto), the FF and the
+  q/k/v/out projections in int8 — when ``stack_supported`` takes the
+  config; otherwise the module in bf16, and the gate's reason is logged
+  once;
+* ``bfloat16`` on ``cpu`` runs the module in bf16 (no accelerator).
+
+``use_stack=True`` forces the stack forward: on ``cpu`` it runs the
+kernels' plain versions in f32 with erf GELU and quant auto ``"none"``;
+``use_stack=False`` forces the module.  ``decode_order="confidence"`` and
+``sampler_mode="maskgit"`` are not ported (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ from biom3_tpu_torch.diffusion.sampler import (
     sample_permutations,
 )
 from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init_
-from biom3_tpu_torch.models.fused_forward import make_stack_apply
+from biom3_tpu_torch.models.fused_forward import log_once, make_stack_apply, stack_supported
 from biom3_tpu_torch.models.proteoscribe import ProteoScribe
 from biom3_tpu_torch.tokenizers import Stage3Vocab
 
@@ -40,6 +49,8 @@ class ProteoScribeEngine:
         model_path: str | None = None,
         *,
         device: str | torch.device = "cpu",
+        dtype: torch.dtype = torch.float32,
+        use_stack: bool | None = None,
         temperature: float = 1.0,
         chunk_steps: int | None = 128,
         positions_per_step: int = 1,
@@ -53,34 +64,55 @@ class ProteoScribeEngine:
         if decode_order == "confidence" or sampler_mode == "maskgit":
             raise NotImplementedError(
                 f"decode_order={decode_order!r}, sampler_mode={sampler_mode!r} are not ported "
-                "yet (ROADMAP queue 1, item 2)")
+                "yet (ROADMAP queue 1, item 3)")
         if decode_order != "path" or sampler_mode != "ardm":
             raise ValueError(f"decode_order must be 'path' or 'confidence', sampler_mode "
                              f"'ardm' or 'maskgit'; got {decode_order!r}, {sampler_mode!r}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         self.stage_config = stage_config
         self.config = ProteoScribeConfig.from_stage_config(stage_config)
         self.device = torch.device(device)
         self.vocab = Stage3Vocab()
-        if model_path is not None:
-            sd = load_reference_state_dict(model_path)
-            model = ProteoScribe(self.config,
-                                 conditional="transformer.y_mlp.0.weight" in sd)
-            model.load_state_dict(sd, strict=True)
-        else:
-            model = seeded_init_(ProteoScribe(self.config), seed=0)
-        self.model = model.to(self.device).eval()
         on_cuda = self.device.type == "cuda"
-        self.dtype = torch.bfloat16 if on_cuda else torch.float32
-        self.gelu = "tanh" if on_cuda else "erf"
-        auto = "int8" if on_cuda else "none"
+        on_accel = on_cuda and dtype == torch.bfloat16
+        supported, reason = stack_supported(self.config)
+        if use_stack is None:
+            use_stack = on_accel and supported
+            if on_accel and not supported:
+                log_once(f"ProteoScribeEngine: serving through the ProteoScribe module: {reason}")
+        if use_stack and on_cuda and dtype != torch.bfloat16:
+            raise ValueError("the stack forward's kernels run bf16 on cuda: pass "
+                             "dtype=torch.bfloat16 or use_stack=False")
+        self.use_stack = bool(use_stack)
+        self.gate_reason = reason
+        # the kernels' dtype on the stack path (bf16 on the card, f32 plain
+        # versions on the CPU); the module's compute dtype otherwise
+        self.dtype = (torch.bfloat16 if on_cuda else torch.float32) if self.use_stack else dtype
+        self.gelu = "tanh" if self.use_stack and on_cuda else "erf"
+        auto = "int8" if self.use_stack and on_cuda else "none"
         self.ff_quant = auto if ff_quant is None else ff_quant
         self.proj_quant = auto if proj_quant is None else proj_quant
+        if not self.use_stack and "int8" in (self.ff_quant, self.proj_quant):
+            raise ValueError("int8 quant modes need the stack forward (bf16 on cuda with a "
+                             "config stack_supported takes, or use_stack=True)")
+        if model_path is not None:
+            sd = load_reference_state_dict(model_path)
+            model = ProteoScribe(self.config, conditional="transformer.y_mlp.0.weight" in sd,
+                                 dtype=self.dtype)
+            model.load_state_dict(sd, strict=True)
+        else:
+            model = seeded_init_(ProteoScribe(self.config, dtype=self.dtype), seed=0)
+        self.model = model.to(self.device).eval()
         outer = self.config.num_timesteps // positions_per_step
         chunk = chunk_steps or None
         if chunk and (chunk > outer or outer % chunk != 0):
             chunk = None
-        self._apply_fn = make_stack_apply(self.model, dtype=self.dtype, gelu=self.gelu,
-                                          ff_quant=self.ff_quant, proj_quant=self.proj_quant)
+        if self.use_stack:
+            self._apply_fn = make_stack_apply(self.model, dtype=self.dtype, gelu=self.gelu,
+                                              ff_quant=self.ff_quant, proj_quant=self.proj_quant)
+        else:
+            self._apply_fn = torch.no_grad()(self.model)
         self._sampler_cfg = dict(temperature=temperature, chunk_steps=chunk,
                                  positions_per_step=positions_per_step, top_k=top_k, top_p=top_p)
         self.sampler = make_sampler(self._apply_fn, self.config.num_timesteps,

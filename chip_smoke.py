@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the kernels from ``biom3_tpu_torch/csrc`` (seconds);
+2. build the kernels from ``biom3_tpu_torch/csrc`` (seconds), then count
+   the tensor-core and TMA instructions in each kernel's SASS
+   (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s kernels
+   must show HGMMA and ``gemm_i8``'s IGMMA, both with UTMALDG loads;
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
    12 heads, FF 3072; ESM2-650M: L=1024, E=1280, 20 heads, FF 5120),
@@ -26,7 +29,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    on f32 and bf16 rows, whose codes and scales must equal the plain
    version's bit for bit, and ``local_window_attention`` (B=4, H=8, L=1024,
    D=32, bf16; edge cases one window, D=64, f32; library call SDPA with a
-   boolean (L, L) band mask);
+   boolean (L, L) band mask); then ``gemm_bias_act`` and ``gemm_i8`` at
+   Stage-3 B=32 (M = 32768, a layer's four products; ``cli/measure_gemm.py``)
+   against their plain versions, in TFLOP/s or TOP/s beside ``matmul`` /
+   ``torch._int_mm`` and the bound, and the host µs of one wrapper call;
 4. full-width ``fused_stack_logits`` on the kernels (bf16, tanh GELU)
    against the plain f32 ProteoScribe, the full-width BERT tower and
    ``fused_esm2_cls`` against the plain f32 towers, each also in int8
@@ -45,7 +51,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    contact and MLM heads and buffers included): the 5 demo pairs at its
    default (int8); checks the latents and scores; then a ``PenCLEngine``
    with its four quant knobs at ``"none"`` (the bf16 tower chain,
-   ``pencl_bf16``) and ``PenCLEngine(tower_impl="graph")`` on the same file;
+   ``pencl_bf16``) and ``PenCLEngine(tower_impl="graph")`` on the same file,
+   both built with ``dtype=torch.bfloat16`` (the engines' f32 default runs
+   the PyTorch modules, as in the JAX package; the CLIs' ``--dtype auto``
+   is bf16 on cuda); the published configs must take the kernel paths
+   (``use_stack``, ``use_fused_stack``), here and in the serving phase;
    serving, at full width on phase 5's files: an in-process ``BioM3Server``
    (``rows_per_dispatch=4``, default flags: continuous, exact mode, int8)
    answers 3 concurrent requests x 2 replicas (one prompt twice, one seeded
@@ -273,13 +283,25 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
+# kernel name fragment → the SASS its kernels must show: the forward GEMMs
+# on wgmma (HGMMA bf16, IGMMA int8) fed by TMA (UTMALDG)
+SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IGMMA", "UTMALDG")}
+
+
 def phase_build() -> None:
+    from biom3_tpu_torch.cli.measure_gemm import sass_counts
     from biom3_tpu_torch.ops import _build
 
     info = _build.build(force=True)
     _build.library()
     say("build", f"nvcc built {_build.LIB_PATH.name} in {info['seconds']:.1f} s "
                  f"(per-kernel registers and spills: {_build.PTXAS_REPORT})")
+    sass = sass_counts(_build.LIB_PATH)
+    for frag, ops in SASS_NEEDS.items():
+        kernels = {name: c for name, c in sass.items() if frag in name}
+        if not kernels or any(not c[op] for c in kernels.values() for op in ops):
+            raise AssertionError(f"{frag}: no {'/'.join(ops)} in its SASS: {kernels}")
+    print("[sass] " + json.dumps(sass), flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -756,7 +778,36 @@ def phase_kernels() -> dict:
         cases = timed[name][part]
         say("kernels", f"{name}, one ESM2-650M layer's backward (B=2, L=1024, {len(cases)} "
                        f"calls): {timing_text(time_cases(cases))}")
+    del timed, small, checked
+    torch.cuda.empty_cache()
+    phase_gemms_b32(results, g)
     return results
+
+
+def phase_gemms_b32(results: dict, g) -> None:
+    """The forward GEMMs at Stage-3 B=32 (M = 32768): one layer's four
+    products in bf16 and in int8, each against its plain version, timed
+    with their library calls and bound (``cli/measure_gemm.py``); then the
+    host cost of one wrapper call beside ``layernorm``'s, which encodes no
+    tensor maps."""
+    import torch
+
+    from biom3_tpu_torch.cli import measure_gemm as mg
+
+    for name, cases in mg.stage3_gemm_cases(32, g).items():
+        err_abs, err_rel = mg.check(cases)
+        t = mg.timing(cases)
+        unit = "TOP/s" if name == "gemm_i8" else "TFLOP/s"
+        results[name].update({f"{k}_b32": v for k, v in t.items()})
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_abs)
+        say("kernels", f"{name}, Stage-3 B=32 (M=32768, 4 products): max|Δ| {err_abs:.3e} rel "
+                       f"{err_rel:.3e} kernel {t['ms']:.4f} ms ({t['rate_t_per_s']:.1f} {unit}) "
+                       f"library {t['library_ms']:.4f} ms ({t['library_rate_t_per_s']:.1f} "
+                       f"{unit}) bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del cases
+    torch.cuda.empty_cache()
+    say("kernels", "host µs per wrapper call (enqueue, Stage-3 B=4): "
+                   + " ".join(f"{k} {v:.1f}" for k, v in mg.host_costs(g).items()))
 
 
 # --------------------------------------------------------------------------
@@ -1103,6 +1154,11 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
     for label, extra in (("continuous, exact, int8", []), ("--preset latency", ["--preset",
                                                                                  "latency"])):
         server = run_server.build_server(run_server.parse_arguments(base_flags + extra))
+        # --dtype auto on cuda: the published configs take the kernel paths
+        s1, s3 = server.pipeline.s1, server.pipeline.s3
+        if not (s3.use_stack and s1.use_fused_stack):
+            raise AssertionError(f"published configs fell back from the kernels: "
+                                 f"{s3.gate_reason or s1.gate_reason}")
         server.start()
         base = f"http://{server.host}:{server.port}"
         try:
@@ -1250,8 +1306,10 @@ def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
                  f"launches {counts['pencl']}")
 
     engine = PenCLEngine(Config(stage1), str(root / "pencl.bin"), device="cuda",
-                         ff_quant="none", proj_quant="none", bert_ff_quant="none",
-                         bert_proj_quant="none")
+                         dtype=torch.bfloat16, ff_quant="none", proj_quant="none",
+                         bert_ff_quant="none", bert_proj_quant="none")
+    if not engine.use_fused_stack:
+        raise AssertionError(f"the published PenCL config fell back: {engine.gate_reason}")
     K.reset_launches()
     t0 = time.perf_counter()
     b_t, b_p = engine.embed(cli.DEMO_CAPTIONS, cli.DEMO_SEQUENCES)
@@ -1269,7 +1327,7 @@ def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
         raise AssertionError(f"bf16 vs int8 protein latent cosine {cos} < {COS_MIN}")
 
     engine = PenCLEngine(Config(stage1), str(root / "pencl.bin"), device="cuda",
-                         tower_impl="graph")
+                         dtype=torch.bfloat16, tower_impl="graph")
     K.reset_launches()
     t0 = time.perf_counter()
     g_t, g_p = engine.embed(cli.DEMO_CAPTIONS, cli.DEMO_SEQUENCES)

@@ -75,11 +75,11 @@ def test_slice_matches_jax_engines(stage_files):
 
     root, (j1, j2, j3), flags = stage_files
     p1 = PenCLEngine(port_load_json_config(root / "s1.json"), flags["--stage1_model"],
-                     device="cpu")
+                     device="cpu", use_stack=True)
     p2 = FacilitatorEngine(port_load_json_config(root / "s2.json"), flags["--stage2_model"],
                            device="cpu")
     p3 = ProteoScribeEngine(port_load_json_config(root / "s3.json"), flags["--stage3_model"],
-                            device="cpu", temperature=0.0)
+                            device="cpu", use_stack=True, temperature=0.0)
 
     z_t = np.asarray(j1.embed_text(PROMPTS))
     got_z_t = p1.embed_text(PROMPTS)
@@ -105,7 +105,8 @@ def test_generate_sequences_schema(stage_files):
 
     root, _, flags = stage_files
     eng = ProteoScribeEngine(port_load_json_config(root / "s3.json"), flags["--stage3_model"],
-                             device="cpu", temperature=1.0, positions_per_step=4)
+                             device="cpu", use_stack=True, temperature=1.0,
+                             positions_per_step=4)
     z_c = np.random.default_rng(1).standard_normal((2, 16)).astype(np.float32)
     out = eng.generate_sequences(z_c, num_replicas=3, batch_size=2, seed=3)
     assert set(out) == {"replica_0", "replica_1", "replica_2"}

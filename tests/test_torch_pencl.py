@@ -155,8 +155,10 @@ def test_engine_tower_paths_agree(stage1_files):
     root = stage1_files
     cfg = port_load_json_config(root / "s1.json")
     pairs = (DEMO_CAPTIONS[:3], DEMO_SEQUENCES[:3])
-    fused = PenCLEngine(cfg, root / "s1.bin", device="cpu").embed(*pairs, batch_size=2)
-    graph = PenCLEngine(cfg, root / "s1.bin", device="cpu", tower_impl="graph").embed(*pairs)
+    fused = PenCLEngine(cfg, root / "s1.bin", device="cpu", use_stack=True).embed(
+        *pairs, batch_size=2)
+    graph = PenCLEngine(cfg, root / "s1.bin", device="cpu", tower_impl="graph",
+                        attn_impl="kernel").embed(*pairs)
     for a, b in zip(fused, graph):
         assert a.shape == (3, 32)
         np.testing.assert_allclose(a, b, **TOL)

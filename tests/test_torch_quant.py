@@ -279,7 +279,8 @@ def test_int8_engines_resolve_auto_by_device(tmp_path):
                  "transformer_local_size": 16})
     eng = ProteoScribeEngine(s3, device="cpu")
     assert (eng.ff_quant, eng.proj_quant) == ("none", "none")
-    eng = ProteoScribeEngine(s3, device="cpu", ff_quant="int8", proj_quant="int8")
+    eng = ProteoScribeEngine(s3, device="cpu", use_stack=True, ff_quant="int8",
+                             proj_quant="int8")
     assert eng._apply_fn is not None and (eng.ff_quant, eng.proj_quant) == ("int8", "int8")
     vocab = write_synthetic_wordpiece(tmp_path / "tok")
     s1 = Config({"protein_encoder_embedding": 16, "text_encoder_embedding": 32,
@@ -289,7 +290,7 @@ def test_int8_engines_resolve_auto_by_device(tmp_path):
                  "text_max_length": 32, "text_model_path": str(tmp_path / "tok")})
     eng = PenCLEngine(s1, device="cpu", text_only=True)
     assert {eng.ff_quant, eng.proj_quant, eng.bert_ff_quant, eng.bert_proj_quant} == {"none"}
-    eng = PenCLEngine(s1, device="cpu", text_only=True, bert_ff_quant="int8",
+    eng = PenCLEngine(s1, device="cpu", text_only=True, use_stack=True, bert_ff_quant="int8",
                       bert_proj_quant="int8")
     assert eng._bert_arrays["w1"].dtype == torch.int8 and "sq" in eng._bert_arrays
     with pytest.raises(ValueError, match="never quantizes"):

@@ -82,10 +82,11 @@ def _port_pipeline(root, rows=4, **s3_kwargs):
     from biom3_tpu_torch.pipeline.stage3 import ProteoScribeEngine
     from biom3_tpu_torch.serving import ServingPipeline
 
-    s1 = PenCLEngine(load(root / "s1.json"), str(root / "s1.bin"), device="cpu", text_only=True)
+    s1 = PenCLEngine(load(root / "s1.json"), str(root / "s1.bin"), device="cpu", text_only=True,
+                     use_stack=True)
     s2 = FacilitatorEngine(load(root / "s2.json"), str(root / "s2.bin"), device="cpu")
     s3 = ProteoScribeEngine(load(root / "s3.json"), str(root / "s3.bin"), device="cpu",
-                            **s3_kwargs)
+                            use_stack=True, **s3_kwargs)
     return ServingPipeline(s1, s2, s3, rows_per_dispatch=rows, default_replicas=2, seed=0)
 
 
