@@ -1,0 +1,177 @@
+"""The attention kernels that run on the tensor cores, on one CUDA card:
+``flash_attention`` and ``esm2_attention_bwd``.
+
+    python -m biom3_tpu_torch.cli.measure_attention [--iters 50] [--out build/measure_attention.json]
+
+At ``chip_smoke.py`` phase 3's timed shape (ESM2-650M width: B=2, 20
+heads, L=1024, head dim 64; one full-length row and one of 400 tokens
+with a PAD tail): each kernel is held against its plain version
+(max|Δ|/max|ref| <= 2e-2, the attention gradient per 64-column head
+group), then timed by CUDA events beside one PyTorch call of the same
+function (``scaled_dot_product_attention`` with the key mask; for the
+gradient, autograd through it on the already-rotated q, k, the graph built
+once).  Reported: ms per call, TFLOP/s on the FLOPs the function needs
+(4·Dh per (query, live key) pair forward, 10·Dh backward; the backward
+kernel's own work, 18·Dh, beside it), the least time the card could take
+(``bound_ms``: those FLOPs at 989 TFLOP/s, or the bytes at 3.35 TB/s if
+larger), its share of the kernel's time, and the kernel's time over the
+library call's; and each kernel launch's device ms per call from
+``torch.profiler`` (the gradient's staging launch and its two passes
+apart).  Prints one JSON object with the card's name and power limit and
+writes it to ``--out``.
+
+Two versions in one call (the same card): run this file from another
+checkout's root with that checkout first on the path, e.g.
+``cd parent && PYTHONPATH=. python ../biom3_tpu_torch/cli/measure_attention.py``;
+it then builds and times that checkout's kernels.  Exits non-zero without
+a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+from biom3_tpu_torch.cli.measure_gemm import nbytes
+
+REL_TOL = 2e-2
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
+B, H, L, DH = 2, 20, 1024, 64
+LENGTHS = (1024, 400)
+# kernel name fragment → its name in the profile breakdown
+LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
+            ("esm2_bwd_dkv", "pass2_dkv"), ("flash_attn", "flash"))
+
+
+def rel_err(got, want, group: int = 0) -> float:
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError("kernel output has non-finite values")
+    if group:
+        got = got.reshape(-1, got.shape[-1] // group, group)
+        want = want.reshape(-1, want.shape[-1] // group, group)
+        return float(((got - want).abs().amax((0, 2))
+                      / want.abs().amax((0, 2)).clamp(min=1e-30)).max())
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def cases(g) -> dict[str, dict]:
+    """Kernel → {"run", "plain", "lib", "flops", "work_flops", "bytes",
+    "group"} at the timed shape on ``g``'s device."""
+    import torch
+    import torch.nn.functional as F
+
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
+
+    dev, bf = g.device, torch.bfloat16
+    E = H * DH
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    pad = torch.ones((B, L), dtype=torch.int32, device=dev)
+    for b, n in enumerate(LENGTHS):
+        pad[b, :n] = 0
+    pairs = L * sum(LENGTHS)          # (query, live key) pairs of one head
+    keep = (pad == 0)[:, None, None, :]
+    q, k, v = rnd(B, H, L, DH), rnd(B, H, L, DH), rnd(B, H, L, DH)
+    qkv, da = rnd(B, L, 3 * E), rnd(B, L, E)
+    cos, sin = rotary_cos_sin(L, DH, dtype=bf, device=dev)
+    heads = [t.view(B, L, H, DH).transpose(1, 2) for t in qkv.split(E, dim=-1)]
+    qs, ks, vs = (apply_rotary(heads[0], cos, sin), apply_rotary(heads[1], cos, sin),
+                  heads[2].contiguous())
+    qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (qs, ks, vs))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+    dsdpa = da.view(B, L, H, DH).transpose(1, 2)
+    return {
+        "flash_attention": {
+            "run": lambda: K.flash_attention(q, k, v, pad),
+            "plain": lambda: K.flash_attention_plain(q, k, v, pad),
+            "lib": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+            "flops": 4 * H * pairs * DH, "work_flops": 4 * H * pairs * DH,
+            "bytes": nbytes(q, k, v, pad) + nbytes(q), "group": 0},
+        "esm2_attention_bwd": {
+            "run": lambda: K.esm2_attention_bwd(qkv, da, pad, cos, sin, heads=H),
+            "plain": lambda: K.esm2_attention_bwd_plain(qkv, da, pad, cos, sin, heads=H),
+            "lib": lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dsdpa, retain_graph=True),
+            "flops": 10 * H * pairs * DH, "work_flops": 18 * H * pairs * DH,
+            "bytes": nbytes(qkv, da, pad, cos, sin) + nbytes(qkv), "group": DH},
+    }
+
+
+def launch_ms(fn, calls: int = 10) -> dict[str, float]:
+    """Device ms per call of ``fn`` by kernel launch (``torch.profiler``,
+    device events only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU or ev.self_device_time_total <= 0:
+            continue
+        name = next((short for frag, short in LAUNCHES if frag in ev.key), ev.key[:60])
+        out[name] = out.get(name, 0.0) + ev.self_device_time_total / calls / 1e3
+    return out
+
+
+def measure(case: dict, iters: int) -> dict:
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+
+    err = rel_err(case["run"](), case["plain"](), case["group"])
+    if err > REL_TOL:
+        raise AssertionError(f"max|Δ|/max|ref| = {err:.3e} > {REL_TOL}")
+    ms = event_ms(case["run"], iters)
+    library_ms = event_ms(case["lib"], iters)
+    bound_ms = max(case["flops"] / PEAK_BF16, case["bytes"] / PEAK_BYTES) * 1e3
+    return {"max_rel_err": err, "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "tflops": case["flops"] / ms * 1e-9, "work_tflops": case["work_flops"] / ms * 1e-9,
+            "bound_share": bound_ms / ms, "over_library": ms / library_ms,
+            "launch_ms": launch_ms(case["run"])}
+
+
+def parse_arguments(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--out", type=str, default=None)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    import torch
+
+    from biom3_tpu_torch.ops import _build
+    from biom3_tpu_torch.ops import kernels as K
+
+    args = parse_arguments(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("measure_attention needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    _build.library()
+    result = {"card": smi, "package": str(pathlib.Path(K.__file__).resolve().parents[1]),
+              "torch": torch.__version__}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, case in cases(g).items():
+        result[name] = measure(case, args.iters)
+        print(f"{name}: {json.dumps(result[name])}", flush=True)
+    text = json.dumps(result)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        pathlib.Path(args.out).write_text(text + "\n")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

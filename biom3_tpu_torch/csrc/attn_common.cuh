@@ -1,7 +1,8 @@
-// Softmax attention over a key range, shared by the Stage-3 band-local
-// heads (stage3_attn.cu), the BERT tower's dense heads (dense_attn.cu), the
-// ESM2 tower's rotary heads (esm2_attn.cu) and flash_attention
-// (flash_attn.cu).
+// Softmax attention over a key range on CUDA cores, shared by the Stage-3
+// band-local heads (stage3_attn.cu), the BERT tower's dense heads
+// (dense_attn.cu) and the ESM2 tower's rotary heads (esm2_attn.cu);
+// flash_attention and esm2_attention_bwd run on the tensor cores
+// (attn_hopper.cuh) and take only rope8 from here.
 //
 // S threads cooperate on one query row: each walks every S-th key of the
 // range with a running (max, sum, acc) — an online softmax in f32 that

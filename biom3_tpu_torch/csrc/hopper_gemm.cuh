@@ -92,22 +92,39 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// Row-major (rows, cols) tensor of elem_bytes elements → a map that loads
-// (box_rows, box_cols) boxes under the 128-byte swizzle (box_cols ·
-// elem_bytes must be 128).  Needs a 16-byte aligned base and cols ·
-// elem_bytes % 16 == 0 (the wrappers' alignment checks).
-inline int encode_2d(CUtensorMap *map, CUtensorMapDataType type, int elem_bytes, const void *ptr,
-                     int rows, int cols, int box_rows, int box_cols) {
+// A tiled map of rank 2 or 3: dims[0] is the contiguous dimension, each
+// later one strides[i - 1] bytes apart; box[i] elements are loaded along
+// dimension i.  The parts of a box past the tensor's edge arrive as zeros,
+// box[0] larger than dims[0] included.  Needs a 16-byte aligned base and
+// strides that are multiples of 16 bytes (the wrappers' alignment checks);
+// under a swizzle, box[0] · elem_bytes must not exceed its span.
+inline int encode_tiled(CUtensorMap *map, CUtensorMapDataType type, const void *ptr, int rank,
+                        const uint64_t *dims, const uint64_t *strides, const uint32_t *box,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const auto fn = encode_fn();
   if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void *>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  cuuint64_t d[3], st[2];
+  cuuint32_t bx[3], unit[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    if (i) st[i - 1] = strides[i - 1];
+  }
+  const CUresult r = fn(map, type, rank, const_cast<void *>(ptr), d, st, bx, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// Row-major (rows, cols) tensor of elem_bytes elements → a map that loads
+// (box_rows, box_cols) boxes under the 128-byte swizzle (box_cols ·
+// elem_bytes must be 128).
+inline int encode_2d(CUtensorMap *map, CUtensorMapDataType type, int elem_bytes, const void *ptr,
+                     int rows, int cols, int box_rows, int box_cols) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * elem_bytes};
+  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+  return encode_tiled(map, type, ptr, 2, dims, strides, box);
 }
 
 inline int sm_count() {
@@ -179,6 +196,16 @@ __device__ __forceinline__ void tma_load_2d(void *dst, const CUtensorMap *map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Box of a rank-3 map at (c0, c1, c2) → dst; completion counted on bar.
+__device__ __forceinline__ void tma_load_3d(void *dst, const CUtensorMap *map, uint64_t *bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

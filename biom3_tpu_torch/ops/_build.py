@@ -49,7 +49,7 @@ SIGNATURES = {
     "b3_embed_tokens": [_P, _P, _P, _P, _I, _I, _I, _P],
     "b3_gather_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "b3_esm2_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "b3_esm2_attention_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    "b3_esm2_attention_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "b3_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "b3_esm2_embed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_gemm_i8": [_P] * 7 + [_I] * 6 + [_P],

@@ -758,9 +758,12 @@ def esm2_attention_bwd(qkv: torch.Tensor, dattn: torch.Tensor, padding_mask: tor
     if dh not in (32, 64):
         raise ValueError(f"esm2_attention_bwd kernel needs head dim 32 or 64, got {dh}")
     dqkv = torch.empty_like(qkv)
+    # scratch: per-row softmax statistics, and the rotated q, k, v and dattn
+    # with each head's rows contiguous (the kernel's TMA operands)
     stats = torch.empty((B, heads, L, 4), dtype=torch.float32, device=qkv.device)
+    ops = torch.empty((4, B, heads, L, dh), dtype=qkv.dtype, device=qkv.device)
     _build.launch("b3_esm2_attention_bwd", _ptr(qkv), _ptr(dattn), _ptr(padding_mask), _ptr(cos),
-                  _ptr(sin), _ptr(dqkv), _ptr(stats), B, L, E, heads, _stream(qkv))
+                  _ptr(sin), _ptr(dqkv), _ptr(stats), _ptr(ops), B, L, E, heads, _stream(qkv))
     esm2_attention_bwd.launches += 1
     return dqkv
 

@@ -11,17 +11,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build the kernels from ``biom3_tpu_torch/csrc`` (seconds), then count
    the tensor-core and TMA instructions in each kernel's SASS
    (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s kernels
-   must show HGMMA and ``gemm_i8``'s IGMMA, both with UTMALDG loads;
+   must show HGMMA and ``gemm_i8``'s IGMMA, ``flash_attention``'s and
+   ``esm2_attention_bwd``'s two passes HGMMA, all with UTMALDG loads and
+   none with HMMA; a ``[ptxas]`` line gives the attention kernels'
+   registers and spills (``nvcc -Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
    12 heads, FF 3072; ESM2-650M: L=1024, E=1280, 20 heads, FF 5120),
    timed at Stage-3 B=4 / BERT B=2 / ESM B=2 and checked also at the
    batches phase 5 gives them (2 replicas of 1 prompt), at phase 6's ESM
    batch (the 5 demo proteins) and on edge shapes (ragged tiles, ragged
-   PAD tails, an all-PAD row; for the training kernels edge windows,
+   PAD tails, an all-PAD row; for the two attention kernels on the tensor
+   cores also L = 1000 and 65, a 3-token protein, an all-PAD row at a
+   ragged L and head dim 32; for the training kernels edge windows,
    local_heads 0 and = heads, head dim 64, ragged rows): bf16
-   max|Δ|/max|ref| <= 2e-2 (the attention gradient per 32-column head
-   group), with the kernel's, the plain version's and, where one exists,
+   max|Δ|/max|ref| <= 2e-2 (the attention gradients per head group: 32
+   columns for Stage 3, 64 for ESM2), with the kernel's, the plain version's and, where one exists,
    one PyTorch call's time, and the least time the card could take; the
    training kernels also at one ESM2-650M layer's backward (B=2, L=1024);
    The int8 serving recipe: ``gemm_i8`` at the three models' shapes (its
@@ -105,6 +110,7 @@ from __future__ import annotations
 import copy
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -284,8 +290,37 @@ def phase_device() -> dict:
 
 
 # kernel name fragment → the SASS its kernels must show: the forward GEMMs
-# on wgmma (HGMMA bf16, IGMMA int8) fed by TMA (UTMALDG)
-SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IGMMA", "UTMALDG")}
+# and the tensor-core attention kernels on wgmma (HGMMA bf16, IGMMA int8)
+# fed by TMA (UTMALDG); none of them may show HMMA (the mma.sync route)
+SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IGMMA", "UTMALDG"),
+              "flash_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
+              "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG")}
+# kernels whose registers and spills the build prints (``ptxas.txt``)
+PTXAS_SHOW = ("flash_attn_wgmma_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
+              "esm2_bwd_stage_kernel")
+
+
+def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
+    """``PTXAS_SHOW`` kernel<head dim> → registers, spill stores and spill
+    loads (bytes a thread), from the compilers' ``-Xptxas -v`` report."""
+    usage, key = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            key = next((f"{f}<{m.group(1)}>" for f in PTXAS_SHOW
+                        if (m := re.search(f + r"ILi(\d+)E", name))), None)
+            continue
+        if key is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            usage.setdefault(key, {}).update(spill_stores=int(spill.group(1)),
+                                             spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            usage.setdefault(key, {})["registers"] = int(regs.group(1))
+    return usage
 
 
 def phase_build() -> None:
@@ -301,7 +336,13 @@ def phase_build() -> None:
         kernels = {name: c for name, c in sass.items() if frag in name}
         if not kernels or any(not c[op] for c in kernels.values() for op in ops):
             raise AssertionError(f"{frag}: no {'/'.join(ops)} in its SASS: {kernels}")
+        if any(c["HMMA"] for c in kernels.values()):
+            raise AssertionError(f"{frag}: HMMA (mma.sync) in its SASS: {kernels}")
     print("[sass] " + json.dumps(sass), flush=True)
+    usage = ptxas_usage(_build.PTXAS_REPORT.read_text())
+    if len(usage) != 2 * len(PTXAS_SHOW):   # each kernel at head dims 32 and 64
+        raise AssertionError(f"ptxas report lacks attention kernels: {sorted(usage)}")
+    print("[ptxas] " + json.dumps(usage), flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -587,10 +628,10 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
 def edge_cases(g) -> dict[str, list]:
     """Shapes off the main path that the kernels' tiling must still get
     right: a GEMM with M, N, K off the 128x128x32 tile, a smaller window,
-    a length (1000) that leaves ragged query and key tiles, ragged PAD
-    tails down to a 3-token protein, an all-PAD row, head dim 32, bf16
-    LayerNorm rows off the 8-row block and a width off the 256-column
-    stride."""
+    lengths (1000, 65) that leave ragged query and key tiles, ragged PAD
+    tails down to a 3-token protein, an all-PAD row (also at a ragged
+    length), head dim 32, bf16 LayerNorm rows off the 8-row block and a
+    width off the 256-column stride."""
     import torch
 
     from biom3_tpu_torch.ops import kernels as K
@@ -627,6 +668,17 @@ def edge_cases(g) -> dict[str, list]:
     pad32 = torch.zeros(2, 130, dtype=torch.int32, device=dev)
     pad32[1, 77:] = 1
     c32, s32 = rotary_cos_sin(130, 32, dtype=bf, device=dev)
+    # the tensor-core attention kernels' 64-row tiles: L = 65 (one key past
+    # a tile) with a full row, a 3-token protein and an all-PAD row, at head
+    # dims 64 and 32; a 3-token protein beside an all-PAD row at L = 1000
+    def pad_rows(L, *lengths):
+        rows = torch.ones(len(lengths), L, dtype=torch.int32, device=dev)
+        for b, n in enumerate(lengths):
+            rows[b, :n] = 0
+        return rows
+
+    p65, p65b, p1000 = pad_rows(65, 65, 3, 0), pad_rows(65, 40, 0), pad_rows(Le, 3, 0)
+    r65 = {dh: rotary_cos_sin(65, dh, dtype=bf, device=dev) for dh in (32, 64)}
     # bf16 rows off the 8-row block and d off the warp's 256-column stride
     xl = rnd(1003, 264, scale=3.0)
     ln = (1.0 + 0.1 * torch.randn(264, generator=g, device=dev),
@@ -671,7 +723,12 @@ def edge_cases(g) -> dict[str, list]:
         "flash_attention": [(lambda: K.flash_attention(*fl, mask),
                              lambda: K.flash_attention_plain(*fl, mask)),
                             (lambda: K.flash_attention(*fl32),
-                             lambda: K.flash_attention_plain(*fl32))],
+                             lambda: K.flash_attention_plain(*fl32)),
+                            pair("flash_attention", *(rnd(3, 4, 65, 64) for _ in range(3)), p65),
+                            pair("flash_attention", *(rnd(2, 3, 65, 32) for _ in range(3)),
+                                 p65b),
+                            pair("flash_attention", *(rnd(2, 4, Le, 64) for _ in range(3)),
+                                 p1000)],
         # training: edge windows at W=64, no local heads (and a ragged last
         # chunk of the linear heads), only local heads, head dim 64; GEMMs
         # with M, N, K off the tiles (a ragged row count for dW); LayerNorm
@@ -702,7 +759,12 @@ def edge_cases(g) -> dict[str, list]:
             pair("esm2_attention_bwd", rnd(3, Le, 2304), rnd(3, Le, 768), pad_b, cos, sin,
                  heads=12),
             pair("esm2_attention_bwd", rnd(2, 130, 768), rnd(2, 130, 256), pad32, c32, s32,
-                 heads=8)],
+                 heads=8),
+            pair("esm2_attention_bwd", rnd(3, 65, 768), rnd(3, 65, 256), p65, *r65[64], heads=4),
+            pair("esm2_attention_bwd", rnd(2, 65, 768), rnd(2, 65, 256), p65b, *r65[32],
+                 heads=8),
+            pair("esm2_attention_bwd", rnd(2, Le, 2304), rnd(2, Le, 768), p1000, cos, sin,
+                 heads=12)],
     }
 
 
@@ -1791,6 +1853,7 @@ def phase_stage1_cli() -> dict:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     device = phase_device()
     phase_build()
     measured = phase_kernels()
@@ -1815,6 +1878,7 @@ def main() -> None:
         phase_stage1_grads(stage1)
         phase_stage1_steps(stage1)
     counts.update(phase_stage1_cli())
+    say("done", f"{time.perf_counter() - t0:.1f} s of wall time")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],

@@ -125,10 +125,21 @@ def test_esm2_attention_plain_matches_flax_rotary_attention():
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
-@pytest.mark.parametrize("case", ["masked", "unmasked", "all_pad_row"])
-def test_flash_attention_plain_matches_pallas(case):
+# (mask, L, D): lengths off the kernel's 64-row tiles (its keys >= L are
+# excluded, not PAD: an all-PAD row averages over its L keys only) and head
+# dim 32, which the kernel runs as zero-filled 64-wide tiles
+FLASH_CASES = [pytest.param("masked", 128, 64, id="masked"),
+               pytest.param("unmasked", 128, 64, id="unmasked"),
+               pytest.param("all_pad_row", 128, 64, id="all_pad_row"),
+               pytest.param("masked", 100, 64, id="masked-L100"),
+               pytest.param("unmasked", 128, 32, id="unmasked-D32"),
+               pytest.param("all_pad_row", 100, 32, id="all_pad_row-L100-D32")]
+
+
+@pytest.mark.parametrize("case,L,D", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(case, L, D):
     rng = np.random.default_rng(5)
-    B, H, L, D = 2, 2, 128, 64
+    B, H = 2, 2
     q, k, v = (rng.standard_normal((B, H, L, D)).astype(np.float32) for _ in range(3))
     mask = None
     if case != "unmasked":
@@ -136,9 +147,10 @@ def test_flash_attention_plain_matches_pallas(case):
         if case == "all_pad_row":
             mask[1] = True
     jmask = None if mask is None else jnp.asarray(mask)
+    blk = 64 if L % 64 == 0 else L   # the Pallas kernel needs L divisible by its blocks
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                                 padding_mask=jmask, blk_q=64, blk_k=64))
+                                                 padding_mask=jmask, blk_q=blk, blk_k=blk))
     tmask = None if mask is None else torch.from_numpy(mask.astype(np.int32))
     got = kernels.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                   tmask).numpy()

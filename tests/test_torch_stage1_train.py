@@ -157,12 +157,15 @@ def test_esm2_tower_layer_block_matches_jax_kernels():
 PLAIN_TOL = dict(atol=1e-5, rtol=1e-4)  # f32 both sides, other orders
 
 
-@pytest.mark.parametrize("dh", [32, 64])
-def test_esm2_attention_bwd_plain_is_the_gradient(dh):
+@pytest.mark.parametrize("dh,L", [pytest.param(32, 48, id="32"), pytest.param(64, 48, id="64"),
+                                  pytest.param(32, 130, id="32-L130"),
+                                  pytest.param(64, 130, id="64-L130")])
+def test_esm2_attention_bwd_plain_is_the_gradient(dh, L):
     """With a ragged PAD row and an all-PAD row (its gradient reaches every
-    key and query, as the TPU kernel's)."""
-    rng = np.random.default_rng(dh)
-    B, L, H = 3, 48, 2
+    key and query, as the TPU kernel's), also at a length off the kernel's
+    64-row tiles (L=130: its keys >= L are excluded, not PAD)."""
+    rng = np.random.default_rng(dh if L == 48 else (dh, L))
+    B, H = 3, 2
     E = H * dh
     qkv, da = _t(_np(rng, B, L, 3 * E), grad=True), _t(_np(rng, B, L, E))
     pad = torch.zeros(B, L, dtype=torch.int32)
