@@ -1,5 +1,5 @@
 """The attention kernels that run on the tensor cores, on one CUDA card:
-``flash_attention`` and ``esm2_attention_bwd``.
+``flash_attention``, ``esm2_attention`` and ``esm2_attention_bwd``.
 
     python -m biom3_tpu_torch.cli.measure_attention [--iters 50] [--out build/measure_attention.json]
 
@@ -9,15 +9,15 @@ with a PAD tail): each kernel is held against its plain version
 (max|Δ|/max|ref| <= 2e-2, the attention gradient per 64-column head
 group), then timed by CUDA events beside one PyTorch call of the same
 function (``scaled_dot_product_attention`` with the key mask; for the
-gradient, autograd through it on the already-rotated q, k, the graph built
-once).  Reported: ms per call, TFLOP/s on the FLOPs the function needs
+ESM2 kernels on the already-rotated q, k, the rotation left out, and for
+the gradient autograd through it, the graph built once).  Reported: ms per call, TFLOP/s on the FLOPs the function needs
 (4·Dh per (query, live key) pair forward, 10·Dh backward; the backward
 kernel's own work, 18·Dh, beside it), the least time the card could take
 (``bound_ms``: those FLOPs at 989 TFLOP/s, or the bytes at 3.35 TB/s if
 larger), its share of the kernel's time, and the kernel's time over the
 library call's; and each kernel launch's device ms per call from
 ``torch.profiler`` (the gradient's staging launch and its two passes
-apart).  Prints one JSON object with the card's name and power limit and
+apart, as the forward's staging and its sweep).  Prints one JSON object with the card's name and power limit and
 writes it to ``--out``.
 
 Two versions in one call (the same card): run this file from another
@@ -44,7 +44,8 @@ B, H, L, DH = 2, 20, 1024, 64
 LENGTHS = (1024, 400)
 # kernel name fragment → its name in the profile breakdown
 LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
-            ("esm2_bwd_dkv", "pass2_dkv"), ("flash_attn", "flash"))
+            ("esm2_bwd_dkv", "pass2_dkv"), ("flash_attn", "flash"),
+            ("esm2_attn_stage", "fwd_stage"), ("esm2_attn", "fwd_sweep"))
 
 
 def rel_err(got, want, group: int = 0) -> float:
@@ -86,6 +87,7 @@ def cases(g) -> dict[str, dict]:
     qs, ks, vs = (apply_rotary(heads[0], cos, sin), apply_rotary(heads[1], cos, sin),
                   heads[2].contiguous())
     qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (qs, ks, vs))
+    rotated = tuple(t.detach() for t in (qs, ks, vs))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
     dsdpa = da.view(B, L, H, DH).transpose(1, 2)
     return {
@@ -95,6 +97,12 @@ def cases(g) -> dict[str, dict]:
             "lib": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
             "flops": 4 * H * pairs * DH, "work_flops": 4 * H * pairs * DH,
             "bytes": nbytes(q, k, v, pad) + nbytes(q), "group": 0},
+        "esm2_attention": {
+            "run": lambda: K.esm2_attention(qkv, pad, cos, sin, heads=H),
+            "plain": lambda: K.esm2_attention_plain(qkv, pad, cos, sin, heads=H),
+            "lib": lambda: F.scaled_dot_product_attention(*rotated, attn_mask=keep),
+            "flops": 4 * H * pairs * DH, "work_flops": 4 * H * pairs * DH,
+            "bytes": nbytes(qkv, pad, cos, sin) + nbytes(da), "group": 0},
         "esm2_attention_bwd": {
             "run": lambda: K.esm2_attention_bwd(qkv, da, pad, cos, sin, heads=H),
             "plain": lambda: K.esm2_attention_bwd_plain(qkv, da, pad, cos, sin, heads=H),

@@ -1,6 +1,7 @@
-"""The forward GEMM kernels on one CUDA card: ``gemm_bias_act`` and ``gemm_i8``.
+"""The GEMM kernels on one CUDA card: ``gemm_bias_act``, ``gemm_i8``, ``gemm_dw``.
 
-    python -m biom3_tpu_torch.cli.measure_gemm [--batches 4 32] [--out build/measure_gemm.json]
+    python -m biom3_tpu_torch.cli.measure_gemm [--batches 4 32] [--dw-sweep] \
+        [--out build/measure_gemm.json]
 
 For each Stage-3 batch B (M = B·1024 rows, d = 512, FF 2048): one layer's
 four forward products, as the stack runs them (q/k/v 512→1536 bf16 out;
@@ -12,11 +13,17 @@ timed together by CUDA events beside one PyTorch call each (``matmul``;
 ``torch._int_mm``, the int32 product only), with the least time the card
 could take (operations at 989 TFLOP/s bf16 or 1979 TOP/s int8, bytes at
 3.35 TB/s), the rate in TFLOP/s or TOP/s and each product's own time.
-Also the host cost of one wrapper call (enqueue only, no synchronise) of
-each GEMM and of ``layernorm``, a kernel that takes no tensor maps, and
-the SASS counts of the tensor-core and TMA instructions in each kernel of
-the built library (``cuobjdump -sass``).  Prints one JSON object and
-writes it to ``--out``.
+The weight gradient ``gemm_dw`` (f32 out, the rows summed) the same way
+beside ``matmul`` on the transposed view, at each Stage-3 batch (one
+layer's four dW: W2, W1, Wo, W3) and at one ESM2-650M layer's four over
+4096 rows (Stage-1 training at B=4: W2, W1, Wo, W3).  ``--dw-sweep``
+times each of those dW products alone on both of its tiles at 1 to 16
+splits of the rows, beside the split rule's choice (``gemm_dw_plan``):
+the evidence for that rule.  Also the host cost of one wrapper call
+(enqueue only, no synchronise) of each GEMM and of ``layernorm``, a
+kernel that takes no tensor maps, and the SASS counts of the tensor-core
+and TMA instructions in each kernel of the built library (``cuobjdump
+-sass``).  Prints one JSON object and writes it to ``--out``.
 
 Two versions in one call (the same card): run this file from another
 checkout's root with that checkout first on the path, e.g.
@@ -103,6 +110,85 @@ def stage3_gemm_cases(B: int, g) -> dict[str, list[dict]]:
             gemm8(FF, D, residual=xf),
         ],
     }
+
+
+ESM_ROWS, ESM_E, ESM_FF = 4096, 1280, 5120
+
+
+def dw_cases(B: int | None, g) -> list[dict]:
+    """One layer's four weight gradients: Stage 3 at batch B (B·1024 rows),
+    or with ``B=None`` one ESM2-650M layer's over ``ESM_ROWS`` rows, each
+    case as ``stage3_gemm_cases``' (the library call ``matmul`` on xᵀ)."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    dev, bf = g.device, torch.bfloat16
+    rows, d, ff = (B * L, D, FF) if B else (ESM_ROWS, ESM_E, ESM_FF)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    def dw(x, dy):
+        k, n = x.shape[1], dy.shape[1]
+        return {"run": lambda: K.gemm_dw(x, dy), "plain": lambda: K.gemm_dw_plain(x, dy),
+                "args": (x, dy),
+                "flops": 2 * rows * k * n, "bytes": nbytes(x, dy) + k * n * 4,
+                "lib": lambda: torch.matmul(x.t(), dy), "peak": PEAK_BF16}
+
+    h1, dy, u = rnd(rows, ff), rnd(rows, d), rnd(rows, d)
+    return [dw(h1, dy), dw(u, rnd(rows, ff)), dw(u, dy), dw(u, rnd(rows, 3 * d))]
+
+
+DW_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def dw_sweep(batches, g) -> dict[str, dict]:
+    """``"rows:KxN"`` → {"plan": [tile rows, splits, rows a split],
+    "ms": {"<tile>x<splits>": ms}} for each distinct dW product of
+    ``dw_cases`` at the Stage-3 batches and the ESM2 layer, each
+    configuration checked against the plain version first."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import _build
+    from biom3_tpu_torch.ops import kernels as K
+
+    def launch(x, dy, bm, splits):
+        rows, k = x.shape
+        n = dy.shape[1]
+        ktiles = -(-rows // 64)
+        per = -(-ktiles // splits)
+        splits = -(-ktiles // per)
+        out = torch.empty((k, n), dtype=torch.float32, device=x.device)
+        ws = (torch.empty((splits, k, n), dtype=torch.float32, device=x.device)
+              if splits > 1 else None)
+        _build.launch("b3_gemm_dw", x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                      None if ws is None else ws.data_ptr(), k, n, rows, per * 64,
+                      int(bm == 128), torch.cuda.current_stream().cuda_stream)
+        return out
+
+    result = {}
+    for B in [*batches, None]:
+        for case in dw_cases(B, g):
+            x, dy = case["args"]
+            key = f"{x.shape[0]}:{x.shape[1]}x{dy.shape[1]}"
+            if key in result:
+                continue
+            want = case["plain"]()
+            times = {}
+            for bm in (64, 128):
+                for splits in DW_SPLITS:
+                    got = launch(x, dy, bm, splits)
+                    err = float((got - want).abs().max() / want.abs().max())
+                    if err > REL_TOL:
+                        raise AssertionError(f"{key} {bm}x{splits}: max|Δ|/max|ref| {err:.3e}")
+                    times[f"{bm}x{splits}"] = event_ms(lambda: launch(x, dy, bm, splits), ITERS)
+            result[key] = {"plan": list(K.gemm_dw_plan(x.shape[0], x.shape[1], dy.shape[1])),
+                           "ms": times}
+            print(f"dw_sweep {key}: {json.dumps(result[key])}", flush=True)
+        torch.cuda.empty_cache()
+    return result
 
 
 def check(cases) -> tuple[float, float]:
@@ -201,6 +287,8 @@ def sass_counts(lib_path) -> dict[str, dict[str, int]]:
 def parse_arguments(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batches", type=int, nargs="+", default=[4, 32])
+    p.add_argument("--dw-sweep", action="store_true",
+                   help="also time gemm_dw's tiles at 1-16 splits (the split rule's evidence)")
     p.add_argument("--out", type=str, default=None)
     return p.parse_args(argv)
 
@@ -220,14 +308,19 @@ def main(argv=None) -> None:
     result = {"card": smi, "package": str(pathlib.Path(K.__file__).resolve().parents[1]),
               "torch": torch.__version__}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for B in args.batches:
-        for name, cases in stage3_gemm_cases(B, g).items():
+    for B in [*args.batches, None]:
+        named = {"gemm_dw": dw_cases(B, g)}
+        if B:
+            named = {**stage3_gemm_cases(B, g), **named}
+        for name, cases in named.items():
             err_abs, err_rel = check(cases)
-            result[f"{name}_B{B}"] = {"max_abs_err": err_abs, "max_rel_err": err_rel,
-                                      **timing(cases)}
-            print(f"{name} B={B}: {json.dumps(result[f'{name}_B{B}'])}", flush=True)
+            key = f"{name}_B{B}" if B else f"{name}_esm2"
+            result[key] = {"max_abs_err": err_abs, "max_rel_err": err_rel, **timing(cases)}
+            print(f"{key}: {json.dumps(result[key])}", flush=True)
         del cases
         torch.cuda.empty_cache()
+    if args.dw_sweep:
+        result["dw_sweep"] = dw_sweep(args.batches, g)
     result["host_us_per_call"] = host_costs(g)
     print(f"host: {json.dumps(result['host_us_per_call'])}", flush=True)
     try:

@@ -1,8 +1,8 @@
 // Softmax attention over a key range on CUDA cores, shared by the Stage-3
-// band-local heads (stage3_attn.cu), the BERT tower's dense heads
-// (dense_attn.cu) and the ESM2 tower's rotary heads (esm2_attn.cu);
-// flash_attention and esm2_attention_bwd run on the tensor cores
-// (attn_hopper.cuh) and take only rope8 from here.
+// band-local heads (stage3_attn.cu) and the BERT tower's dense heads
+// (dense_attn.cu), neither masked; flash_attention and the ESM2 tower's
+// rotary attention, forward and backward, run on the tensor cores
+// (attn_hopper.cuh) and take only rope8 from here (esm2_rope.cuh).
 //
 // S threads cooperate on one query row: each walks every S-th key of the
 // range with a running (max, sum, acc) — an online softmax in f32 that
@@ -11,14 +11,9 @@
 // shared memory in tiles of TK rows; the padded row stride keeps the S
 // different rows a warp reads at one time in distinct banks.
 //
-// Two options, both per call:
-// * a key-PAD row: a PAD key scores -1e9 after scaling, the JAX package's
-//   mask (biom3_tpu/ops/attention.py:13, esm2_stack_tpu.py:53), so a row
-//   whose keys are all PAD attends uniformly, as there;
-// * GPT-NeoX rotary (template flag ROPE): q and k are rotated as they are
-//   loaded, x·cos + rotate_half(x)·sin with each product and the sum
-//   rounded through bf16, as the TPU kernel rotates in bf16
-//   (esm2_stack_tpu.py:164-176).
+// rope8: GPT-NeoX rotary of one 8-column chunk, x·cos + rotate_half(x)·sin
+// with each product and the sum rounded through bf16, as the TPU kernel
+// rotates in bf16 (esm2_stack_tpu.py:164-176).
 #pragma once
 
 #include "common.cuh"
@@ -27,15 +22,12 @@ namespace b3 {
 
 constexpr int TK = 128;           // key rows per shared-memory tile
 constexpr int S = 4;              // threads per query row
-constexpr float MASKED = -1e9f;   // score of a PAD key
 
 // One head's operands.  Row r of q (k, v, out) starts at q + r * q_stride
 // (k + r * kv_stride, ...); the pointers already sit at the head's column.
 struct Heads {
   const bf16 *q, *k, *v;
   int q_stride, kv_stride;
-  const int *key_pad;       // (keys,) nonzero = PAD, or nullptr: no mask
-  const bf16 *cos, *sin;    // (positions, DH) rotary tables (ROPE only)
   bf16 *out;
   int out_stride;
 };
@@ -52,31 +44,14 @@ __device__ __forceinline__ void rope8(int c, const float *x, const float *partne
     out[e] = round_bf16(round_bf16(x[e] * cs[e]) + round_bf16(sign * partner[e] * sn[e]));
 }
 
-// One past the last non-PAD key of a (L,) PAD row, or L when every key is
-// PAD; every thread of the block must call it.  Keys past it may be
-// skipped: when a real key exists the softmax weight of a -1e9 key is
-// exp(-1e9 - max) = 0 in f32, whatever order the keys are visited in.
-__device__ __forceinline__ int live_keys(const int *__restrict__ key_pad, int L) {
-  __shared__ int hi;
-  if (threadIdx.x == 0) hi = 0;
-  __syncthreads();
-  int mine = 0;
-  for (int j = threadIdx.x; j < L; j += blockDim.x)
-    if (!key_pad[j]) mine = j + 1;
-  atomicMax(&hi, mine);
-  __syncthreads();
-  return hi ? hi : L;
-}
-
 // Keys [k_lo, k_hi) for queries [q_row0, q_end); blockDim.x = TQ * S; the
 // query of this thread is q_row0 + threadIdx.x / S (idle if >= q_end).
-template <int DH, bool ROPE = false>
+template <int DH>
 __device__ void attend_range(const Heads &a, int q_row0, int q_end, int k_lo, int k_hi,
                              float scale) {
   constexpr int PAD = DH + 8;
   __shared__ __align__(16) bf16 Ks[TK][PAD];
   __shared__ __align__(16) bf16 Vs[TK][PAD];
-  __shared__ unsigned char Kpad[TK];
 
   const int t = threadIdx.x, sub = t % S;
   const int qi = q_row0 + t / S;
@@ -88,21 +63,6 @@ __device__ void attend_range(const Heads &a, int q_row0, int q_end, int k_lo, in
 #pragma unroll
     for (int c = 0; c < DH; c += 8) {
       unpack8(*reinterpret_cast<const uint4 *>(qp + c), q + c);
-    }
-    if constexpr (ROPE) {
-      const bf16 *cp = a.cos + (size_t)qi * DH, *sp = a.sin + (size_t)qi * DH;
-      float r[DH];
-#pragma unroll
-      for (int c = 0; c < DH; c += 8) {
-        float cs[8], sn[8], partner[8];
-        unpack8(*reinterpret_cast<const uint4 *>(cp + c), cs);
-        unpack8(*reinterpret_cast<const uint4 *>(sp + c), sn);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) partner[e] = q[(c + e + DH / 2) % DH];
-        rope8<DH>(c, q + c, partner, cs, sn, r + c);
-      }
-#pragma unroll
-      for (int c = 0; c < DH; ++c) q[c] = r[c];
     }
 #pragma unroll
     for (int c = 0; c < DH; ++c) q[c] *= scale;
@@ -118,23 +78,11 @@ __device__ void attend_range(const Heads &a, int q_row0, int q_end, int k_lo, in
     for (int v = t; v < n * VPR; v += blockDim.x) {
       const int r = v / VPR, c = (v % VPR) * 8;
       const size_t row = (size_t)(k0 + r);
-      const bf16 *kp = a.k + row * a.kv_stride;
-      uint4 kv = *reinterpret_cast<const uint4 *>(kp + c);
-      if constexpr (ROPE) {
-        float x[8], partner[8], cs[8], sn[8], o[8];
-        unpack8(kv, x);
-        unpack8(*reinterpret_cast<const uint4 *>(kp + (c + DH / 2) % DH), partner);
-        unpack8(*reinterpret_cast<const uint4 *>(a.cos + row * DH + c), cs);
-        unpack8(*reinterpret_cast<const uint4 *>(a.sin + row * DH + c), sn);
-        rope8<DH>(c, x, partner, cs, sn, o);
-        kv = pack8(o);  // exact: o holds bf16 values
-      }
-      *reinterpret_cast<uint4 *>(&Ks[r][c]) = kv;
+      *reinterpret_cast<uint4 *>(&Ks[r][c]) =
+          *reinterpret_cast<const uint4 *>(a.k + row * a.kv_stride + c);
       *reinterpret_cast<uint4 *>(&Vs[r][c]) =
           *reinterpret_cast<const uint4 *>(a.v + row * a.kv_stride + c);
     }
-    if (a.key_pad)
-      for (int r = t; r < n; r += blockDim.x) Kpad[r] = a.key_pad[k0 + r] != 0;
     __syncthreads();
     if (!active) continue;
     for (int j = sub; j < n; j += S) {
@@ -145,7 +93,6 @@ __device__ void attend_range(const Heads &a, int q_row0, int q_end, int k_lo, in
 #pragma unroll
         for (int e = 0; e < 8; ++e) sc = fmaf(q[c + e], kv[e], sc);
       }
-      if (a.key_pad && Kpad[j]) sc = MASKED;
       if (sc > m) {
         const float corr = __expf(m - sc);  // 0 on the first key
         s *= corr;

@@ -16,10 +16,11 @@
 // dK/dV of all queries in one pass.  Here the work is split the
 // FlashAttention-2 way, deterministic, with nothing shared between blocks
 // and no atomics, on the tensor cores (attn_hopper.cuh):
-// * a staging launch writes rotated q and k (rope8's rounding), v and dA
-//   into a bf16 scratch (4, B, H, L, Dh), one head's rows contiguous, so
-//   every operand is a plain TMA tile of a 3-D map (the TMA cannot rotate;
-//   head dim 32 then runs as zero-filled 64-wide tiles like every other);
+// * a staging launch (esm2_rope.cuh, shared with the forward) writes
+//   rotated q and k (rope8's rounding), v and dA into a bf16 scratch (4, B,
+//   H, L, Dh), one head's rows contiguous, so every operand is a plain TMA
+//   tile of a 3-D map (the TMA cannot rotate; head dim 32 then runs as
+//   zero-filled 64-wide tiles like every other);
 // * pass 1, query-owned (one block per 128 queries of a head, 64 a
 //   warpgroup; Q and dA resident, K and V tiles streamed twice):
 //   sweep 1 computes S = Q·Kᵀ and dP = dA·Vᵀ (both operands in shared
@@ -50,8 +51,8 @@
 // counted for it; both are operations bound.  The softmax arithmetic
 // between the products, which a warpgroup does not overlap with its own
 // products, is what the tensor cores wait on.
-#include "attn_common.cuh"
 #include "attn_hopper.cuh"
+#include "esm2_rope.cuh"
 
 namespace {
 
@@ -68,8 +69,6 @@ constexpr int P2_STAGE = 2 * TILE_BYTES + 1024;  // Q, dA, stats (tiles stay 102
 constexpr int P1_SMEM = RESIDENT + STAGES * P1_STAGE + (2 * STAGES + 1) * 8 + 1024;
 constexpr int P2_SMEM = RESIDENT + STAGES * P2_STAGE + (2 * STAGES + 1) * 8 + 1024;
 
-enum { OP_Q = 0, OP_K = 1, OP_V = 2, OP_DA = 3 };   // the scratch's operands
-
 struct Args {
   const int *pad;
   const bf16 *cos, *sin;
@@ -79,47 +78,14 @@ struct Args {
   float scale;
 };
 
-// 8 rotated columns [c, c + 8) of a head row (global memory), rotary
-// tables at the row's position.
-template <int DH>
-__device__ __forceinline__ void rope_chunk(const bf16 *row, const bf16 *cs, const bf16 *sn,
-                                           int c, float *out) {
-  float x[8], partner[8], co[8], si[8];
-  unpack8(*reinterpret_cast<const uint4 *>(row + c), x);
-  unpack8(*reinterpret_cast<const uint4 *>(row + (c + DH / 2) % DH), partner);
-  unpack8(*reinterpret_cast<const uint4 *>(cs + c), co);
-  unpack8(*reinterpret_cast<const uint4 *>(sn + c), si);
-  b3::rope8<DH>(c, x, partner, co, si, out);
-}
-
 // qkv (B, L, 3E), dattn (B, L, E) → ops (4, B, H, L, DH): rotated q,
-// rotated k, v, dA.  One thread per 8-column chunk.
+// rotated k, v, dA.
 template <int DH>
 __global__ void __launch_bounds__(256)
 esm2_bwd_stage_kernel(const bf16 *__restrict__ qkv, const bf16 *__restrict__ dattn,
                       const bf16 *__restrict__ cos, const bf16 *__restrict__ sin,
                       bf16 *__restrict__ ops, int B, int L, int E, int H) {
-  const int chunks = E / 8;
-  const size_t total = (size_t)B * L * 4 * chunks;
-  for (size_t u = (size_t)blockIdx.x * blockDim.x + threadIdx.x; u < total;
-       u += (size_t)gridDim.x * blockDim.x) {
-    const int col = (int)(u % chunks) * 8, op = (int)(u / chunks % 4);
-    const size_t row = u / chunks / 4;  // b·L + position
-    const int b = (int)(row / L), pos = (int)(row % L), head = col / DH, c = col % DH;
-    uint4 val;
-    if (op == OP_DA) {
-      val = *reinterpret_cast<const uint4 *>(dattn + row * E + col);
-    } else if (op == OP_V) {
-      val = *reinterpret_cast<const uint4 *>(qkv + row * 3 * E + 2 * E + col);
-    } else {
-      float o[8];
-      rope_chunk<DH>(qkv + row * 3 * E + (size_t)op * E + head * DH, cos + (size_t)pos * DH,
-                     sin + (size_t)pos * DH, c, o);
-      val = pack8(o);  // exact: o holds bf16 values
-    }
-    *reinterpret_cast<uint4 *>(ops + ((((size_t)op * B + b) * H + head) * L + pos) * DH + c) =
-        val;
-  }
+  stage_operands<DH>(qkv, dattn, cos, sin, ops, 4, B, L, E, H);
 }
 
 // Half h (one row) of a dQ or dK accumulator at its row's tables cs, sn:
@@ -418,11 +384,8 @@ esm2_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_ops,
 template <int DH>
 int launch(const bf16 *qkv, const bf16 *dattn, bf16 *ops, Args a, cudaStream_t stream) {
   const int BH = a.B * a.H;
-  const size_t chunks = (size_t)a.B * a.L * 4 * (a.E / 8), blocks = (chunks + 255) / 256;
-  const int stage_grid = (int)(blocks < (size_t)hopper::sm_count() * 8 ? blocks
-                                                                        : hopper::sm_count() * 8);
-  esm2_bwd_stage_kernel<DH><<<stage_grid, 256, 0, stream>>>(qkv, dattn, a.cos, a.sin, ops, a.B,
-                                                            a.L, a.E, a.H);
+  esm2_bwd_stage_kernel<DH><<<stage_grid(a.B, a.L, a.E, 4), 256, 0, stream>>>(
+      qkv, dattn, a.cos, a.sin, ops, a.B, a.L, a.E, a.H);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   CUtensorMap mo, ms;

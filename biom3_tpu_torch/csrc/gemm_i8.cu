@@ -43,8 +43,8 @@ template <int BN, int NWG, int STAGES>
 __global__ void __launch_bounds__(hopper::Tile<Op::S8, BN, NWG, STAGES>::THREADS,
                                   hopper::Tile<Op::S8, BN, NWG, STAGES>::MIN_BLOCKS)
 gemm_i8_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-              void *C, int M, int N, int K, hopper::Epilogue ep) {
-  hopper::gemm_body<Op::S8, BN, NWG, STAGES>(&map_a, &map_w, C, M, N, K, ep);
+              void *C, int M, int N, int K, int k_chunk, hopper::Epilogue ep) {
+  hopper::gemm_body<Op::S8, BN, NWG, STAGES>(&map_a, &map_w, C, M, N, K, k_chunk, ep);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
-// Hopper GEMM main loop shared by gemm_bias_act (gemm_bf16.cu) and gemm_i8
-// (gemm_i8.cu): TMA tile loads into a ring of shared-memory stages, handed
-// between one producer warp and the consumer warpgroups by mbarrier pairs,
-// and wgmma.mma_async on the staged tiles with one batch kept in flight.
+// Hopper GEMM main loop shared by gemm_bias_act and gemm_dw (gemm_bf16.cu)
+// and gemm_i8 (gemm_i8.cu): TMA tile loads into a ring of shared-memory
+// stages, handed between one producer warp and the consumer warpgroups by
+// mbarrier pairs, and wgmma.mma_async on the staged tiles with one batch
+// kept in flight.
 //
 //   producer (one thread of the last warp): wait empty[s] → expect_tx on
 //     full[s] → cp.async.bulk.tensor loads of the A and B slices of k-tile
@@ -11,14 +12,17 @@
 //     products are done) → arrive on empty of the previous stage.
 //
 // Every staged row is 128 bytes (64 bf16 or 128 int8 along K for a K-major
-// operand; 64 bf16 along N for gemm_bias_act's MN-major B) under the TMA's
-// 128-byte swizzle, which is the layout wgmma's B128 descriptors read:
-// 8-row atoms of 1024 bytes.  TMA zero-fills the parts of a box past the
-// tensor's edge, so ragged M, N and K need no masking in the main loop; the
-// epilogue masks its stores.  The epilogue works from the accumulator
-// registers: f32(acc) [· a_scale[m] · w_scale[n] for int8] + bias → f32
-// pre-activation copy → none / erf / tanh GELU → + residual (f32 or bf16)
-// → f32 or bf16 out, two adjacent columns a lane.
+// operand; 64 bf16 along N for the MN-major B, or along M for gemm_dw's
+// MN-major A) under the TMA's 128-byte swizzle, which is the layout wgmma's
+// B128 descriptors read: 8-row atoms of 1024 bytes.  Split-K (gemm_dw):
+// the K range is cut into chunks of whole k-tiles, and a work unit is one
+// output tile of one chunk, written to its own f32 slab of C.  TMA
+// zero-fills the parts of a box past the tensor's edge, so ragged M, N and
+// K need no masking in the main loop; the epilogue masks its stores.  The
+// epilogue works from the accumulator registers: f32(acc) [· a_scale[m] ·
+// w_scale[n] for int8] + bias → f32 pre-activation copy → none / erf /
+// tanh GELU → + residual (f32 or bf16) → f32 or bf16 out, two adjacent
+// columns a lane.
 //
 // Tensor maps are encoded on the host for every launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
@@ -92,7 +96,7 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A tiled map of rank 2 or 3: dims[0] is the contiguous dimension, each
+// A tiled map of rank 2 to 4: dims[0] is the contiguous dimension, each
 // later one strides[i - 1] bytes apart; box[i] elements are loaded along
 // dimension i.  The parts of a box past the tensor's edge arrive as zeros,
 // box[0] larger than dims[0] included.  Needs a 16-byte aligned base and
@@ -103,8 +107,8 @@ inline int encode_tiled(CUtensorMap *map, CUtensorMapDataType type, const void *
                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const auto fn = encode_fn();
   if (!fn) return cudaErrorNotSupported;
-  cuuint64_t d[3], st[2];
-  cuuint32_t bx[3], unit[3] = {1, 1, 1};
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], unit[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     bx[i] = box[i];
@@ -209,6 +213,17 @@ __device__ __forceinline__ void tma_load_3d(void *dst, const CUtensorMap *map, u
       : "memory");
 }
 
+// Box of a rank-4 map at (c0, c1, c2, c3) → dst; completion counted on bar.
+__device__ __forceinline__ void tma_load_4d(void *dst, const CUtensorMap *map, uint64_t *bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // wgmma descriptor of a B128-swizzled tile at p (1024-byte aligned atoms,
 // or 32-byte steps along K inside one): sbo = bytes between 8-row groups,
 // lbo = bytes between 64-element MN chunks of an MN-major operand (unused
@@ -253,17 +268,19 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "    \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
 
-// D(64x128 f32) += A(64x16, K-major) · B(16x128, MN-major: B's transpose bit)
+// D(64x128 f32) += A(64x16) · B(16x128, MN-major: B's transpose bit); A
+// K-major, or MN-major (A's transpose bit) with TA = 1
+template <int TA>
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HG_OPS64
-      ", %64, %65, p, 1, 1, 0, 1;\n"
+      ", %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : HG_R64("+f", d)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
 // D(64x128 s32) += A(64x32 s8, K-major) · B(32x128 s8, K-major: W (N, K) rows)
@@ -369,15 +386,18 @@ __device__ __forceinline__ void epilogue(
 
 // The whole kernel body; each .cu wraps it in a __global__ of its own name
 // that takes the two maps as __grid_constant__ parameters.  For BF16, map_a
-// loads A (M, K) in (BM, 64) boxes and map_b B (K, N) in (64, 64) boxes; for
-// S8, map_a loads A (M, K) in (BM, 128) boxes and map_b W (N, K) in (BN, 128)
-// boxes.  Persistent: block b takes output tiles b, b + gridDim.x, … (N
-// fastest), and the producer and consumers walk one stage ring across them,
-// so the loads of a tile's first k-tiles overlap the previous tile's
-// epilogue.
-template <Op OP, int BN, int NWG, int STAGES>
+// loads A (M, K) in (BM, 64) boxes — with A_MN, Aᵀ = X (K, M) in (64, 64)
+// boxes, one per consumer warpgroup — and map_b B (K, N) in (64, 64)
+// boxes; for S8, map_a loads A (M, K) in (BM, 128) boxes and map_b W (N, K)
+// in (BN, 128) boxes.  k_chunk (a multiple of BK unless it is K) cuts K
+// into splits: unit u is output tile u % tiles of split u / tiles, written
+// to slab u / tiles of C (M x N each).  Persistent: block b takes units b,
+// b + gridDim.x, … (N fastest), and the producer and consumers walk one
+// stage ring across them, so the loads of a unit's first k-tiles overlap
+// the previous unit's epilogue.
+template <Op OP, int BN, int NWG, int STAGES, bool A_MN = false>
 __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtensorMap *map_b,
-                                          void *__restrict__ C, int M, int N, int K,
+                                          void *__restrict__ C, int M, int N, int K, int k_chunk,
                                           const Epilogue &ep) {
   using T = Tile<OP, BN, NWG, STAGES>;
   using acc_t = typename OpTraits<OP>::acc_t;
@@ -391,7 +411,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_tiles = (N + BN - 1) / BN, tiles = n_tiles * ((M + T::BM - 1) / T::BM);
-  const int KT = (K + T::BK - 1) / T::BK;
+  const int units = tiles * ((K + k_chunk - 1) / k_chunk);
+  const size_t slab = (size_t)M * N * (ep.out_f32 ? 4 : 2);  // bytes of one split's C
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -405,20 +426,28 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
   if (warp == NWG * 4) {  // producer
     if (lane == 0) {
       int it = 0;  // k-tiles loaded so far: the ring position
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int t = u % tiles, k_beg = u / tiles * k_chunk;
         const int m0 = t / n_tiles * T::BM, n0 = t % n_tiles * BN;
+        const int KT = (min(K, k_beg + k_chunk) - k_beg + T::BK - 1) / T::BK;
         for (int kt = 0; kt < KT; ++kt, ++it) {
-          const int s = it % STAGES;
+          const int s = it % STAGES, k0 = k_beg + kt * T::BK;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
           uint8_t *a = sa + s * T::A_BYTES, *b = sb + s * T::B_BYTES;
-          tma_load_2d(a, map_a, &full[s], kt * T::BK, m0);
+          if constexpr (A_MN) {
+#pragma unroll
+            for (int w = 0; w < NWG; ++w)  // 64 columns of X's 64 K-rows a warpgroup
+              tma_load_2d(a + w * 64 * 128, map_a, &full[s], m0 + w * 64, k0);
+          } else {
+            tma_load_2d(a, map_a, &full[s], k0, m0);
+          }
           if constexpr (OP == Op::BF16) {
 #pragma unroll
             for (int c = 0; c < BN / 64; ++c)  // 64-column chunks of B's 64 K-rows
-              tma_load_2d(b + c * 64 * 128, map_b, &full[s], n0 + c * 64, kt * T::BK);
+              tma_load_2d(b + c * 64 * 128, map_b, &full[s], n0 + c * 64, k0);
           } else {
-            tma_load_2d(b, map_b, &full[s], kt * T::BK, n0);
+            tma_load_2d(b, map_b, &full[s], k0, n0);
           }
         }
       }
@@ -430,8 +459,10 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
   const int wg = warp / 4;
   acc_t acc[NSUB][64];
   int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int t = u % tiles, k_beg = u / tiles * k_chunk;
     const int m0 = t / n_tiles * T::BM, n0 = t % n_tiles * BN;
+    const int KT = (min(K, k_beg + k_chunk) - k_beg + T::BK - 1) / T::BK;
 #pragma unroll
     for (int j = 0; j < NSUB; ++j)
 #pragma unroll
@@ -446,14 +477,17 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {  // 32 bytes of K per product
-        const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
+        // an MN-major A, as B below: 16 K-rows further down per step, its
+        // 64 rows one 64-element chunk
+        const uint64_t da = A_MN ? smem_desc(a + kk * 16 * 128, 64 * 128, 1024)
+                                 : smem_desc(a + kk * 32, 16, 1024);
 #pragma unroll
         for (int j = 0; j < NSUB; ++j) {
           if constexpr (OP == Op::BF16) {
             // MN-major B: 16 K-rows further down per step; the 128 columns
             // are two 64-column chunks of 8 KB (lbo)
-            wgmma_bf16_n128(acc[j], da,
-                            smem_desc(b + j * 2 * 64 * 128 + kk * 16 * 128, 64 * 128, 1024));
+            wgmma_bf16_n128<A_MN>(acc[j], da,
+                                  smem_desc(b + j * 2 * 64 * 128 + kk * 16 * 128, 64 * 128, 1024));
           } else {
             wgmma_s8_n128(acc[j], da, smem_desc(b + j * 128 * 128 + kk * 32, 16, 1024));
           }
@@ -471,19 +505,27 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
 #pragma unroll
     for (int j = 0; j < NSUB; ++j) fence_regs(acc[j]);
     if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last stage
-    epilogue<OP, NSUB>(acc, m0, n0, wg, warp, lane, C, M, N, ep);
+    epilogue<OP, NSUB>(acc, m0, n0, wg, warp, lane, static_cast<char *>(C) + u / tiles * slab,
+                       M, N, ep);
   }
 }
 
 // Encode both maps and launch KERNEL<BN, NWG, STAGES> persistent: one block
-// for each tile, at most MIN_BLOCKS an SM.
-template <Op OP, int BN, int NWG, int STAGES, typename Kernel>
+// for each work unit, at most MIN_BLOCKS an SM.  k_chunk: K elements a
+// split (K: no split); A_MN: A is given as X (K, M).
+template <Op OP, int BN, int NWG, int STAGES, bool A_MN = false, typename Kernel>
 int launch(Kernel kernel, const void *A, const void *B, void *C, int M, int N, int K,
-           const Epilogue &ep, cudaStream_t stream) {
+           const Epilogue &ep, cudaStream_t stream, int k_chunk = 0) {
   using T = Tile<OP, BN, NWG, STAGES>;
+  if (K <= 0) return cudaErrorInvalidValue;
+  if (k_chunk <= 0 || k_chunk > K) k_chunk = K;
+  if (k_chunk < K && k_chunk % T::BK) return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   int err;
-  if constexpr (OP == Op::BF16) {
+  if constexpr (A_MN) {
+    err = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, K, M, 64, 64);
+    if (!err) err = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, K, N, 64, 64);
+  } else if constexpr (OP == Op::BF16) {
     err = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, M, K, T::BM, 64);
     if (!err) err = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, K, N, 64, 64);
   } else {
@@ -497,9 +539,10 @@ int launch(Kernel kernel, const void *A, const void *B, void *C, int M, int N, i
     if (err) return err;
     sized = true;
   }
-  const int tiles = ((N + BN - 1) / BN) * ((M + T::BM - 1) / T::BM);
-  const int grid = tiles < sm_count() * T::MIN_BLOCKS ? tiles : sm_count() * T::MIN_BLOCKS;
-  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(ma, mb, C, M, N, K, ep);
+  const int units =
+      ((N + BN - 1) / BN) * ((M + T::BM - 1) / T::BM) * ((K + k_chunk - 1) / k_chunk);
+  const int grid = units < sm_count() * T::MIN_BLOCKS ? units : sm_count() * T::MIN_BLOCKS;
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(ma, mb, C, M, N, K, k_chunk, ep);
   return static_cast<int>(cudaGetLastError());
 }
 

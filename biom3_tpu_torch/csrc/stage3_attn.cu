@@ -34,7 +34,7 @@ local_heads_kernel(const bf16 *__restrict__ qkv, bf16 *__restrict__ out, int L, 
   const int w = q0 / window;
   const int lo = max(0, (w - 1) * window), hi = min(L, (w + 2) * window);
   const bf16 *base = qkv + (size_t)b * L * 3 * d + h * DH;
-  const b3::Heads a{base, base + d, base + 2 * d, 3 * d, 3 * d, nullptr, nullptr, nullptr,
+  const b3::Heads a{base, base + d, base + 2 * d, 3 * d, 3 * d,
                     out + (size_t)b * L * d + h * DH, d};
   b3::attend_range<DH>(a, q0, min(L, q0 + tq), lo, hi, rsqrtf((float)DH));
 }

@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "b3_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_gemm_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "b3_gemm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "b3_gemm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "b3_col_sum": [_P, _I, _I, _I, _P, _P, _I, _P],
     "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
     "b3_stage3_attention_bwd": [_P] * 8 + [_I] * 7 + [_P],
@@ -48,7 +48,7 @@ SIGNATURES = {
     "b3_layernorm": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
     "b3_embed_tokens": [_P, _P, _P, _P, _I, _I, _I, _P],
     "b3_gather_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "b3_esm2_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "b3_esm2_attention": [_P] * 6 + [_I] * 4 + [_P],
     "b3_esm2_attention_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "b3_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "b3_esm2_embed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -16,6 +16,8 @@ LayerNorm parameters f32; on the CPU everything is f32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -189,12 +191,36 @@ def gemm_dx_plain(dy, w, *, gelu_of=None, gelu="erf", out_dtype=None):
     return y.to(out_dtype or dy.dtype)
 
 
-SPLIT_TARGET = 2 * 132   # gemm_dw: blocks to aim for, two per SM of an H100
+DW_MIN_KTILES = 64   # gemm_dw: least 64-row k-tiles a split sums (4096 rows)
+
+
+def gemm_dw_plan(rows: int, k: int, n: int, sms: int = 132) -> tuple[int, int, int]:
+    """gemm_dw's tile and split rule → (tile rows, splits, rows a split).
+    Persistent blocks run two an SM on either tile.  A split costs an f32
+    (k, n) slab to write and sum and pays off only over long reductions, so
+    a split sums at least ``DW_MIN_KTILES`` k-tiles; the 128x128 tile is
+    taken where its tiles times those splits still fill one wave of 2·sms
+    blocks, else 64x128; then as many splits as keep tiles times splits
+    within that wave.  Every row lies in exactly one split, and none is
+    empty.  (A sweep of both tiles and 1-16 splits on an H100 at the
+    Stage-3 and ESM2 products over 4096 and 32768 rows, PERF.md.)"""
+    ktiles = max(1, -(-rows // 64))
+    most = max(1, ktiles // DW_MIN_KTILES)
+    bm = 128 if -(-k // 128) * -(-n // 128) * most >= 2 * sms else 64
+    tiles = -(-k // bm) * -(-n // 128)
+    per = -(-ktiles // max(1, min(2 * sms // tiles, most)))
+    return bm, -(-ktiles // per), per * 64
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Weight gradient ``xᵀ @ dy`` → (K, N) f32: x (M, K), dy (M, N), the M
-    rows summed in f32 (the whole batch in one call)."""
+    rows summed in f32 (the whole batch in one call), in a fixed order:
+    the same inputs give the same bits."""
     cd = _compute_dtypes(x)
     _check("x", x, dtypes=cd, ndim=2, vectors=True)
     M, K = x.shape
@@ -204,14 +230,13 @@ def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     N = dy.shape[1]
     if not x.is_cuda:
         return gemm_dw_plain(x, dy)
-    if K % 8 or N % 8:
-        raise ValueError(f"gemm_dw needs K % 8 == 0 and N % 8 == 0, got K={K} N={N}")
+    if K % 8 or N % 8 or M == 0:
+        raise ValueError(f"gemm_dw needs K % 8 == 0, N % 8 == 0 and rows, got M={M} K={K} N={N}")
     out = torch.empty((K, N), dtype=torch.float32, device=x.device)
-    tiles = -(-K // 128) * -(-N // 128)
-    splits = max(1, min(-(-SPLIT_TARGET // tiles), M // 256))
+    bm, splits, chunk = gemm_dw_plan(M, K, N, _sm_count(x.device.index))
     ws = torch.empty((splits, K, N), dtype=torch.float32, device=x.device) if splits > 1 else None
-    _build.launch("b3_gemm_dw", _ptr(x), _ptr(dy), _ptr(out), _ptr(ws), K, N, M, splits,
-                  _stream(x))
+    _build.launch("b3_gemm_dw", _ptr(x), _ptr(dy), _ptr(out), _ptr(ws), K, N, M, chunk,
+                  int(bm == 128), _stream(x))
     gemm_dw.launches += 1
     return out
 
@@ -360,8 +385,9 @@ def esm2_attention(qkv: torch.Tensor, padding_mask: torch.Tensor, cos: torch.Ten
     if dh not in (32, 64):
         raise ValueError(f"esm2_attention kernel needs head dim 32 or 64, got {dh}")
     out = torch.empty((B, L, E), dtype=qkv.dtype, device=qkv.device)
+    ops = torch.empty((2, B, heads, L, dh), dtype=qkv.dtype, device=qkv.device)  # rotated q, k
     _build.launch("b3_esm2_attention", _ptr(qkv), _ptr(padding_mask), _ptr(cos), _ptr(sin),
-                  _ptr(out), B, L, E, heads, _stream(qkv))
+                  _ptr(out), _ptr(ops), B, L, E, heads, _stream(qkv))
     esm2_attention.launches += 1
     return out
 

@@ -38,6 +38,7 @@ import torch
 from biom3_tpu_torch.config import Config, PenCLConfig
 from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init_
 from biom3_tpu_torch.models.fused_forward import HEAD_DIMS, log_once
+from biom3_tpu_torch.pipeline import require_device
 from biom3_tpu_torch.models.pencl import PenCL, PenCLText, pencl_state_dict, text_state_dict
 from biom3_tpu_torch.ops.bert_stack import bert_embed, bert_stack_arrays, fused_bert_cls
 from biom3_tpu_torch.ops.esm2_stack import esm2_stack_arrays, fused_esm2_cls
@@ -87,7 +88,7 @@ def compute_scores(z_p, z_t) -> dict:
 
 class PenCLEngine:
     def __init__(self, stage_config: Config, model_path: str | None = None, *,
-                 device: str | torch.device = "cpu", dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
                  use_stack: bool | None = None, text_tokenizer=None, text_only: bool = False,
                  tower_impl: str | None = None, attn_impl: str | None = None,
                  ff_quant: str | None = None, proj_quant: str | None = None,
@@ -138,6 +139,7 @@ class PenCLEngine:
         if not self.use_fused_stack and "int8" in quant:
             raise ValueError("the graph tower path never quantizes; int8 needs "
                              "tower_impl='fused-stack'")
+        require_device(self.device, "PenCLEngine")
         if text_only:
             model, keep = PenCLText(self.config, attn_impl=attn_impl), text_state_dict
         else:

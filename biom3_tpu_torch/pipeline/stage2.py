@@ -13,13 +13,15 @@ import torch
 from biom3_tpu_torch.config import Config, FacilitatorConfig
 from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init_
 from biom3_tpu_torch.models.facilitator import Facilitator
+from biom3_tpu_torch.pipeline import require_device
 
 
 class FacilitatorEngine:
     def __init__(self, stage_config: Config, model_path: str | None = None, *,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.config = FacilitatorConfig.from_stage_config(stage_config)
         self.device = torch.device(device)
+        require_device(self.device, "FacilitatorEngine")
         model = Facilitator(self.config)
         if model_path is not None:
             model.load_state_dict(load_reference_state_dict(model_path), strict=True)

@@ -39,6 +39,7 @@ from biom3_tpu_torch.diffusion.sampler import (
 from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init_
 from biom3_tpu_torch.models.fused_forward import log_once, make_stack_apply, stack_supported
 from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+from biom3_tpu_torch.pipeline import require_device
 from biom3_tpu_torch.tokenizers import Stage3Vocab
 
 
@@ -48,7 +49,7 @@ class ProteoScribeEngine:
         stage_config: Config,
         model_path: str | None = None,
         *,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
         dtype: torch.dtype = torch.float32,
         use_stack: bool | None = None,
         temperature: float = 1.0,
@@ -96,6 +97,7 @@ class ProteoScribeEngine:
         if not self.use_stack and "int8" in (self.ff_quant, self.proj_quant):
             raise ValueError("int8 quant modes need the stack forward (bf16 on cuda with a "
                              "config stack_supported takes, or use_stack=True)")
+        require_device(self.device, "ProteoScribeEngine")
         if model_path is not None:
             sd = load_reference_state_dict(model_path)
             model = ProteoScribe(self.config, conditional="transformer.y_mlp.0.weight" in sd,

@@ -10,21 +10,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the kernels from ``biom3_tpu_torch/csrc`` (seconds), then count
    the tensor-core and TMA instructions in each kernel's SASS
-   (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s kernels
-   must show HGMMA and ``gemm_i8``'s IGMMA, ``flash_attention``'s and
-   ``esm2_attention_bwd``'s two passes HGMMA, all with UTMALDG loads and
-   none with HMMA; a ``[ptxas]`` line gives the attention kernels'
-   registers and spills (``nvcc -Xptxas -v``);
+   (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s and
+   ``gemm_dw``'s kernels must show HGMMA and ``gemm_i8``'s IGMMA,
+   ``flash_attention``'s, ``esm2_attention``'s and ``esm2_attention_bwd``'s
+   two passes HGMMA, all with UTMALDG loads and none with HMMA; a
+   ``[ptxas]`` line gives the attention kernels', their staging launches'
+   and ``gemm_dw``'s registers and spills (``nvcc -Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
    12 heads, FF 3072; ESM2-650M: L=1024, E=1280, 20 heads, FF 5120),
    timed at Stage-3 B=4 / BERT B=2 / ESM B=2 and checked also at the
    batches phase 5 gives them (2 replicas of 1 prompt), at phase 6's ESM
    batch (the 5 demo proteins) and on edge shapes (ragged tiles, ragged
-   PAD tails, an all-PAD row; for the two attention kernels on the tensor
-   cores also L = 1000 and 65, a 3-token protein, an all-PAD row at a
-   ragged L and head dim 32; for the training kernels edge windows,
-   local_heads 0 and = heads, head dim 64, ragged rows): bf16
+   PAD tails, an all-PAD row; for the three attention kernels on the
+   tensor cores also L = 1000 and 65, a 3-token protein, an all-PAD row at
+   a ragged L and head dim 32; for the training kernels edge windows,
+   local_heads 0 and = heads, head dim 64, ragged rows; ``gemm_dw`` must
+   also give the same bits on a second call): bf16
    max|Δ|/max|ref| <= 2e-2 (the attention gradients per head group: 32
    columns for Stage 3, 64 for ESM2), with the kernel's, the plain version's and, where one exists,
    one PyTorch call's time, and the least time the card could take; the
@@ -293,23 +295,30 @@ def phase_device() -> dict:
 # and the tensor-core attention kernels on wgmma (HGMMA bf16, IGMMA int8)
 # fed by TMA (UTMALDG); none of them may show HMMA (the mma.sync route)
 SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IGMMA", "UTMALDG"),
-              "flash_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
+              "gemm_dw_wgmma": ("HGMMA", "UTMALDG"), "flash_attn_wgmma": ("HGMMA", "UTMALDG"),
+              "esm2_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG")}
-# kernels whose registers and spills the build prints (``ptxas.txt``)
-PTXAS_SHOW = ("flash_attn_wgmma_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
-              "esm2_bwd_stage_kernel")
+# kernels whose registers and spills the build prints (``ptxas.txt``),
+# each in two instantiations: head dims 32 and 64, or gemm_dw's two tiles
+PTXAS_SHOW = ("flash_attn_wgmma_kernel", "esm2_attn_wgmma_kernel", "esm2_attn_stage_kernel",
+              "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel", "esm2_bwd_stage_kernel",
+              "gemm_dw_wgmma")
+# kernels whose output must not change from call to call (no atomics)
+DETERMINISTIC = {"gemm_dw"}
 
 
 def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
-    """``PTXAS_SHOW`` kernel<head dim> → registers, spill stores and spill
-    loads (bytes a thread), from the compilers' ``-Xptxas -v`` report."""
+    """``PTXAS_SHOW`` kernel<template ints> → registers, spill stores and
+    spill loads (bytes a thread), from the compilers' ``-Xptxas -v``
+    report."""
     usage, key = {}, None
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-            key = next((f"{f}<{m.group(1)}>" for f in PTXAS_SHOW
-                        if (m := re.search(f + r"ILi(\d+)E", name))), None)
+            key = next((f"{f}<{','.join(re.findall(r'Li(\d+)E', m.group(1)))}>"
+                        for f in PTXAS_SHOW if (m := re.search(f + r"I((?:Li\d+E)+)E", name))),
+                       None)
             continue
         if key is None:
             continue
@@ -340,8 +349,8 @@ def phase_build() -> None:
             raise AssertionError(f"{frag}: HMMA (mma.sync) in its SASS: {kernels}")
     print("[sass] " + json.dumps(sass), flush=True)
     usage = ptxas_usage(_build.PTXAS_REPORT.read_text())
-    if len(usage) != 2 * len(PTXAS_SHOW):   # each kernel at head dims 32 and 64
-        raise AssertionError(f"ptxas report lacks attention kernels: {sorted(usage)}")
+    if len(usage) != 2 * len(PTXAS_SHOW):   # each kernel in two instantiations
+        raise AssertionError(f"ptxas report lacks kernels of PTXAS_SHOW: {sorted(usage)}")
     print("[ptxas] " + json.dumps(usage), flush=True)
 
 
@@ -718,8 +727,14 @@ def edge_cases(g) -> dict[str, list]:
                                                  want_f32=True))],
         "esm2_embed": [(lambda: K.esm2_embed(ids, table),
                         lambda: K.esm2_embed_plain(ids, table))],
-        "esm2_attention": [(lambda: K.esm2_attention(qe, pad, cos, sin, heads=4),
-                            lambda: K.esm2_attention_plain(qe, pad, cos, sin, heads=4))],
+        # the tensor-core forward: flash's edge shapes with the rotary tables
+        "esm2_attention": [
+            pair("esm2_attention", qe, pad, cos, sin, heads=4),
+            pair("esm2_attention", rnd(3, Le, 2304), pad_b, cos, sin, heads=12),
+            pair("esm2_attention", rnd(2, 130, 768), pad32, c32, s32, heads=8),
+            pair("esm2_attention", rnd(3, 65, 768), p65, *r65[64], heads=4),
+            pair("esm2_attention", rnd(2, 65, 768), p65b, *r65[32], heads=8),
+            pair("esm2_attention", rnd(2, Le, 2304), p1000, cos, sin, heads=12)],
         "flash_attention": [(lambda: K.flash_attention(*fl, mask),
                              lambda: K.flash_attention_plain(*fl, mask)),
                             (lambda: K.flash_attention(*fl32),
@@ -731,8 +746,9 @@ def edge_cases(g) -> dict[str, list]:
                                  p1000)],
         # training: edge windows at W=64, no local heads (and a ragged last
         # chunk of the linear heads), only local heads, head dim 64; GEMMs
-        # with M, N, K off the tiles (a ragged row count for dW); LayerNorm
-        # and column sums off the row blocks and the 256-column stride
+        # with M, N, K off the tiles (ragged row counts for dW, one over two
+        # splits); LayerNorm and column sums off the row blocks and the
+        # 256-column stride
         "stage3_attention_bwd": [
             pair("stage3_attention_bwd", rnd(2, 256, 1536), rnd(2, 256, 512), heads=16,
                  local_heads=8, window=64),
@@ -748,7 +764,8 @@ def edge_cases(g) -> dict[str, list]:
                          out_dtype=torch.float32),
                     pair("gemm_dx", rnd(1000, 200), rnd(264, 200, scale=200 ** -0.5))],
         "gemm_dw": [pair("gemm_dw", rnd(1000, 264), rnd(1000, 200)),
-                    pair("gemm_dw", rnd(37, 264), rnd(37, 200))],
+                    pair("gemm_dw", rnd(37, 264), rnd(37, 200)),
+                    pair("gemm_dw", rnd(8191, 264), rnd(8191, 200))],
         "layernorm_bwd": [pair("layernorm_bwd", xl, torch.randn(1003, 264, generator=g,
                                                                  device=dev), ln[0],
                                residual=rnd(1003, 264), out_dtype=torch.float32,
@@ -800,6 +817,7 @@ def phase_kernels() -> dict:
 
     from biom3_tpu_torch.cli.run_pencl_inference import DEMO_SEQUENCES
 
+    t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     # timed: the check shapes (Stage 3 B=4, BERT B=2, ESM B=2 with one
     # full-length and one PAD-tailed row); also checked: the shapes phase
@@ -824,6 +842,8 @@ def phase_kernels() -> dict:
         for run, plain in (c for chk in checked for c in chk.get(name, [])):
             got, want = flat(run()), flat(plain())
             torch.cuda.synchronize()
+            if name in DETERMINISTIC and not all(map(torch.equal, got, flat(run()))):
+                raise AssertionError(f"{name}: a second call on the same inputs gave other bits")
             for a, b in zip(got, want):
                 if name in BIT_EQUAL and not torch.equal(a, b):
                     raise AssertionError(f"{name}: {int((a != b).sum())} of {a.numel()} "
@@ -843,6 +863,7 @@ def phase_kernels() -> dict:
     del timed, small, checked
     torch.cuda.empty_cache()
     phase_gemms_b32(results, g)
+    say("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
     return results
 
 

@@ -194,6 +194,25 @@ def test_kernel_paths_refuse_f32_on_cuda():
         PenCLEngine(Config({}), device="cpu", use_stack=True, tower_impl="graph")
 
 
+@pytest.mark.parametrize("engine", ["PenCLEngine", "FacilitatorEngine", "ProteoScribeEngine"])
+def test_engines_default_to_the_card(engine, monkeypatch):
+    """Without ``device`` an engine runs on the card, as the JAX engines on
+    the first accelerator; with no card it raises, naming the CPU option,
+    and never carries on on the CPU."""
+    import importlib
+
+    from biom3_tpu_torch.config import Config
+
+    module = {"PenCLEngine": "stage1", "FacilitatorEngine": "stage2",
+              "ProteoScribeEngine": "stage3"}[engine]
+    cls = getattr(importlib.import_module(f"biom3_tpu_torch.pipeline.{module}"), engine)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(STAGE3 if engine == "ProteoScribeEngine" else PENCL["published"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cls(cfg)
+    assert cls(cfg, device="cpu").device == torch.device("cpu")
+
+
 CLIS = ("run_e2e", "run_server", "run_pencl_inference")
 
 

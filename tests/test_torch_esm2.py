@@ -82,6 +82,25 @@ def test_fused_esm2_cls_matches_jax_kernel(tower, gelu):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("heads", [2, 4], ids=["Dh64", "Dh32"])
+@pytest.mark.parametrize("L", [65, 130])
+def test_fused_esm2_cls_matches_jax_kernel_off_the_tiles(tower, L, heads):
+    """``esm2_attention_plain`` inside the tower chain vs the JAX kernel in
+    interpret mode at lengths one and two keys past the kernel's 64-row
+    tiles, head dims 64 and 32, with a PAD-tailed row and an all-PAD row
+    (the −1e9 added on every key: it attends uniformly)."""
+    _, params, port = tower
+    toks = _tokens(np.random.default_rng(6), B=2, L=L, pad=L // 3)
+    toks[1] = 1
+    arrays = jax_esm2_stack_arrays(params["params"], CFG.num_layers, dtype=jnp.float32)
+    want = np.asarray(jax_fused_esm2_cls(jnp.asarray(toks), **arrays, heads=heads,
+                                         ff_block_l=64, interpret=True))
+    with torch.no_grad():
+        got = fused_esm2_cls(torch.from_numpy(toks), **esm2_stack_arrays(port, torch.float32),
+                             heads=heads).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("gelu", ["erf", "tanh"])
 def test_plain_esm2_matches_flax(tower, gelu):
     _, params, _ = tower

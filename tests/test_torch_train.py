@@ -186,6 +186,28 @@ def test_gemm_backward_plains_are_the_gradients(gelu):
     np.testing.assert_allclose(K.col_sum(dh).numpy(), gb.numpy(), **PLAIN_TOL)
 
 
+@pytest.mark.parametrize("rows, k, n, sms", [
+    (4096, 512, 512, 132), (4096, 2048, 512, 132), (4096, 512, 1536, 132),
+    (32768, 512, 512, 132), (4096, 5120, 1280, 132), (4096, 1280, 1280, 132),
+    (1000, 264, 200, 132), (37, 264, 200, 132), (130, 64, 64, 114), (8191, 512, 512, 16),
+])
+def test_gemm_dw_split_rule_covers_every_row_once(rows, k, n, sms):
+    """gemm_dw's splits are whole 64-row k-tiles, none empty, and each row
+    lies in exactly one; output tiles times splits fill at most one wave of
+    two blocks an SM (or one split where the tiles alone exceed it)."""
+    bm, splits, chunk = K.gemm_dw_plan(rows, k, n, sms)
+    assert bm in (64, 128) and chunk % 64 == 0 and splits >= 1
+    starts = range(0, splits * chunk, chunk)
+    counts = np.zeros(rows, int)
+    for s0 in starts:
+        assert s0 < rows                                  # no empty split
+        counts[s0:min(rows, s0 + chunk)] += 1
+    assert (counts == 1).all()
+    tiles = -(-k // bm) * -(-n // 128)
+    assert splits == 1 or tiles * splits <= 2 * sms
+    assert splits == 1 or chunk >= K.DW_MIN_KTILES * 64
+
+
 # --- the model, the objective and the whole loss gradient -------------------
 
 @pytest.fixture(scope="module")
