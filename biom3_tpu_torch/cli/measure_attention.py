@@ -1,5 +1,6 @@
 """The attention kernels that run on the tensor cores, on one CUDA card:
-``flash_attention``, ``esm2_attention`` and ``esm2_attention_bwd``.
+``flash_attention``, ``esm2_attention``, ``esm2_attention_bwd`` and
+``dense_attention``.
 
     python -m biom3_tpu_torch.cli.measure_attention [--iters 50] [--out build/measure_attention.json]
 
@@ -17,8 +18,11 @@ kernel's own work, 18·Dh, beside it), the least time the card could take
 larger), its share of the kernel's time, and the kernel's time over the
 library call's; and each kernel launch's device ms per call from
 ``torch.profiler`` (the gradient's staging launch and its two passes
-apart, as the forward's staging and its sweep).  Prints one JSON object with the card's name and power limit and
-writes it to ``--out``.
+apart, as the forward's staging and its sweep).  ``dense_attention``
+(the BERT tower's unmasked heads) is measured the same way at BERT's
+width (L = 512, 12 heads of 64) at B=2, phase 3's timed batch, and B=16,
+PenCL's, beside SDPA with no mask.  Prints one JSON object with the
+card's name and power limit and writes it to ``--out``.
 
 Two versions in one call (the same card): run this file from another
 checkout's root with that checkout first on the path, e.g.
@@ -42,10 +46,12 @@ REL_TOL = 2e-2
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
 B, H, L, DH = 2, 20, 1024, 64
 LENGTHS = (1024, 400)
+BERT_L, BERT_H, BERT_BATCHES = 512, 12, (2, 16)
 # kernel name fragment → its name in the profile breakdown
 LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
             ("esm2_bwd_dkv", "pass2_dkv"), ("flash_attn", "flash"),
-            ("esm2_attn_stage", "fwd_stage"), ("esm2_attn", "fwd_sweep"))
+            ("esm2_attn_stage", "fwd_stage"), ("esm2_attn", "fwd_sweep"),
+            ("dense_attn", "dense"))
 
 
 def rel_err(got, want, group: int = 0) -> float:
@@ -90,6 +96,18 @@ def cases(g) -> dict[str, dict]:
     rotated = tuple(t.detach() for t in (qs, ks, vs))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
     dsdpa = da.view(B, L, H, DH).transpose(1, 2)
+
+    def dense(b):
+        qkvb = rnd(b, BERT_L, 3 * BERT_H * DH)
+        heads = [t.view(b, BERT_L, BERT_H, DH).transpose(1, 2)
+                 for t in qkvb.split(BERT_H * DH, dim=-1)]
+        flops = 4 * b * BERT_H * BERT_L * BERT_L * DH
+        return {"run": lambda: K.dense_attention(qkvb, heads=BERT_H),
+                "plain": lambda: K.dense_attention_plain(qkvb, heads=BERT_H),
+                "lib": lambda: F.scaled_dot_product_attention(*heads),
+                "flops": flops, "work_flops": flops,
+                "bytes": nbytes(qkvb) + b * BERT_L * BERT_H * DH * 2, "group": 0}
+
     return {
         "flash_attention": {
             "run": lambda: K.flash_attention(q, k, v, pad),
@@ -109,6 +127,7 @@ def cases(g) -> dict[str, dict]:
             "lib": lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dsdpa, retain_graph=True),
             "flops": 10 * H * pairs * DH, "work_flops": 18 * H * pairs * DH,
             "bytes": nbytes(qkv, da, pad, cos, sin) + nbytes(qkv), "group": DH},
+        **{f"dense_attention_B{b}": dense(b) for b in BERT_BATCHES},
     }
 
 

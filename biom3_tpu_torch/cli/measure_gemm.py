@@ -1,6 +1,6 @@
-"""The GEMM kernels on one CUDA card: ``gemm_bias_act``, ``gemm_i8``, ``gemm_dw``.
+"""The GEMM kernels on one CUDA card: ``gemm_bias_act``, ``gemm_i8``, ``gemm_dx``, ``gemm_dw``.
 
-    python -m biom3_tpu_torch.cli.measure_gemm [--batches 4 32] [--dw-sweep] \
+    python -m biom3_tpu_torch.cli.measure_gemm [--batches 4 32] [--dw-sweep] [--dx-sweep] \
         [--out build/measure_gemm.json]
 
 For each Stage-3 batch B (M = B·1024 rows, d = 512, FF 2048): one layer's
@@ -13,13 +13,20 @@ timed together by CUDA events beside one PyTorch call each (``matmul``;
 ``torch._int_mm``, the int32 product only), with the least time the card
 could take (operations at 989 TFLOP/s bf16 or 1979 TOP/s int8, bytes at
 3.35 TB/s), the rate in TFLOP/s or TOP/s and each product's own time.
-The weight gradient ``gemm_dw`` (f32 out, the rows summed) the same way
+The input gradient ``gemm_dx`` the same way beside ``matmul(dy, w.t())``,
+at each Stage-3 batch (one layer's four dX: dattn = dy·Woᵀ, dh1 =
+(dy·W2ᵀ)∘gelu'(h1), du = dh1·W1ᵀ and dxn1 = dqkv·W3ᵀ, the last two f32
+out) and at one ESM2-650M layer's four over ``ESM_DX_ROWS`` (2048 rows:
+``chip_smoke.py`` phase 3's ESM2 batch; 4096: ``gemm_dw``'s).  The weight gradient ``gemm_dw`` (f32 out, the
+rows summed) the same way
 beside ``matmul`` on the transposed view, at each Stage-3 batch (one
 layer's four dW: W2, W1, Wo, W3) and at one ESM2-650M layer's four over
 4096 rows (Stage-1 training at B=4: W2, W1, Wo, W3).  ``--dw-sweep``
 times each of those dW products alone on both of its tiles at 1 to 16
 splits of the rows, beside the split rule's choice (``gemm_dw_plan``):
-the evidence for that rule.  Also the host cost of one wrapper call
+the evidence for that rule.  ``--dx-sweep`` likewise times each
+``gemm_dx`` product alone on both tiles beside ``gemm_dx_plan``'s choice.
+Also the host cost of one wrapper call
 (enqueue only, no synchronise) of each GEMM and of ``layernorm``, a
 kernel that takes no tensor maps, and the SASS counts of the tensor-core
 and TMA instructions in each kernel of the built library (``cuobjdump
@@ -113,6 +120,38 @@ def stage3_gemm_cases(B: int, g) -> dict[str, list[dict]]:
 
 
 ESM_ROWS, ESM_E, ESM_FF = 4096, 1280, 5120
+ESM_DX_ROWS = (2048, 4096)
+
+
+def dx_cases(rows: int, d: int, ff: int, g) -> list[dict]:
+    """One layer's four input gradients over ``rows`` rows at width ``d``
+    and FF width ``ff`` (Stage 3: 512, 2048; ESM2-650M: 1280, 5120), each
+    case as ``stage3_gemm_cases``' (the library call ``matmul(dy,
+    w.t())``, the GELU derivative left out)."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    dev, bf, f32 = g.device, torch.bfloat16, torch.float32
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def dx(dy, w, out_dtype=bf, **kw):
+        k, n = dy.shape[1], w.shape[0]
+        tensors = [t for t in (dy, w, *kw.values()) if isinstance(t, torch.Tensor)]
+        return {"run": lambda: K.gemm_dx(dy, w, out_dtype=out_dtype, **kw),
+                "plain": lambda: K.gemm_dx_plain(dy, w, out_dtype=out_dtype, **kw),
+                "args": (dy, w, kw.get("gelu_of"), out_dtype),
+                "flops": 2 * rows * k * n,
+                "bytes": nbytes(*tensors) + rows * n * (torch.finfo(out_dtype).bits // 8),
+                "lib": lambda: torch.matmul(dy, w.t()), "peak": PEAK_BF16}
+
+    dy, dh = rnd(rows, d), rnd(rows, ff)
+    return [dx(dy, rnd(d, d, scale=d ** -0.5)),
+            dx(dy, rnd(ff, d, scale=ff ** -0.5), gelu_of=rnd(rows, ff, dtype=f32)),
+            dx(dh, rnd(d, ff, scale=d ** -0.5), out_dtype=f32),
+            dx(rnd(rows, 3 * d), rnd(d, 3 * d, scale=d ** -0.5), out_dtype=f32)]
 
 
 def dw_cases(B: int | None, g) -> list[dict]:
@@ -187,6 +226,47 @@ def dw_sweep(batches, g) -> dict[str, dict]:
             result[key] = {"plan": list(K.gemm_dw_plan(x.shape[0], x.shape[1], dy.shape[1])),
                            "ms": times}
             print(f"dw_sweep {key}: {json.dumps(result[key])}", flush=True)
+        torch.cuda.empty_cache()
+    return result
+
+
+def dx_sweep(batches, g) -> dict[str, dict]:
+    """``"rows:KxN"`` → {"plan": tile rows, "ms": {"64": ms, "128": ms}}
+    for each ``gemm_dx`` product of ``dx_cases`` at the Stage-3 batches and
+    over ``ESM_DX_ROWS``, each tile checked against the plain version
+    first."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import _build
+    from biom3_tpu_torch.ops import kernels as K
+
+    def launch(dy, w, h, out_dtype, bm):
+        rows, k = dy.shape
+        n = w.shape[0]
+        out = torch.empty((rows, n), dtype=out_dtype, device=dy.device)
+        _build.launch("b3_gemm_dx", dy.data_ptr(), w.data_ptr(),
+                      None if h is None else h.data_ptr(), out.data_ptr(), rows, n, k,
+                      3 if h is not None else 0, int(out_dtype == torch.float32), int(bm == 128),
+                      torch.cuda.current_stream().cuda_stream)
+        return out
+
+    shapes = [(B * L, D, FF) for B in batches] + [(r, ESM_E, ESM_FF) for r in ESM_DX_ROWS]
+    result = {}
+    for rows, d, ff in shapes:
+        for case in dx_cases(rows, d, ff, g):
+            dy, w, h, out_dtype = case["args"]
+            key = f"{rows}:{dy.shape[1]}x{w.shape[0]}"
+            want = case["plain"]().float()
+            times = {}
+            for bm in (64, 128):
+                got = launch(dy, w, h, out_dtype, bm).float()
+                err = float((got - want).abs().max() / want.abs().max())
+                if err > REL_TOL:
+                    raise AssertionError(f"{key} {bm}: max|Δ|/max|ref| {err:.3e}")
+                times[str(bm)] = event_ms(lambda: launch(dy, w, h, out_dtype, bm), ITERS)
+            result[key] = {"plan": K.gemm_dx_plan(rows, w.shape[0]), "ms": times}
+            print(f"dx_sweep {key}: {json.dumps(result[key])}", flush=True)
         torch.cuda.empty_cache()
     return result
 
@@ -289,6 +369,8 @@ def parse_arguments(argv=None):
     p.add_argument("--batches", type=int, nargs="+", default=[4, 32])
     p.add_argument("--dw-sweep", action="store_true",
                    help="also time gemm_dw's tiles at 1-16 splits (the split rule's evidence)")
+    p.add_argument("--dx-sweep", action="store_true",
+                   help="also time gemm_dx's two tiles (the tile rule's evidence)")
     p.add_argument("--out", type=str, default=None)
     return p.parse_args(argv)
 
@@ -309,18 +391,22 @@ def main(argv=None) -> None:
               "torch": torch.__version__}
     g = torch.Generator(device="cuda").manual_seed(0)
     for B in [*args.batches, None]:
-        named = {"gemm_dw": dw_cases(B, g)}
         if B:
-            named = {**stage3_gemm_cases(B, g), **named}
-        for name, cases in named.items():
+            named = {**{f"{n}_B{B}": c for n, c in stage3_gemm_cases(B, g).items()},
+                     f"gemm_dx_B{B}": dx_cases(B * L, D, FF, g), f"gemm_dw_B{B}": dw_cases(B, g)}
+        else:
+            named = {**{f"gemm_dx_esm2_{rows}": dx_cases(rows, ESM_E, ESM_FF, g)
+                        for rows in ESM_DX_ROWS}, "gemm_dw_esm2": dw_cases(None, g)}
+        for key, cases in named.items():
             err_abs, err_rel = check(cases)
-            key = f"{name}_B{B}" if B else f"{name}_esm2"
             result[key] = {"max_abs_err": err_abs, "max_rel_err": err_rel, **timing(cases)}
             print(f"{key}: {json.dumps(result[key])}", flush=True)
-        del cases
+        del named, cases
         torch.cuda.empty_cache()
     if args.dw_sweep:
         result["dw_sweep"] = dw_sweep(args.batches, g)
+    if args.dx_sweep:
+        result["dx_sweep"] = dx_sweep(args.batches, g)
     result["host_us_per_call"] = host_costs(g)
     print(f"host: {json.dumps(result['host_us_per_call'])}", flush=True)
     try:

@@ -49,7 +49,7 @@ RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 # kernel name fragment → profile group (the port's kernels; anything else
 # is reported under its own name)
 KERNEL_GROUPS = (("gemm_bias_act_wgmma", "gemm_bias_act"), ("gemm_i8_wgmma", "gemm_i8"),
-                 ("gemm_dx_wmma", "gemm_dx"), ("gemm_dw_wgmma", "gemm_dw"),
+                 ("gemm_dx_wgmma", "gemm_dx"), ("gemm_dw_wgmma", "gemm_dw"),
                  ("esm2_bwd", "esm2_attention_bwd"), ("esm2_attn", "esm2_attention"),
                  ("flash_attn", "flash_attention"),
                  ("dense_attn", "dense_attention"), ("layernorm_bwd", "layernorm_bwd"),

@@ -1,8 +1,8 @@
-// Softmax attention over a key range on CUDA cores, shared by the Stage-3
-// band-local heads (stage3_attn.cu) and the BERT tower's dense heads
-// (dense_attn.cu), neither masked; flash_attention and the ESM2 tower's
-// rotary attention, forward and backward, run on the tensor cores
-// (attn_hopper.cuh) and take only rope8 from here (esm2_rope.cuh).
+// Softmax attention over a key range on CUDA cores, for the Stage-3
+// band-local heads (stage3_attn.cu), unmasked; flash_attention, the BERT
+// tower's dense heads and the ESM2 tower's rotary attention, forward and
+// backward, run on the tensor cores (attn_hopper.cuh) and take only rope8
+// from here (esm2_rope.cuh).
 //
 // S threads cooperate on one query row: each walks every S-th key of the
 // range with a running (max, sum, acc) — an online softmax in f32 that

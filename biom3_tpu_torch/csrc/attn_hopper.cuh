@@ -1,5 +1,6 @@
 // Tensor-core softmax attention for Hopper, shared by flash_attention
-// (flash_attn.cu) and esm2_attention_bwd (esm2_attn_bwd.cu): head dim 64
+// (flash_attn.cu), dense_attention (dense_attn.cu), esm2_attention
+// (esm2_attn.cu) and esm2_attention_bwd (esm2_attn_bwd.cu): head dim 64
 // tiles in shared memory loaded by TMA, products on wgmma, an online f32
 // softmax in the accumulator registers.
 //

@@ -1,5 +1,5 @@
-// Hopper GEMM main loop shared by gemm_bias_act and gemm_dw (gemm_bf16.cu)
-// and gemm_i8 (gemm_i8.cu): TMA tile loads into a ring of shared-memory
+// Hopper GEMM main loop shared by gemm_bias_act, gemm_dx and gemm_dw
+// (gemm_bf16.cu) and gemm_i8 (gemm_i8.cu): TMA tile loads into a ring of shared-memory
 // stages, handed between one producer warp and the consumer warpgroups by
 // mbarrier pairs, and wgmma.mma_async on the staged tiles with one batch
 // kept in flight.
@@ -12,8 +12,9 @@
 //     products are done) → arrive on empty of the previous stage.
 //
 // Every staged row is 128 bytes (64 bf16 or 128 int8 along K for a K-major
-// operand; 64 bf16 along N for the MN-major B, or along M for gemm_dw's
-// MN-major A) under the TMA's 128-byte swizzle, which is the layout wgmma's
+// operand: A, the int8 W and gemm_dx's W (N, K); 64 bf16 along N for the
+// MN-major B, or along M for gemm_dw's MN-major A) under the TMA's 128-byte
+// swizzle, which is the layout wgmma's
 // B128 descriptors read: 8-row atoms of 1024 bytes.  Split-K (gemm_dw):
 // the K range is cut into chunks of whole k-tiles, and a work unit is one
 // output tile of one chunk, written to its own f32 slab of C.  TMA
@@ -22,7 +23,8 @@
 // epilogue works from the accumulator registers: f32(acc) [· a_scale[m] ·
 // w_scale[n] for int8] + bias → f32 pre-activation copy → none / erf /
 // tanh GELU → + residual (f32 or bf16) → f32 or bf16 out, two adjacent
-// columns a lane.
+// columns a lane; gemm_dx's form instead multiplies f32(acc) by gelu'(h),
+// h an f32 pre-activation read through the residual slot.
 //
 // Tensor maps are encoded on the host for every launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
@@ -268,19 +270,20 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "    \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
 
-// D(64x128 f32) += A(64x16) · B(16x128, MN-major: B's transpose bit); A
-// K-major, or MN-major (A's transpose bit) with TA = 1
-template <int TA>
+// D(64x128 f32) += A(64x16) · B(16x128); A K-major, or MN-major (A's
+// transpose bit) with TA = 1; B MN-major (B's transpose bit) with TB = 1,
+// or K-major (W (N, K) rows) with TB = 0
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HG_OPS64
-      ", %64, %65, p, 1, 1, %67, 1;\n"
+      ", %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : HG_R64("+f", d)
-      : "l"(da), "l"(db), "r"(1), "n"(TA));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // D(64x128 s32) += A(64x32 s8, K-major) · B(32x128 s8, K-major: W (N, K) rows)
@@ -296,8 +299,13 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
 }
 
 // Epilogue of one tile from the accumulators of warpgroup wg (rows m0 +
-// wg·64 ..) into C, masked at the M and N edges.
-template <Op OP, int NSUB>
+// wg·64 ..) into C, masked at the M and N edges.  DGELU (gemm_dx): no
+// bias or pre-activation copy, dropped at compile time (left to their
+// run-time null checks, gemm_dx's GELU-derivative product took 0.65 ms
+// instead of 0.41 at Stage-3 B=32, PERF.md); the residual slot holds h
+// (M, N) f32, and for ACT_DGELU_* the product is multiplied by gelu'(h)
+// instead of the activation and residual add.
+template <Op OP, int NSUB, bool DGELU = false>
 __device__ __forceinline__ void epilogue(
     const typename OpTraits<OP>::acc_t (&acc)[NSUB][64], int m0, int n0, int wg, int warp,
     int lane, void *C, int M, int N, const Epilogue &ep) {
@@ -309,12 +317,12 @@ __device__ __forceinline__ void epilogue(
   // QG = 2: two 128x128 blocks of 9 warps an SM leave 96 registers a
   // thread, and 4 groups spilled 2-4.5 KB a thread (PERF.md).
   constexpr int QG = 2;
-  const float *__restrict__ bias = ep.bias;
+  const float *__restrict__ bias = DGELU ? nullptr : ep.bias;
   const float *__restrict__ w_scale = ep.w_scale;
   const float *__restrict__ res32 =
       ep.res_bf16 ? nullptr : static_cast<const float *>(ep.residual);
   const bf16 *__restrict__ res16 = ep.res_bf16 ? static_cast<const bf16 *>(ep.residual) : nullptr;
-  float *__restrict__ pre = ep.pre;
+  float *__restrict__ pre = DGELU ? nullptr : ep.pre;
   float *__restrict__ out32 = ep.out_f32 ? static_cast<float *>(C) : nullptr;
   bf16 *__restrict__ out16 = ep.out_f32 ? nullptr : static_cast<bf16 *>(C);
   const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
@@ -372,8 +380,15 @@ __device__ __forceinline__ void epilogue(
           v1 += bv[qi].y;
           const size_t off = (size_t)r * N + c;
           if (pre) *reinterpret_cast<float2 *>(pre + off) = make_float2(v0, v1);
-          v0 = apply_act(v0, ep.act) + rv[qi][h].x;
-          v1 = apply_act(v1, ep.act) + rv[qi][h].y;
+          if constexpr (DGELU) {
+            if (ep.act != ACT_NONE) {
+              v0 *= gelu_grad(rv[qi][h].x, ep.act);
+              v1 *= gelu_grad(rv[qi][h].y, ep.act);
+            }
+          } else {
+            v0 = apply_act(v0, ep.act) + rv[qi][h].x;
+            v1 = apply_act(v1, ep.act) + rv[qi][h].y;
+          }
           if (out32)
             *reinterpret_cast<float2 *>(out32 + off) = make_float2(v0, v1);
           else
@@ -388,14 +403,16 @@ __device__ __forceinline__ void epilogue(
 // that takes the two maps as __grid_constant__ parameters.  For BF16, map_a
 // loads A (M, K) in (BM, 64) boxes — with A_MN, Aᵀ = X (K, M) in (64, 64)
 // boxes, one per consumer warpgroup — and map_b B (K, N) in (64, 64)
-// boxes; for S8, map_a loads A (M, K) in (BM, 128) boxes and map_b W (N, K)
-// in (BN, 128) boxes.  k_chunk (a multiple of BK unless it is K) cuts K
-// into splits: unit u is output tile u % tiles of split u / tiles, written
-// to slab u / tiles of C (M x N each).  Persistent: block b takes units b,
+// boxes, or with B_K (gemm_dx) W (N, K) in (BN, 64) boxes, read K-major
+// as the int8 W; for S8, map_a loads A (M, K) in (BM, 128) boxes and map_b
+// W (N, K) in (BN, 128) boxes.  B_K also selects gemm_dx's epilogue.
+// k_chunk (a multiple of BK unless it is K) cuts K into splits: unit u is
+// output tile u % tiles of split u / tiles, written to slab u / tiles of C
+// (M x N each).  Persistent: block b takes units b,
 // b + gridDim.x, … (N fastest), and the producer and consumers walk one
 // stage ring across them, so the loads of a unit's first k-tiles overlap
 // the previous unit's epilogue.
-template <Op OP, int BN, int NWG, int STAGES, bool A_MN = false>
+template <Op OP, int BN, int NWG, int STAGES, bool A_MN = false, bool B_K = false>
 __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtensorMap *map_b,
                                           void *__restrict__ C, int M, int N, int K, int k_chunk,
                                           const Epilogue &ep) {
@@ -442,7 +459,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
           } else {
             tma_load_2d(a, map_a, &full[s], k0, m0);
           }
-          if constexpr (OP == Op::BF16) {
+          if constexpr (OP == Op::BF16 && !B_K) {
 #pragma unroll
             for (int c = 0; c < BN / 64; ++c)  // 64-column chunks of B's 64 K-rows
               tma_load_2d(b + c * 64 * 128, map_b, &full[s], n0 + c * 64, k0);
@@ -483,11 +500,15 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
                                  : smem_desc(a + kk * 32, 16, 1024);
 #pragma unroll
         for (int j = 0; j < NSUB; ++j) {
-          if constexpr (OP == Op::BF16) {
+          if constexpr (OP == Op::BF16 && B_K) {
+            // K-major W: 32 bytes along each of its 128 N-rows per step
+            wgmma_bf16_n128<A_MN, 0>(acc[j], da, smem_desc(b + j * 128 * 128 + kk * 32, 16, 1024));
+          } else if constexpr (OP == Op::BF16) {
             // MN-major B: 16 K-rows further down per step; the 128 columns
             // are two 64-column chunks of 8 KB (lbo)
-            wgmma_bf16_n128<A_MN>(acc[j], da,
-                                  smem_desc(b + j * 2 * 64 * 128 + kk * 16 * 128, 64 * 128, 1024));
+            wgmma_bf16_n128<A_MN, 1>(acc[j], da,
+                                     smem_desc(b + j * 2 * 64 * 128 + kk * 16 * 128, 64 * 128,
+                                               1024));
           } else {
             wgmma_s8_n128(acc[j], da, smem_desc(b + j * 128 * 128 + kk * 32, 16, 1024));
           }
@@ -505,15 +526,17 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap *map_a, const CUtens
 #pragma unroll
     for (int j = 0; j < NSUB; ++j) fence_regs(acc[j]);
     if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last stage
-    epilogue<OP, NSUB>(acc, m0, n0, wg, warp, lane, static_cast<char *>(C) + u / tiles * slab,
-                       M, N, ep);
+    epilogue<OP, NSUB, B_K>(acc, m0, n0, wg, warp, lane,
+                            static_cast<char *>(C) + u / tiles * slab, M, N, ep);
   }
 }
 
 // Encode both maps and launch KERNEL<BN, NWG, STAGES> persistent: one block
 // for each work unit, at most MIN_BLOCKS an SM.  k_chunk: K elements a
-// split (K: no split); A_MN: A is given as X (K, M).
-template <Op OP, int BN, int NWG, int STAGES, bool A_MN = false, typename Kernel>
+// split (K: no split); A_MN: A is given as X (K, M); B_K: B is given as
+// W (N, K).
+template <Op OP, int BN, int NWG, int STAGES, bool A_MN = false, bool B_K = false,
+          typename Kernel>
 int launch(Kernel kernel, const void *A, const void *B, void *C, int M, int N, int K,
            const Epilogue &ep, cudaStream_t stream, int k_chunk = 0) {
   using T = Tile<OP, BN, NWG, STAGES>;
@@ -527,7 +550,9 @@ int launch(Kernel kernel, const void *A, const void *B, void *C, int M, int N, i
     if (!err) err = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, K, N, 64, 64);
   } else if constexpr (OP == Op::BF16) {
     err = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, M, K, T::BM, 64);
-    if (!err) err = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, K, N, 64, 64);
+    if (!err)
+      err = B_K ? encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, N, K, BN, 64)
+                : encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, K, N, 64, 64);
   } else {
     err = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, A, M, K, T::BM, 128);
     if (!err) err = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, B, N, K, BN, 128);

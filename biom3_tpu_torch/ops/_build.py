@@ -37,7 +37,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "b3_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "b3_gemm_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "b3_gemm_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_gemm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "b3_col_sum": [_P, _I, _I, _I, _P, _P, _I, _P],
     "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -179,7 +179,7 @@ def gemm_dx(dy: torch.Tensor, w: torch.Tensor, *, gelu_of: torch.Tensor | None =
     out = torch.empty((M, N), dtype=out_dtype, device=dy.device)
     _build.launch("b3_gemm_dx", _ptr(dy), _ptr(w), _ptr(gelu_of), _ptr(out), M, N, K,
                   _DGELU[gelu] if gelu_of is not None else 0, int(out_dtype == torch.float32),
-                  _stream(dy))
+                  int(gemm_dx_plan(M, N, _sm_count(dy.device.index)) == 128), _stream(dy))
     gemm_dx.launches += 1
     return out
 
@@ -189,6 +189,18 @@ def gemm_dx_plain(dy, w, *, gelu_of=None, gelu="erf", out_dtype=None):
     if gelu_of is not None:
         y = y * gelu_grad(gelu_of.float(), gelu)
     return y.to(out_dtype or dy.dtype)
+
+
+def gemm_dx_plan(rows: int, n: int, sms: int = 132) -> int:
+    """gemm_dx's tile rows: 128 (128x128, two consumer warpgroups) where
+    those tiles cover every SM, else 64 (64x128).  Both run two persistent
+    blocks an SM; the reduced dim is never split.  (A sweep of both tiles
+    at the Stage-3 products over 4096 and 32768 rows and the ESM2 ones
+    over 2048 and 4096 rows on an H100, PERF.md: the 128x128 tile won
+    every product whose tiles cover the SMs, the N = 512 ones included;
+    short of them, at N = 512 over 4096 rows, 64x128 won the K = 512
+    product by a third and the two stayed close at longer K.)"""
+    return 128 if -(-rows // 128) * -(-n // 128) >= sms else 64
 
 
 DW_MIN_KTILES = 64   # gemm_dw: least 64-row k-tiles a split sums (4096 rows)

@@ -10,23 +10,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the kernels from ``biom3_tpu_torch/csrc`` (seconds), then count
    the tensor-core and TMA instructions in each kernel's SASS
-   (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s and
-   ``gemm_dw``'s kernels must show HGMMA and ``gemm_i8``'s IGMMA,
-   ``flash_attention``'s, ``esm2_attention``'s and ``esm2_attention_bwd``'s
-   two passes HGMMA, all with UTMALDG loads and none with HMMA; a
-   ``[ptxas]`` line gives the attention kernels', their staging launches'
-   and ``gemm_dw``'s registers and spills (``nvcc -Xptxas -v``);
+   (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s,
+   ``gemm_dx``'s and ``gemm_dw``'s kernels must show HGMMA and
+   ``gemm_i8``'s IGMMA, ``flash_attention``'s, ``dense_attention``'s,
+   ``esm2_attention``'s and ``esm2_attention_bwd``'s two passes HGMMA, all
+   with UTMALDG loads, and no kernel of the library may show HMMA (the
+   ``mma.sync`` route); a ``[ptxas]`` line gives the attention kernels',
+   their staging launches' and the ``gemm_dx``/``gemm_dw`` kernels'
+   registers and spills (``nvcc -Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
    12 heads, FF 3072; ESM2-650M: L=1024, E=1280, 20 heads, FF 5120),
    timed at Stage-3 B=4 / BERT B=2 / ESM B=2 and checked also at the
    batches phase 5 gives them (2 replicas of 1 prompt), at phase 6's ESM
    batch (the 5 demo proteins) and on edge shapes (ragged tiles, ragged
-   PAD tails, an all-PAD row; for the three attention kernels on the
-   tensor cores also L = 1000 and 65, a 3-token protein, an all-PAD row at
-   a ragged L and head dim 32; for the training kernels edge windows,
-   local_heads 0 and = heads, head dim 64, ragged rows; ``gemm_dw`` must
-   also give the same bits on a second call): bf16
+   PAD tails, an all-PAD row; for the ESM2 and flash attention kernels
+   also L = 1000 and 65, a 3-token protein, an all-PAD row at a ragged L
+   and head dim 32; ``dense_attention`` at B = 1 and 16, L = 1, 65 and
+   100, head dims 32 and 64; for the training kernels edge windows,
+   local_heads 0 and = heads, head dim 64, ragged rows, ``gemm_dx`` also
+   at M < 64 and at N = 5120 with both GELU derivatives and both output
+   types; ``gemm_dx`` and ``gemm_dw`` must also give the same bits on a
+   second call): bf16
    max|Δ|/max|ref| <= 2e-2 (the attention gradients per head group: 32
    columns for Stage 3, 64 for ESM2), with the kernel's, the plain version's and, where one exists,
    one PyTorch call's time, and the least time the card could take; the
@@ -291,20 +296,22 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
-# kernel name fragment → the SASS its kernels must show: the forward GEMMs
-# and the tensor-core attention kernels on wgmma (HGMMA bf16, IGMMA int8)
-# fed by TMA (UTMALDG); none of them may show HMMA (the mma.sync route)
+# kernel name fragment → the SASS its kernels must show: the GEMMs and the
+# tensor-core attention kernels on wgmma (HGMMA bf16, IGMMA int8) fed by
+# TMA (UTMALDG); no kernel of the library may show HMMA (the mma.sync route)
 SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IGMMA", "UTMALDG"),
-              "gemm_dw_wgmma": ("HGMMA", "UTMALDG"), "flash_attn_wgmma": ("HGMMA", "UTMALDG"),
+              "gemm_dx_wgmma": ("HGMMA", "UTMALDG"), "gemm_dw_wgmma": ("HGMMA", "UTMALDG"),
+              "flash_attn_wgmma": ("HGMMA", "UTMALDG"), "dense_attn_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG")}
 # kernels whose registers and spills the build prints (``ptxas.txt``),
-# each in two instantiations: head dims 32 and 64, or gemm_dw's two tiles
-PTXAS_SHOW = ("flash_attn_wgmma_kernel", "esm2_attn_wgmma_kernel", "esm2_attn_stage_kernel",
-              "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel", "esm2_bwd_stage_kernel",
-              "gemm_dw_wgmma")
-# kernels whose output must not change from call to call (no atomics)
-DETERMINISTIC = {"gemm_dw"}
+# each in two instantiations: head dims 32 and 64, or the GEMM's two tiles
+PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_wgmma_kernel",
+              "esm2_attn_stage_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
+              "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma")
+# kernels whose output must not change from call to call (no split sums
+# in another order, no atomics)
+DETERMINISTIC = {"gemm_dx", "gemm_dw"}
 
 
 def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
@@ -341,13 +348,14 @@ def phase_build() -> None:
     say("build", f"nvcc built {_build.LIB_PATH.name} in {info['seconds']:.1f} s "
                  f"(per-kernel registers and spills: {_build.PTXAS_REPORT})")
     sass = sass_counts(_build.LIB_PATH)
+    print("[sass] " + json.dumps(sass), flush=True)
     for frag, ops in SASS_NEEDS.items():
         kernels = {name: c for name, c in sass.items() if frag in name}
         if not kernels or any(not c[op] for c in kernels.values() for op in ops):
             raise AssertionError(f"{frag}: no {'/'.join(ops)} in its SASS: {kernels}")
-        if any(c["HMMA"] for c in kernels.values()):
-            raise AssertionError(f"{frag}: HMMA (mma.sync) in its SASS: {kernels}")
-    print("[sass] " + json.dumps(sass), flush=True)
+    hmma = {name: c["HMMA"] for name, c in sass.items() if c["HMMA"]}
+    if hmma:
+        raise AssertionError(f"HMMA (mma.sync) in the SASS of {hmma}")
     usage = ptxas_usage(_build.PTXAS_REPORT.read_text())
     if len(usage) != 2 * len(PTXAS_SHOW):   # each kernel in two instantiations
         raise AssertionError(f"ptxas report lacks kernels of PTXAS_SHOW: {sorted(usage)}")
@@ -636,11 +644,12 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
 
 def edge_cases(g) -> dict[str, list]:
     """Shapes off the main path that the kernels' tiling must still get
-    right: a GEMM with M, N, K off the 128x128x32 tile, a smaller window,
-    lengths (1000, 65) that leave ragged query and key tiles, ragged PAD
-    tails down to a 3-token protein, an all-PAD row (also at a ragged
-    length), head dim 32, bf16 LayerNorm rows off the 8-row block and a
-    width off the 256-column stride."""
+    right: a GEMM with M, N, K off the 128x128x64 tile and M under one
+    64-row tile, a smaller window, lengths (1000, 100, 65, 1) that leave
+    ragged query and key tiles, ragged PAD tails down to a 3-token
+    protein, an all-PAD row (also at a ragged length), head dim 32, batches
+    of 1 and 16, bf16 LayerNorm rows off the 8-row block and a width off
+    the 256-column stride."""
     import torch
 
     from biom3_tpu_torch.ops import kernels as K
@@ -658,6 +667,17 @@ def edge_cases(g) -> dict[str, list]:
     a, w, r = rnd(1000, 264), rnd(264, 200, scale=264 ** -0.5), rnd(1000, 200)
     bias = 0.1 * torch.randn(200, generator=g, device=dev)
     q3, qd = rnd(2, 256, 1536), rnd(3, 200, 2304)
+    # BERT's attention at the e2e prompt's batch (1) and PenCL's (16),
+    # lengths off the 64-row tiles down to one token, head dims 64 and 32
+    dense = [(rnd(b, n, 3 * 12 * dh), 12) for b in (1, 16) for n in (1, 65, 100)
+             for dh in (32, 64)]
+    # gemm_dx: ragged M (1000, and 37 < 64 rows) at the ESM2 FF width N =
+    # 5120 with each GELU derivative and each output type
+    dx_esm = [pair("gemm_dx", rnd(m, 1280), rnd(5120, 1280, scale=1280 ** -0.5),
+                   gelu_of=torch.randn(m, 5120, generator=g, device=dev), gelu=gelu,
+                   out_dtype=out)
+              for m, gelu, out in ((1000, "erf", bf), (1000, "tanh", torch.float32),
+                                   (37, "tanh", bf), (37, "erf", torch.float32))]
     kw = dict(act="erf", residual=r, out_dtype=torch.float32)
     Le = 1000
     ids = esm_ids([Le, 517, 3], Le, g)
@@ -720,8 +740,8 @@ def edge_cases(g) -> dict[str, list]:
         "stage3_attention_core": [
             (lambda: K.stage3_attention_core(q3, heads=16, local_heads=8, window=64),
              lambda: K.stage3_attention_core_plain(q3, heads=16, local_heads=8, window=64))],
-        "dense_attention": [(lambda: K.dense_attention(qd, heads=12),
-                             lambda: K.dense_attention_plain(qd, heads=12))],
+        "dense_attention": [pair("dense_attention", qd, heads=12),
+                            *(pair("dense_attention", x, heads=h) for x, h in dense)],
         "layernorm": [(lambda: K.layernorm(xl, *ln, eps=1e-5, out_dtype=bf, want_f32=True),
                        lambda: K.layernorm_plain(xl, *ln, eps=1e-5, out_dtype=bf,
                                                  want_f32=True))],
@@ -762,7 +782,10 @@ def edge_cases(g) -> dict[str, list]:
         "gemm_dx": [pair("gemm_dx", rnd(1000, 264), rnd(200, 264, scale=264 ** -0.5),
                          gelu_of=torch.randn(1000, 200, generator=g, device=dev),
                          out_dtype=torch.float32),
-                    pair("gemm_dx", rnd(1000, 200), rnd(264, 200, scale=200 ** -0.5))],
+                    pair("gemm_dx", rnd(1000, 200), rnd(264, 200, scale=200 ** -0.5)),
+                    pair("gemm_dx", rnd(37, 200), rnd(264, 200, scale=200 ** -0.5),
+                         out_dtype=torch.float32),
+                    *dx_esm],
         "gemm_dw": [pair("gemm_dw", rnd(1000, 264), rnd(1000, 200)),
                     pair("gemm_dw", rnd(37, 264), rnd(37, 200)),
                     pair("gemm_dw", rnd(8191, 264), rnd(8191, 200))],

@@ -4,7 +4,8 @@
 against the JAX kernel in interpret mode, at ``tests/test_bert_stack.py``'s
 config and tolerance (atol 3e-4, rtol 1e-3).  The plain modules (BERT
 tower + projection head, Facilitator) are held against their Flax twins
-through ``io/from_jax.py``.
+through ``io/from_jax.py``, and ``dense_attention``'s plain version (the
+tower's unmasked heads) against the JAX package's ``full_attention``.
 """
 
 import numpy as np
@@ -17,12 +18,14 @@ from biom3_tpu.config import BertConfig, ESM2Config, FacilitatorConfig, PenCLCon
 from biom3_tpu.models.bert import BertEncoder as JaxBert
 from biom3_tpu.models.facilitator import Facilitator as JaxFacilitator
 from biom3_tpu.models.pencl import PenCL
+from biom3_tpu.ops.attention import full_attention as jax_full_attention
 from biom3_tpu.ops.pallas.bert_stack_tpu import (
     bert_embed as jax_bert_embed,
     bert_stack_arrays as jax_bert_stack_arrays,
     fused_bert_cls as jax_fused_bert_cls,
 )
 from biom3_tpu_torch.io.from_jax import facilitator_from_jax, pencl_text_from_jax, port_config
+from biom3_tpu_torch.ops import kernels
 from biom3_tpu_torch.ops.bert_stack import bert_embed, bert_stack_arrays, fused_bert_cls
 
 CFG = BertConfig(num_layers=2, hidden_size=128, num_heads=2,
@@ -66,6 +69,22 @@ def test_fused_bert_cls_matches_jax(pencl, gelu):
         got = fused_bert_cls(x0_t, **bert_stack_arrays(port.bert, torch.float32),
                              heads=CFG.num_heads, gelu=gelu).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("L", [64, 100])
+@pytest.mark.parametrize("Dh", [32, 64])
+def test_dense_attention_plain_matches_jax(Dh, L):
+    """The wrapper on CPU tensors (its plain version) vs ``full_attention``
+    with no mask in f32 on the same q/k/v: head dims 32 and 64, a length
+    on and one off the kernel's 64-row tiles."""
+    rng = np.random.default_rng(6)
+    B, H = 2, 3
+    q, k, v = (rng.standard_normal((B, H, L, Dh)).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    want = want.transpose(0, 2, 1, 3).reshape(B, L, H * Dh)
+    qkv = np.concatenate([t.transpose(0, 2, 1, 3).reshape(B, L, H * Dh) for t in (q, k, v)], -1)
+    got = kernels.dense_attention(torch.from_numpy(qkv), heads=H).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
 
 
 def test_plain_bert_and_encode_text_match_flax(pencl):

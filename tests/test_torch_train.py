@@ -171,13 +171,19 @@ def test_layernorm_bwd_plain_is_the_gradient():
     np.testing.assert_allclose(db.numpy(), want[2].numpy(), **PLAIN_TOL)
 
 
-@pytest.mark.parametrize("gelu", ["erf", "tanh"])
-def test_gemm_backward_plains_are_the_gradients(gelu):
+# (gelu, rows, d, ff): the FF sub-block's widths; "tanh-esm-ragged" has an
+# ESM2-like 1:4 FF ratio and a row count off every tile
+@pytest.mark.parametrize("gelu, rows, d, ff", [
+    pytest.param("erf", 40, 16, 32, id="erf"),
+    pytest.param("tanh", 40, 16, 32, id="tanh"),
+    pytest.param("tanh", 37, 40, 160, id="tanh-esm-ragged"),
+])
+def test_gemm_backward_plains_are_the_gradients(gelu, rows, d, ff):
     """gemm_dx (with the GELU-derivative epilogue), gemm_dw and col_sum
-    against autograd of gemm_bias_act_plain."""
+    against autograd of gemm_bias_act_plain through x·W1 → GELU → ·W2."""
     rng = np.random.default_rng(5)
-    a, w, bias = (_t(x, grad=True) for x in (_np(rng, 40, 24), _np(rng, 24, 32), _np(rng, 32)))
-    w2, dy = _t(_np(rng, 32, 16)), _t(_np(rng, 40, 16))
+    a, w, bias = (_t(x, grad=True) for x in (_np(rng, rows, 24), _np(rng, 24, ff), _np(rng, ff)))
+    w2, dy = _t(_np(rng, ff, d)), _t(_np(rng, rows, d))
     y, h = K.gemm_bias_act_plain(a, w, bias, act=gelu, want_pre=True)
     ga, gw, gb = torch.autograd.grad(K.gemm_bias_act_plain(y, w2), (a, w, bias), dy)
     dh = K.gemm_dx(dy, w2, gelu_of=h.detach(), gelu=gelu)
@@ -206,6 +212,20 @@ def test_gemm_dw_split_rule_covers_every_row_once(rows, k, n, sms):
     tiles = -(-k // bm) * -(-n // 128)
     assert splits == 1 or tiles * splits <= 2 * sms
     assert splits == 1 or chunk >= K.DW_MIN_KTILES * 64
+
+
+# (rows, n, sms, tile rows): the Stage-3 and ESM2 products' outputs and the
+# tile each measured fastest with on an H100 (PERF.md), then the rule's edge
+@pytest.mark.parametrize("rows, n, sms, bm", [
+    (4096, 512, 132, 64), (4096, 2048, 132, 128), (32768, 512, 132, 128),
+    (32768, 2048, 132, 128), (2048, 1280, 132, 128), (2048, 5120, 132, 128),
+    (4096, 1280, 132, 128), (37, 5120, 132, 64), (1000, 200, 132, 64),
+    (4224, 512, 132, 128), (4223, 512, 132, 128), (4096, 512, 128, 128),
+])
+def test_gemm_dx_tile_rule(rows, n, sms, bm):
+    """gemm_dx takes 128x128 tiles exactly where they cover every SM."""
+    assert K.gemm_dx_plan(rows, n, sms) == bm
+    assert (bm == 128) == (-(-rows // 128) * -(-n // 128) >= sms)
 
 
 # --- the model, the objective and the whole loss gradient -------------------
