@@ -1,6 +1,6 @@
 """The attention kernels that run on the tensor cores, on one CUDA card:
-``flash_attention``, ``esm2_attention``, ``esm2_attention_bwd`` and
-``dense_attention``.
+``flash_attention``, ``esm2_attention``, ``esm2_attention_bwd``,
+``dense_attention`` and ``local_window_attention``.
 
     python -m biom3_tpu_torch.cli.measure_attention [--iters 50] [--out build/measure_attention.json]
 
@@ -11,18 +11,25 @@ with a PAD tail): each kernel is held against its plain version
 group), then timed by CUDA events beside one PyTorch call of the same
 function (``scaled_dot_product_attention`` with the key mask; for the
 ESM2 kernels on the already-rotated q, k, the rotation left out, and for
-the gradient autograd through it, the graph built once).  Reported: ms per call, TFLOP/s on the FLOPs the function needs
-(4·Dh per (query, live key) pair forward, 10·Dh backward; the backward
-kernel's own work, 18·Dh, beside it), the least time the card could take
-(``bound_ms``: those FLOPs at 989 TFLOP/s, or the bytes at 3.35 TB/s if
-larger), its share of the kernel's time, and the kernel's time over the
-library call's; and each kernel launch's device ms per call from
-``torch.profiler`` (the gradient's staging launch and its two passes
-apart, as the forward's staging and its sweep).  ``dense_attention``
+the gradient autograd through it, the graph built once).  Reported: ms
+per call, TFLOP/s on the FLOPs the function needs (4·Dh per (query, live
+key) pair forward, 10·Dh backward; the backward kernel's own work, 18·Dh,
+beside it), the least time the card could take (``bound_ms``: those FLOPs
+at 989 TFLOP/s, or the bytes at 3.35 TB/s if larger), its share of the
+kernel's time, and the kernel's time over the library call's; the
+wrapper's host µs per call (the enqueue); and each kernel launch's device
+ms per call from ``torch.profiler`` (the gradient's staging launch and its
+two passes apart, as the forward's staging and its sweep).  ``dense_attention``
 (the BERT tower's unmasked heads) is measured the same way at BERT's
 width (L = 512, 12 heads of 64) at B=2, phase 3's timed batch, and B=16,
-PenCL's, beside SDPA with no mask.  Prints one JSON object with the
-card's name and power limit and writes it to ``--out``.
+PenCL's, beside SDPA with no mask.  ``local_window_attention`` (bf16)
+is measured at phase 3's shape (B=4, 8 heads, L=1024, head dim 32, W=128)
+and at Stage-3 B=32, beside SDPA with the boolean (L, L) band mask, its
+FLOPs 4·Dh per (query, band key) pair; then the ``stage3_graph`` path's
+forward, ``ProteoScribe(attn_impl="kernel")`` in bf16 at full width on
+seeded weights, at B=2 and B=32: ms per forward by CUDA events and a
+device profile by kernel.  Prints one JSON object with the card's name and
+power limit and writes it to ``--out``.
 
 Two versions in one call (the same card): run this file from another
 checkout's root with that checkout first on the path, e.g.
@@ -47,11 +54,13 @@ PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
 B, H, L, DH = 2, 20, 1024, 64
 LENGTHS = (1024, 400)
 BERT_L, BERT_H, BERT_BATCHES = 512, 12, (2, 16)
+LOCAL_H, LOCAL_DH, LOCAL_W, LOCAL_BATCHES = 8, 32, 128, (4, 32)   # Stage 3's band heads
+GRAPH_BATCHES = (2, 32)
 # kernel name fragment → its name in the profile breakdown
 LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
             ("esm2_bwd_dkv", "pass2_dkv"), ("flash_attn", "flash"),
             ("esm2_attn_stage", "fwd_stage"), ("esm2_attn", "fwd_sweep"),
-            ("dense_attn", "dense"))
+            ("dense_attn", "dense"), ("local_attn", "local"))
 
 
 def rel_err(got, want, group: int = 0) -> float:
@@ -128,7 +137,66 @@ def cases(g) -> dict[str, dict]:
             "flops": 10 * H * pairs * DH, "work_flops": 18 * H * pairs * DH,
             "bytes": nbytes(qkv, da, pad, cos, sin) + nbytes(qkv), "group": DH},
         **{f"dense_attention_B{b}": dense(b) for b in BERT_BATCHES},
+        **{f"local_window_attention_B{b}": local(b, g) for b in LOCAL_BATCHES},
     }
+
+
+def band_pairs(b: int, L: int, window: int, heads: int) -> int:
+    """(query, key) pairs of the band: each window's queries see windows
+    w-1..w+1 that exist."""
+    nw = L // window
+    keys = sum(min(nw, w + 2) - max(0, w - 1) for w in range(nw)) * window
+    return b * heads * window * keys
+
+
+def local(b: int, g) -> dict:
+    """``local_window_attention`` at Stage-3 batch b beside SDPA with the
+    boolean (L, L) band mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    q, k, v = (torch.randn(b, LOCAL_H, L, LOCAL_DH, generator=g, device=g.device).bfloat16()
+               for _ in range(3))
+    win = torch.arange(L, device=g.device) // LOCAL_W
+    band = (win[:, None] - win[None, :]).abs() <= 1
+    flops = 4 * LOCAL_DH * band_pairs(b, L, LOCAL_W, LOCAL_H)
+    return {"run": lambda: K.local_window_attention(q, k, v, window=LOCAL_W),
+            "plain": lambda: K.local_window_attention_plain(q, k, v, window=LOCAL_W),
+            "lib": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band),
+            "flops": flops, "work_flops": flops, "bytes": nbytes(q, k, v, q), "group": 0}
+
+
+def graph_forward(iters: int) -> dict:
+    """The ``stage3_graph`` path: ``ProteoScribe(attn_impl="kernel")`` in
+    bf16 at full width (seeded weights), ms per forward at each batch of
+    ``GRAPH_BATCHES`` by CUDA events, and a device profile by kernel."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms, profile_ms
+    from biom3_tpu_torch.config import ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+
+    dev = torch.device("cuda")
+    cfg = ProteoScribeConfig()
+    graph = ProteoScribe(cfg, attn_impl="kernel", dtype=torch.bfloat16)
+    graph.load_state_dict(seeded_init_(ProteoScribe(cfg), 0).state_dict())
+    graph = graph.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for b in GRAPH_BATCHES:
+        ids = torch.randint(0, cfg.num_classes, (b, cfg.max_seq_len), generator=g, device=dev)
+        t = torch.randint(0, cfg.num_timesteps, (b,), generator=g, device=dev)
+        z = torch.randn((b, cfg.cond_dim), generator=g, device=dev)
+
+        @torch.no_grad()
+        def forward(ids=ids, t=t, z=z):
+            return graph(ids, t, z)
+
+        out[f"B{b}"] = {"ms": event_ms(forward, iters), "profile": profile_ms(forward)}
+    return out
 
 
 def launch_ms(fn, calls: int = 10) -> dict[str, float]:
@@ -154,6 +222,7 @@ def launch_ms(fn, calls: int = 10) -> dict[str, float]:
 
 
 def measure(case: dict, iters: int) -> dict:
+    from biom3_tpu_torch.cli.measure_gemm import host_us
     from biom3_tpu_torch.cli.measure_pencl import event_ms
 
     err = rel_err(case["run"](), case["plain"](), case["group"])
@@ -165,7 +234,7 @@ def measure(case: dict, iters: int) -> dict:
     return {"max_rel_err": err, "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "tflops": case["flops"] / ms * 1e-9, "work_tflops": case["work_flops"] / ms * 1e-9,
             "bound_share": bound_ms / ms, "over_library": ms / library_ms,
-            "launch_ms": launch_ms(case["run"])}
+            "launch_ms": launch_ms(case["run"]), "host_us": host_us(case["run"])}
 
 
 def parse_arguments(argv=None):
@@ -193,6 +262,8 @@ def main(argv=None) -> None:
     for name, case in cases(g).items():
         result[name] = measure(case, args.iters)
         print(f"{name}: {json.dumps(result[name])}", flush=True)
+    result["stage3_graph_forward"] = graph_forward(5)
+    print(f"stage3_graph_forward: {json.dumps(result['stage3_graph_forward'])}", flush=True)
     text = json.dumps(result)
     print(text)
     if args.out:

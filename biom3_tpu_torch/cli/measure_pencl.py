@@ -58,7 +58,8 @@ KERNEL_GROUPS = (("gemm_bias_act_wgmma", "gemm_bias_act"), ("gemm_i8_wgmma", "ge
                  ("linear_heads_kernel", "stage3_attention_core"),
                  ("local_dq_kernel", "stage3_attention_bwd"),
                  ("local_dkv_kernel", "stage3_attention_bwd"),
-                 ("lin_bwd", "stage3_attention_bwd"), ("col_sum", "col_sum"))
+                 ("lin_bwd", "stage3_attention_bwd"), ("col_sum", "col_sum"),
+                 ("local_attn", "local_window_attention"))
 
 
 def stage1_config(root: pathlib.Path) -> dict:

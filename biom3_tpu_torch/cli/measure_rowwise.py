@@ -1,0 +1,194 @@
+"""The row-wise kernels on one CUDA card: ``layernorm``.
+
+    python -m biom3_tpu_torch.cli.measure_rowwise [--iters 50] [--out build/measure_rowwise.json]
+        [--bits-out FILE | --bits-against FILE]
+
+At ``chip_smoke.py`` phase 3's five LayerNorm calls (Stage-3 FF pre-norm
+at B=4, 4096 x 512, f32 in, bf16 out, eps 1e-6; BERT's post-norm at B=2,
+1024 x 768, f32 in, bf16 and f32 out, eps 1e-12; ESM2-650M at B=2, 2048 x
+1280: LN1 on the bf16 residual, LN2 on the f32 one, and the final norm on
+2 CLS rows with its f32 copy, eps 1e-5) and at the sizes where the card is
+busy: Stage-3 B=32 (32768 x 512, f32 in, bf16 out) and ESM2 B=16 (16384 x
+1280, bf16); and past the 1280 columns the kernel holds in registers, on
+its shared-memory route: ESM2-3B's LN1 at B=16 (16384 x 2560, bf16) and a
+Stage-3 dim of 4096 at B=32 (32768 x 4096, f32 in, bf16 out).  Each call is held against its plain version
+(max|Δ|/max|ref| <= 2e-2), then timed: ms per call by CUDA events, device
+ms per launch from ``torch.profiler``, the wrapper's host µs per call
+(the enqueue), and the same for ``F.layer_norm`` on the same rows (γ and
+β in the input's dtype; it writes the input's dtype: f32 where the kernel
+writes bf16).  Reported beside them: the least time the card could take
+(``bound_ms``: each input read once and each output written once at
+3.35 TB/s, or 8 FLOP an element at 989 TFLOP/s if larger) and its share
+of the kernel's device time, and the library call's own bound (it writes
+the input's dtype, so f32 rows cost it twice the kernel's output bytes).  Prints one JSON object with the card's name
+and power limit and writes it to ``--out``.
+
+``--bits-out FILE`` saves a SHA-256 of every output's bytes for the same
+seeded inputs, as JSON; ``--bits-against FILE`` reports which outputs
+differ from that file's.  Two versions in one call (the same card): run
+this file from another checkout's root with that checkout first on the
+path, e.g. ``cd parent && PYTHONPATH=. python
+../biom3_tpu_torch/cli/measure_rowwise.py --bits-out b.json``, then this
+checkout's with ``--bits-against b.json``.  Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+REL_TOL = 2e-2
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
+SEED = 0
+
+
+def cases(g) -> dict[str, dict]:
+    """Name → {"run", "plain", "lib", "flops", "bytes"} on ``g``'s device."""
+    import torch
+    import torch.nn.functional as F
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    dev, bf, f32 = g.device, torch.bfloat16, torch.float32
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=g, device=dev)).float()
+
+    def ln(rows, d, x_dtype, eps, want_f32=False):
+        x, s, t = rnd(rows, d, dtype=x_dtype, scale=3.0), vec(d, 1.0), vec(d)
+        ws, bs = s.to(x_dtype), t.to(x_dtype)
+        kw = dict(eps=eps, out_dtype=bf, want_f32=want_f32)
+        x_bytes = x.numel() * x.element_size()
+        return {"run": lambda: K.layernorm(x, s, t, **kw),
+                "plain": lambda: K.layernorm_plain(x, s, t, **kw),
+                "lib": lambda: F.layer_norm(x, (d,), ws, bs, eps),
+                "flops": 8 * rows * d,
+                "bytes": x_bytes + 8 * d + rows * d * (2 + 4 * want_f32),
+                "lib_bytes": 2 * x_bytes + 2 * d * x.element_size()}
+
+    return {
+        "stage3_b4_ff_prenorm": ln(4 * 1024, 512, f32, 1e-6),
+        "bert_b2_postnorm": ln(2 * 512, 768, f32, 1e-12, want_f32=True),
+        "esm2_b2_ln1": ln(2 * 1024, 1280, bf, 1e-5),
+        "esm2_b2_ln2": ln(2 * 1024, 1280, f32, 1e-5),
+        "esm2_cls_norm": ln(2, 1280, bf, 1e-5, want_f32=True),
+        "stage3_b32_ff_prenorm": ln(32 * 1024, 512, f32, 1e-6),
+        "esm2_b16_ln1": ln(16 * 1024, 1280, bf, 1e-5),
+        "esm2_3b_b16_ln1": ln(16 * 1024, 2560, bf, 1e-5),
+        "stage3_d4096_b32_ff_prenorm": ln(32 * 1024, 4096, f32, 1e-6),
+    }
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device ms per call of ``fn``: its device events' time
+    (``torch.profiler``), summed over the kernels it launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type != DeviceType.CPU) / calls / 1e3
+
+
+def flat(x) -> list:
+    return [t for item in x for t in flat(item)] if isinstance(x, tuple) else [x]
+
+
+def measure(case: dict, iters: int) -> dict:
+    from biom3_tpu_torch.cli.measure_gemm import host_us
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+
+    got, want = flat(case["run"]()), flat(case["plain"]())
+    err = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+              for a, b in zip(got, want))
+    if not all(bool(a.isfinite().all()) for a in got) or err > REL_TOL:
+        raise AssertionError(f"max|Δ|/max|ref| = {err:.3e} > {REL_TOL}, or non-finite")
+    ms, dev_ms = event_ms(case["run"], iters), device_ms(case["run"])
+    lib_ms, lib_dev_ms = event_ms(case["lib"], iters), device_ms(case["lib"])
+    t_ops, t_bytes = case["flops"] / PEAK_BF16 * 1e3, case["bytes"] / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    lib_bound_ms = max(t_ops, case["lib_bytes"] / PEAK_BYTES * 1e3)
+    return {"max_rel_err": err, "ms": ms, "device_ms": dev_ms, "host_us": host_us(case["run"]),
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "library_host_us": host_us(case["lib"]), "library_bound_ms": lib_bound_ms,
+            "library_bound_share_device": lib_bound_ms / lib_dev_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share_device": bound_ms / dev_ms, "bytes": case["bytes"]}
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's dtype, shape and bytes."""
+    import hashlib
+
+    import torch
+
+    data = t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes()
+    return hashlib.sha256(f"{t.dtype} {tuple(t.shape)} ".encode() + data).hexdigest()
+
+
+def outputs(g) -> dict[str, list[str]]:
+    """Every case's outputs' digests, for a bits comparison."""
+    return {name: [digest(t) for t in flat(case["run"]())] for name, case in cases(g).items()}
+
+
+def parse_arguments(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--out", type=str, default=None)
+    bits = p.add_mutually_exclusive_group()
+    bits.add_argument("--bits-out", type=str, default=None,
+                      help="save digests of the seeded cases' outputs here (JSON)")
+    bits.add_argument("--bits-against", type=str, default=None,
+                      help="report which outputs differ from this file's")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    import torch
+
+    from biom3_tpu_torch.ops import _build
+    from biom3_tpu_torch.ops import kernels as K
+
+    args = parse_arguments(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("measure_rowwise needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    _build.library()
+    result = {"card": smi, "package": str(pathlib.Path(K.__file__).resolve().parents[1]),
+              "torch": torch.__version__}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, case in cases(g).items():
+        result[name] = measure(case, args.iters)
+        print(f"{name}: {json.dumps(result[name])}", flush=True)
+    if args.bits_out or args.bits_against:
+        got = outputs(torch.Generator(device="cuda").manual_seed(SEED + 1))
+        if args.bits_out:
+            pathlib.Path(args.bits_out).write_text(json.dumps(got))
+        else:
+            ref = json.loads(pathlib.Path(args.bits_against).read_text())
+            result["bits_differ"] = sorted(name for name in ref if got.get(name) != ref[name])
+            print(f"bits against {args.bits_against}: {len(ref)} outputs, differ: "
+                  f"{result['bits_differ']}", flush=True)
+    text = json.dumps(result)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        pathlib.Path(args.out).write_text(text + "\n")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

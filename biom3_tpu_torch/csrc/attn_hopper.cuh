@@ -1,6 +1,7 @@
 // Tensor-core softmax attention for Hopper, shared by flash_attention
 // (flash_attn.cu), dense_attention (dense_attn.cu), esm2_attention
-// (esm2_attn.cu) and esm2_attention_bwd (esm2_attn_bwd.cu): head dim 64
+// (esm2_attn.cu), esm2_attention_bwd (esm2_attn_bwd.cu) and the bf16
+// local_window_attention (local_attn.cu, a band of keys): head dim 64
 // tiles in shared memory loaded by TMA, products on wgmma, an online f32
 // softmax in the accumulator registers.
 //
@@ -189,17 +190,48 @@ __device__ __forceinline__ uint64_t pad_mask(const int *__restrict__ key_pad, in
   return (uint64_t)hi << 32 | lo;
 }
 
+// Key bands.  NoBand: every key < L is a key of every query row.
+// WindowBand: the row of window w = row / W sees keys [(w−1)·W, (w+2)·W)
+// only (local_window_attention's three windows; keys past L and before 0
+// fall away on their own), the rest score −inf.  The sweep also skips a
+// key tile outside every row of its warpgroup.
+struct NoBand {
+  static constexpr bool kBand = false;
+  __device__ __forceinline__ bool masked(int, int) const { return false; }
+};
+
+struct WindowBand {
+  static constexpr bool kBand = true;
+  int lo[2];            // first key of this thread's two rows' bands (may be −W)
+  unsigned span;        // 3W keys a band
+  int wg_lo, wg_hi;     // the union of the warpgroup's valid rows' bands
+  // row0: the warpgroup's first query row.
+  __device__ __forceinline__ WindowBand(int row0, int window, int L, int warp, int lane)
+      : span(3u * window) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lo[h] = ((row0 + acc_row(h, warp, lane)) / window - 1) * window;
+    const int last = min(row0 + TILE, L) - 1;   // < row0: no valid row, no tile
+    wg_lo = (row0 / window - 1) * window;
+    wg_hi = last < row0 ? wg_lo : (last / window + 2) * window;
+  }
+  __device__ __forceinline__ bool masked(int h, int key) const {
+    return (unsigned)(key - lo[h]) >= span;
+  }
+  __device__ __forceinline__ bool touches(int k0) const { return k0 < wg_hi && k0 + TILE > wg_lo; }
+};
+
 // Scores of a (64 queries x 64 keys) tile at k0 → log2 units in place:
 // s·scale, a PAD key at −1e9 (FILL: the score replaced, as a masked fill;
 // else −1e9 added, as the ESM2 kernels add their pad bias), a key >= L at
-// −inf (excluded: it is not a key of the head).  The products are rounded
+// −inf (excluded: it is not a key of the head), as is a key outside the
+// row's band.  The products are rounded
 // (__fmul_rn, never contracted into an FMA), so a kernel that recomputes a
 // score gets the same f32 value: an all-PAD row's scores sit near
 // −1.44e9, where the f32 spacing is 128, and an unrounded product would
 // move exp2(s − m) by up to 2^64.
-template <bool FILL>
+template <bool FILL, class Band = NoBand>
 __device__ __forceinline__ void mask_scores(float (&s)[32], uint64_t pad, int k0, int L,
-                                            float scale, int lane) {
+                                            float scale, int lane, const Band &band = Band{}) {
 #pragma unroll
   for (int q = 0; q < 8; ++q)
 #pragma unroll
@@ -211,7 +243,7 @@ __device__ __forceinline__ void mask_scores(float (&s)[32], uint64_t pad, int k0
         float &v = s[4 * q + 2 * h + e];
         float x = __fmul_rn(v, scale);
         if (is_pad) x = FILL ? MASKED : x + MASKED;
-        v = out ? -INFINITY : __fmul_rn(x, LOG2E);
+        v = out || band.masked(h, k0 + c) ? -INFINITY : __fmul_rn(x, LOG2E);
       }
     }
 }
@@ -219,32 +251,40 @@ __device__ __forceinline__ void mask_scores(float (&s)[32], uint64_t pad, int k0
 // Online-softmax step of one tile for this thread's two rows: raise the
 // running max m (log2 units) by the tile's row max, return each row's
 // correction factor exp2(m_old − m_new) and turn s into p̃ = exp2(s − m).
-// Every tile holds a key < L, so the row max is finite.
+// Without a band every tile holds a key < L, so the row max is finite.
+// BAND: a row may have seen no key of its band yet (m = −inf); it then
+// takes 0 as its reference, so p̃ = 0 and corr = 0, not NaN.
+template <bool BAND = false>
 __device__ __forceinline__ void online_step(float (&s)[32], float (&m)[2], float (&corr)[2]) {
+  float ref[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
 #pragma unroll
     for (int q = 0; q < 8; ++q) mx = fmaxf(mx, fmaxf(s[4 * q + 2 * h], s[4 * q + 2 * h + 1]));
     const float mn = fmaxf(m[h], quad_max(mx));
-    corr[h] = exp2f(m[h] - mn);  // 0 on the first tile (m = −inf)
+    ref[h] = BAND && mn == -INFINITY ? 0.f : mn;
+    corr[h] = exp2f(m[h] - ref[h]);  // 0 on the first tile (m = −inf)
     m[h] = mn;
   }
 #pragma unroll
   for (int q = 0; q < 8; ++q)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[4 * q + i] = exp2f(s[4 * q + i] - m[i / 2]);
+    for (int i = 0; i < 4; ++i) s[4 * q + i] = exp2f(s[4 * q + i] - ref[i / 2]);
 }
 
-// The forward sweep of one warpgroup over key tiles [0, tiles) of a ring
-// of (K, V) stages: o = Σ p̃·V and l = Σ p̃ (quad-summed, f32) for this
-// thread's two rows, p̃ = exp2(s − m) rounded to bf16 for P·V.  q_tile:
-// the warpgroup's 64 query rows; stage t % STAGES holds K at +0 and V at
-// +TILE_BYTES; lane 0 of each warp arrives on empty once a stage is used.
-template <int STAGES, bool FILL>
+// The forward sweep of one warpgroup over the key tiles at k_lo + t·TILE,
+// t in [0, tiles), of a ring of (K, V) stages: o = Σ p̃·V and l = Σ p̃
+// (quad-summed, f32) for this thread's two rows, p̃ = exp2(s − m) rounded
+// to bf16 for P·V.  q_tile: the warpgroup's 64 query rows; stage
+// t % STAGES holds K at +0 and V at +TILE_BYTES; lane 0 of each warp
+// arrives on empty once a stage is used (or skipped: a WindowBand tile
+// outside the warpgroup's rows' bands).
+template <int STAGES, bool FILL, class Band>
 __device__ __forceinline__ void forward_sweep(const uint8_t *q_tile, const uint8_t *ring,
                                               int stage_bytes, uint64_t *full, uint64_t *empty,
-                                              int tiles, const int *__restrict__ key_pad, int L,
+                                              int k_lo, int tiles, const Band &band,
+                                              const int *__restrict__ key_pad, int L,
                                               float scale, int lane, float (&o)[32],
                                               float (&l)[2]) {
   float s[32], m[2] = {-INFINITY, -INFINITY}, corr[2];
@@ -253,9 +293,15 @@ __device__ __forceinline__ void forward_sweep(const uint8_t *q_tile, const uint8
   for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.f;
   l[0] = l[1] = 0.f;
   for (int t = 0; t < tiles; ++t) {
-    const int st = t % STAGES, k0 = t * TILE;
+    const int st = t % STAGES, k0 = k_lo + t * TILE;
     const uint64_t pad = pad_mask(key_pad, k0, L, lane);
     mbar_wait(&full[st], (t / STAGES) & 1);
+    if constexpr (Band::kBand) {
+      if (!band.touches(k0)) {
+        if (lane == 0) mbar_arrive(&empty[st]);
+        continue;
+      }
+    }
     const uint8_t *kt = ring + st * stage_bytes, *vt = kt + TILE_BYTES;
     fence_regs(s);
     wgmma_fence();
@@ -263,8 +309,8 @@ __device__ __forceinline__ void forward_sweep(const uint8_t *q_tile, const uint8
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    mask_scores<FILL>(s, pad, k0, L, scale, lane);
-    online_step(s, m, corr);
+    mask_scores<FILL>(s, pad, k0, L, scale, lane, band);
+    online_step<Band::kBand>(s, m, corr);
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] *= corr[(i / 2) % 2];
 #pragma unroll

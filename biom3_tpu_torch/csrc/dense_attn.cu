@@ -91,8 +91,8 @@ dense_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv, bf16 *__res
   const int wg = warp / 4;
   float o[32], l[2];
   mbar_wait(qbar, 0);
-  forward_sweep<STAGES, true>(sq + wg * TILE_BYTES, ring, STAGE_BYTES, full, empty, tiles,
-                              nullptr, L, scale, lane, o, l);
+  forward_sweep<STAGES, true>(sq + wg * TILE_BYTES, ring, STAGE_BYTES, full, empty, 0, tiles,
+                              NoBand{}, nullptr, L, scale, lane, o, l);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + wg * TILE + acc_row(h, warp, lane);

@@ -9,7 +9,9 @@
 //   the attention half) and LN(xb) (bf16, the q/k/v GEMM's input).
 // * layernorm — the FF half's pre-norm (fused_layer_tpu.py:269,
 //   fused_ff_half :255) and BERT's post-norms (bert_stack_tpu.py:198,
-//   :138-141 and :176-179), eps passed in.
+//   :138-141 and :176-179), eps passed in.  One read of each row: up to
+//   d = 1280 the row, γ and β stay in registers (layernorm_kernel), a
+//   wider row is staged in shared memory (layernorm_wide_kernel).
 // * embed_tokens — tok[ids] + pos_emb, the l == 0 embed of
 //   stack_kernel_tpu.py:522-537 (a one-hot matmul there; a gather here).
 // * gather_head — the l == depth-1 epilogue of stack_kernel_tpu.py:562-581:
@@ -44,12 +46,18 @@
 // What bounds them: device-memory bandwidth (a few bytes per FLOP).  One
 // warp per row keeps every reduction in registers and shuffles; rows are
 // read with 16-byte vectors.  Two-pass mean/variance, as the reference's
-// f32 parity path computes it.
+// f32 parity path computes it (layernorm: both passes over the row read once).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
+// A row held in registers: ROW_CHUNKS 16-byte chunks of 8 columns a lane,
+// 256 columns a chunk, so d <= 1280 (ESM2-650M) — layernorm's one-read
+// kernel and layernorm_bwd.
+constexpr int ROW_CHUNKS = 5;
 
 __device__ __forceinline__ void load8(const void *p, size_t off, int is_f32, float *v) {
   if (is_f32) {
@@ -114,25 +122,139 @@ __global__ void bias_layernorm_kernel(const bf16 *__restrict__ h, const bf16 *__
   }
 }
 
-__global__ void layernorm_kernel(const void *__restrict__ x, int x_f32,
-                                 const float *__restrict__ scale,
-                                 const float *__restrict__ shift, bf16 *__restrict__ y,
-                                 float *__restrict__ y32, int rows, int d, float eps) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t off = (size_t)row * d;
-  float mean, rstd;
-  row_stats(x, x_f32, off, nullptr, d, lane, eps, mean, rstd);
-  float v[8];
-  for (int c = lane * 8; c < d; c += 256) {
-    load8(x, off + c, x_f32, v);
+// layernorm: one read of x.  Rows of up to ROW_CHUNKS chunks a lane
+// (d <= 1280) run on layernorm_kernel, wider ones on layernorm_wide_kernel.
+// Both sum the mean, then the centred sum of squares, in row_stats' order
+// (chunk by chunk, 8 columns in order, one warp_sum), so the output has the
+// bits of a kernel that reads the row three times.
+__device__ __forceinline__ void store8(bf16 *y, float *y32, size_t off, const float *v) {
+  if (y) *reinterpret_cast<uint4 *>(y + off) = pack8(v);
+  if (y32) {
+    float4 *yp = reinterpret_cast<float4 *>(y32 + off);
+    yp[0] = make_float4(v[0], v[1], v[2], v[3]);
+    yp[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+template <bool F32>
+struct Chunk;  // 8 columns of one row as loaded: f32, or bf16 still packed
+template <>
+struct Chunk<true> {
+  float f[8];
+  __device__ __forceinline__ void load(const void *x, size_t off) { load8(x, off, 1, f); }
+  __device__ __forceinline__ void unpack(float *v) const {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = (v[e] - mean) * rstd * scale[c + e] + shift[c + e];
-    if (y) *reinterpret_cast<uint4 *>(y + off + c) = pack8(v);
-    if (y32) {
-      float4 *yp = reinterpret_cast<float4 *>(y32 + off + c);
-      yp[0] = make_float4(v[0], v[1], v[2], v[3]);
-      yp[1] = make_float4(v[4], v[5], v[6], v[7]);
+    for (int e = 0; e < 8; ++e) v[e] = f[e];
+  }
+};
+template <>
+struct Chunk<false> {
+  uint4 u;
+  __device__ __forceinline__ void load(const void *x, size_t off) {
+    u = *reinterpret_cast<const uint4 *>(static_cast<const bf16 *>(x) + off);
+  }
+  __device__ __forceinline__ void unpack(float *v) const { unpack8(u, v); }
+};
+
+// Each warp holds its row in registers, NC chunks a lane (columns lane·8 +
+// 256·i, i < NC, those < d), and issues the next row's loads before it
+// reduces the current one; the grid is sized from the SM count and each
+// warp walks rows gridDim·8 apart.  γ and β arrive once a warp as float4
+// loads and stay in registers across its rows.
+template <int NC, bool F32>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+layernorm_kernel(const void *__restrict__ x, const float *__restrict__ scale,
+                 const float *__restrict__ shift, bf16 *__restrict__ y,
+                 float *__restrict__ y32, int rows, int d, float eps) {
+  const int lane = threadIdx.x & 31, stride = gridDim.x * ROWS_PER_BLOCK;
+  int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float g[NC][8], b[NC][8];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c < d) {
+      load8(scale, c, 1, g[i]);
+      load8(shift, c, 1, b[i]);
+    }
+  }
+  Chunk<F32> raw[NC];
+  auto load = [&](int r) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
+      if (c < d) raw[i].load(x, (size_t)r * d + c);
+    }
+  };
+  load(row);
+  for (; row < rows; row += stride) {
+    float v[NC][8];
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (lane * 8 + i * 256 < d) raw[i].unpack(v[i]);
+    if (row + stride < rows) load(row + stride);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (lane * 8 + i * 256 < d)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += v[i][e];
+    const float mean = warp_sum(s) / d;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (lane * 8 + i * 256 < d)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float t = v[i][e] - mean;
+          q += t * t;
+        }
+    const float rstd = rsqrtf(warp_sum(q) / d + eps);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
+      if (c >= d) continue;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[i][e] = (v[i][e] - mean) * rstd * g[i][e] + b[i][e];
+      store8(y, y32, (size_t)row * d + c, v[i]);
+    }
+  }
+}
+
+// Rows wider than ROW_CHUNKS chunks a lane (ESM2-3B's 2560, a Stage-3 dim
+// of 4096): each warp copies its row once into shared memory with
+// cp.async, 16 bytes at a time, and each lane reads back only the columns
+// it copied, so no barrier is needed.  row_stats and the normalise loop
+// then read the row there; γ and β come as float4 loads for each chunk,
+// from L1/L2 (every warp reads the same ones).  blockDim.x / 32 warps, each
+// with d elements of the input's type in shared memory.
+template <bool F32>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+layernorm_wide_kernel(const void *__restrict__ x, const float *__restrict__ scale,
+                      const float *__restrict__ shift, bf16 *__restrict__ y,
+                      float *__restrict__ y32, int rows, int d, float eps) {
+  extern __shared__ __align__(16) unsigned char staged[];
+  constexpr int ESZ = F32 ? 4 : 2;   // bytes an element: a chunk is 2 or 1 copies of 16
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned char *row_s = staged + (size_t)warp * d * ESZ;
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(row_s));
+  for (int row = blockIdx.x * warps + warp; row < rows; row += gridDim.x * warps) {
+    const char *src = static_cast<const char *>(x) + (size_t)row * d * ESZ;
+    for (int c = lane * 8; c < d; c += 256)
+#pragma unroll
+      for (int k = 0; k < ESZ / 2; ++k)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst + c * ESZ + 16 * k),
+                     "l"(src + c * ESZ + 16 * k));
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    float mean, rstd, v[8], g[8], b[8];
+    row_stats(row_s, F32, 0, nullptr, d, lane, eps, mean, rstd);
+    for (int c = lane * 8; c < d; c += 256) {
+      load8(row_s, c, F32, v);
+      load8(scale, c, 1, g);
+      load8(shift, c, 1, b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = (v[e] - mean) * rstd * g[e] + b[e];
+      store8(y, y32, (size_t)row * d + c, v);
     }
   }
 }
@@ -279,31 +401,28 @@ __global__ void quant_rows_kernel(const void *__restrict__ x, int x_f32, int8_t 
 
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
 
-// d <= LNB_CHUNKS * 256 (checked by the wrapper): five chunks of 256
-// columns cover ESM2-650M's 1280.  A lane keeps x̂ and the dγ/dβ sums of
-// its columns in registers; dŷ·γ is read again (from L1/L2) for the
+// d <= ROW_CHUNKS * 256 (checked by the wrapper).  A lane keeps x̂ and the
+// dγ/dβ sums of its columns in registers; dŷ·γ is read again (from L1/L2) for the
 // output, so the five chunks fit the registers without spilling.
-constexpr int LNB_CHUNKS = 5;
-
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restrict__ dy,
                      const float *__restrict__ gamma, const void *__restrict__ res, int res_f32,
                      void *__restrict__ dx, int dx_f32, bf16 *__restrict__ dx16,
                      float *__restrict__ partial, int rows, int d, float eps) {
-  __shared__ float red[ROWS_PER_BLOCK][LNB_CHUNKS * 256];
+  __shared__ float red[ROWS_PER_BLOCK][ROW_CHUNKS * 256];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float dg[LNB_CHUNKS][8], db[LNB_CHUNKS][8];
+  float dg[ROW_CHUNKS][8], db[ROW_CHUNKS][8];
 #pragma unroll
-  for (int k = 0; k < LNB_CHUNKS; ++k)
+  for (int k = 0; k < ROW_CHUNKS; ++k)
 #pragma unroll
     for (int e = 0; e < 8; ++e) dg[k][e] = db[k][e] = 0.f;
 
   for (int row = blockIdx.x * ROWS_PER_BLOCK + warp; row < rows;
        row += gridDim.x * ROWS_PER_BLOCK) {
     const size_t off = (size_t)row * d;
-    float xv[LNB_CHUNKS][8], s = 0.f;
+    float xv[ROW_CHUNKS][8], s = 0.f;
 #pragma unroll
-    for (int k = 0; k < LNB_CHUNKS; ++k) {
+    for (int k = 0; k < ROW_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
       if (c < d) {
         load8(x, off + c, x_f32, xv[k]);
@@ -314,7 +433,7 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
     const float mean = warp_sum(s) / d;
     float q = 0.f;
 #pragma unroll
-    for (int k = 0; k < LNB_CHUNKS; ++k)
+    for (int k = 0; k < ROW_CHUNKS; ++k)
       if (lane * 8 + k * 256 < d)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
@@ -325,7 +444,7 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
     // x̂ in xv; the two row means of dŷ·γ and dŷ·γ·x̂
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int k = 0; k < LNB_CHUNKS; ++k) {
+    for (int k = 0; k < ROW_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
       if (c < d) {
         float gv[8], g[8];
@@ -344,7 +463,7 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
     s1 = warp_sum(s1) / d;
     s2 = warp_sum(s2) / d;
 #pragma unroll
-    for (int k = 0; k < LNB_CHUNKS; ++k) {
+    for (int k = 0; k < ROW_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
       if (c < d) {
         float gv[8], g[8], r[8], o[8];
@@ -372,7 +491,7 @@ layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restr
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-    for (int k = 0; k < LNB_CHUNKS; ++k) {
+    for (int k = 0; k < ROW_CHUNKS; ++k) {
       const int c = lane * 8 + k * 256;
       if (c < d)
 #pragma unroll
@@ -438,6 +557,55 @@ void col_sum(const void *x, int rows, long long n, float *out, float *partial, i
                                                                         out);
 }
 
+template <int NC>
+int launch_layernorm(const void *x, int x_f32, const float *scale, const float *shift, bf16 *y,
+                     float *y32, int rows, int d, float eps, cudaStream_t stream) {
+  const auto kernel = x_f32 ? layernorm_kernel<NC, true> : layernorm_kernel<NC, false>;
+  static int sms = 0, per_sm[2] = {0, 0};   // blocks an SM holds, by x_f32
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (!per_sm[x_f32])
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[x_f32], kernel, ROWS_PER_BLOCK * 32, 0);
+  const int blocks =
+      std::min((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, sms * per_sm[x_f32]);
+  kernel<<<blocks, ROWS_PER_BLOCK * 32, 0, stream>>>(x, scale, shift, y, y32, rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide rows' blocks hold up to 48 KB of staged rows (as many warps as
+// fit, at most ROWS_PER_BLOCK), so an SM takes several; a row over 48 KB
+// gets a block of one warp and the opt-in shared memory.
+int launch_layernorm_wide(const void *x, int x_f32, const float *scale, const float *shift,
+                          bf16 *y, float *y32, int rows, int d, float eps, cudaStream_t stream) {
+  const auto kernel = x_f32 ? layernorm_wide_kernel<true> : layernorm_wide_kernel<false>;
+  static int sms = 0, smem_optin = 0;
+  static bool opted[2] = {false, false};
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  const size_t row_bytes = (size_t)d * (x_f32 ? 4 : 2);
+  if (row_bytes > (size_t)smem_optin) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(ROWS_PER_BLOCK, (48 << 10) / row_bytes)));
+  const int smem = static_cast<int>(warps * row_bytes);
+  if (smem > (48 << 10) && !opted[x_f32]) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin);
+    opted[x_f32] = true;
+  }
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  const int blocks = std::min((rows + warps - 1) / warps, sms * std::max(per_sm, 1));
+  kernel<<<blocks, warps * 32, smem, stream>>>(x, scale, shift, y, y32, rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 }  // namespace
 
 void b3_col_sum_f32(const float *x, int rows, long long n, float *out, float *partial, int parts,
@@ -457,13 +625,25 @@ B3_EXPORT int b3_bias_layernorm(const void *h, const void *bias, const void *sca
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (rows, d) f32 (x_f32) or bf16, scale/shift (d,) f32, all 16-byte
+// aligned; y (rows, d) bf16 and/or y32 f32 (either may be null); d % 8 ==
+// 0.  d <= 256 · ROW_CHUNKS runs on layernorm_kernel<ceil(d / 256)>, a
+// wider row on layernorm_wide_kernel, which needs it to fit one block's
+// shared memory (sm_90: 227 KB).
 B3_EXPORT int b3_layernorm(const void *x, int x_f32, const void *scale, const void *shift,
                            void *y, void *y32, int rows, int d, float eps, void *stream) {
-  layernorm_kernel<<<row_grid(rows), ROWS_PER_BLOCK * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, x_f32, static_cast<const float *>(scale), static_cast<const float *>(shift),
-      static_cast<bf16 *>(y), static_cast<float *>(y32), rows, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  const float *g = static_cast<const float *>(scale), *b = static_cast<const float *>(shift);
+  bf16 *yb = static_cast<bf16 *>(y);
+  float *yf = static_cast<float *>(y32);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 255) / 256) {
+    case 1: return launch_layernorm<1>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+    case 2: return launch_layernorm<2>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+    case 3: return launch_layernorm<3>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+    case 4: return launch_layernorm<4>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+    case 5: return launch_layernorm<5>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+    default: return launch_layernorm_wide(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+  }
 }
 
 // x (rows, d) f32 or bf16 → q (rows, d) int8, scale (rows,) f32; d % 8 == 0.

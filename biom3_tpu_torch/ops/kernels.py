@@ -459,6 +459,10 @@ def bias_layernorm_plain(h, bias, scale, shift, *, eps=1e-6):
     return xb, _layernorm_f32(xb, scale, shift, eps).to(h.dtype)
 
 
+LN_STAGED_BYTES = 227 << 10   # layernorm stages a row over 1280 columns in one block's shared
+                              # memory (sm_90's most a block)
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, eps: float,
               out_dtype: torch.dtype, want_f32: bool = False):
     """LayerNorm over the last dim of x (rows, d), f32 or ``out_dtype`` in.
@@ -467,15 +471,16 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, eps:
     cd = _compute_dtypes(x)
     _check("x", x, dtypes=(torch.float32,) + cd, vectors=True)
     d = x.shape[-1]
-    _check("scale", scale, dtypes=(torch.float32,), shape=(d,), device=x.device)
-    _check("shift", shift, dtypes=(torch.float32,), shape=(d,), device=x.device)
+    _check("scale", scale, dtypes=(torch.float32,), shape=(d,), device=x.device, vectors=True)
+    _check("shift", shift, dtypes=(torch.float32,), shape=(d,), device=x.device, vectors=True)
     if out_dtype not in (torch.float32,) + cd:
         raise TypeError(f"out_dtype {out_dtype} not in {(torch.float32,) + cd}")
     if not x.is_cuda:
         return layernorm_plain(x, scale, shift, eps=eps, out_dtype=out_dtype,
                                want_f32=want_f32)
-    if d % 8:
-        raise ValueError(f"layernorm kernel needs d % 8 == 0, got {d}")
+    if d % 8 or d * x.element_size() > LN_STAGED_BYTES:
+        raise ValueError(f"layernorm kernel needs d % 8 == 0 and a row of at most "
+                         f"{LN_STAGED_BYTES} bytes, got d={d} in {x.dtype}")
     f32_only = out_dtype == torch.float32
     y = None if f32_only else torch.empty(x.shape, dtype=out_dtype, device=x.device)
     y32 = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
@@ -930,14 +935,17 @@ def linear_i8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 # local_window_attention  (csrc/local_attn.cu)
 # --------------------------------------------------------------------------
 
-LOCAL_TILE = {32: 128, 64: 64}   # query rows per block by head dim
+LOCAL_TILE = {32: 128, 64: 64}   # f32: query rows per block by head dim
 
 
 def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            window: int) -> torch.Tensor:
     """q, k, v (B, H, L, D), L % window == 0 → (B, H, L, D) in v's dtype:
-    band attention over windows w-1..w+1 at the TPU kernel's rounding
-    points (``local_window_attention_plain``).  Forward only."""
+    band attention over windows w-1..w+1 (``local_window_attention_plain``
+    keeps the TPU kernel's rounding points).  Forward only.  On the card
+    bf16 runs on the tensor cores (any window), f32 on CUDA cores at the
+    TPU kernel's f32 points (a window that tiles by ``LOCAL_TILE[D]`` query
+    rows); the dtype alone chooses."""
     _check("q", q, dtypes=(torch.float32, torch.bfloat16), ndim=4, vectors=True)
     _check("k", k, dtypes=(q.dtype,), shape=q.shape, device=q.device, vectors=True)
     _check("v", v, dtypes=(q.dtype,), shape=q.shape, device=q.device, vectors=True)
@@ -949,13 +957,16 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            "train with attn_impl 'plain', 'block' or 'layer-block'")
     if not q.is_cuda:
         return local_window_attention_plain(q, k, v, window=window)
-    tq = min(window, LOCAL_TILE.get(D, 0))
-    if D not in LOCAL_TILE or window % tq:
-        raise ValueError(f"local_window_attention kernel needs head dim 32 or 64 and a "
-                         f"window that tiles by {tq}; got D={D} window={window}")
+    if D not in LOCAL_TILE:
+        raise ValueError(f"local_window_attention kernel needs head dim 32 or 64, got D={D}")
+    is_f32 = q.dtype == torch.float32
+    tq = min(window, LOCAL_TILE[D]) if is_f32 else 0
+    if is_f32 and window % tq:
+        raise ValueError(f"local_window_attention's f32 kernel needs a window that tiles by "
+                         f"{tq} query rows; got D={D} window={window}")
     out = torch.empty_like(v)
     _build.launch("b3_local_window_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(out), B * H, L,
-                  D, window, tq, float(D ** -0.5), int(q.dtype == torch.float32), _stream(q))
+                  D, window, tq, float(D ** -0.5), int(is_f32), _stream(q))
     local_window_attention.launches += 1
     return out
 

@@ -13,8 +13,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s,
    ``gemm_dx``'s and ``gemm_dw``'s kernels must show HGMMA and
    ``gemm_i8``'s IGMMA, ``flash_attention``'s, ``dense_attention``'s,
-   ``esm2_attention``'s and ``esm2_attention_bwd``'s two passes HGMMA, all
-   with UTMALDG loads, and no kernel of the library may show HMMA (the
+   ``esm2_attention``'s, ``esm2_attention_bwd``'s two passes and the bf16
+   ``local_window_attention``'s HGMMA, all with UTMALDG loads, and no kernel of the library may show HMMA (the
    ``mma.sync`` route); a ``[ptxas]`` line gives the attention kernels',
    their staging launches' and the ``gemm_dx``/``gemm_dw`` kernels'
    registers and spills (``nvcc -Xptxas -v``);
@@ -30,7 +30,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    100, head dims 32 and 64; for the training kernels edge windows,
    local_heads 0 and = heads, head dim 64, ragged rows, ``gemm_dx`` also
    at M < 64 and at N = 5120 with both GELU derivatives and both output
-   types; ``gemm_dx`` and ``gemm_dw`` must also give the same bits on a
+   types; ``layernorm`` also on one f32 row at d = 1280 to an f32 output
+   alone, on 37 f32 rows at d = 768 with the f32 copy, and past the
+   1280 columns held in registers: d = 2560 (ESM2-3B, bf16), 4096 (a
+   Stage-3 dim), a ragged 1288 and a 16384-wide f32 row; ``gemm_dx``,
+   ``gemm_dw`` and ``layernorm`` must also give the same bits on a
    second call): bf16
    max|Δ|/max|ref| <= 2e-2 (the attention gradients per head group: 32
    columns for Stage 3, 64 for ESM2), with the kernel's, the plain version's and, where one exists,
@@ -40,8 +44,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    library call ``torch._int_mm``, the int32 product only), ``quant_rows``
    on f32 and bf16 rows, whose codes and scales must equal the plain
    version's bit for bit, and ``local_window_attention`` (B=4, H=8, L=1024,
-   D=32, bf16; edge cases one window, D=64, f32; library call SDPA with a
-   boolean (L, L) band mask); then ``gemm_bias_act`` and ``gemm_i8`` at
+   D=32, bf16; edge cases one window, D=64, f32, and in bf16 W=32 (a
+   warpgroup over two windows), W=96 (a key tile across the band's edge),
+   W=64 at D=64 and L=1024, and B·H=1 with one window; library call SDPA
+   with a boolean (L, L) band mask); then ``gemm_bias_act`` and ``gemm_i8`` at
    Stage-3 B=32 (M = 32768, a layer's four products; ``cli/measure_gemm.py``)
    against their plain versions, in TFLOP/s or TOP/s beside ``matmul`` /
    ``torch._int_mm`` and the bound, and the host µs of one wrapper call;
@@ -303,15 +309,15 @@ SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IG
               "gemm_dx_wgmma": ("HGMMA", "UTMALDG"), "gemm_dw_wgmma": ("HGMMA", "UTMALDG"),
               "flash_attn_wgmma": ("HGMMA", "UTMALDG"), "dense_attn_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
-              "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG")}
+              "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"), "local_attn_wgmma": ("HGMMA", "UTMALDG")}
 # kernels whose registers and spills the build prints (``ptxas.txt``),
 # each in two instantiations: head dims 32 and 64, or the GEMM's two tiles
 PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_wgmma_kernel",
               "esm2_attn_stage_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
-              "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma")
+              "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel")
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
-DETERMINISTIC = {"gemm_dx", "gemm_dw"}
+DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm"}
 
 
 def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
@@ -718,9 +724,37 @@ def edge_cases(g) -> dict[str, list]:
     a8b = torch.randint(-127, 128, (37, 64), generator=g, device=dev, dtype=torch.int8)
     w8b = torch.randint(-127, 128, (8, 64), generator=g, device=dev, dtype=torch.int8)
     s8b = [torch.rand(n, generator=g, device=dev) for n in (37, 8)]
-    loc = [[rnd(2, 3, 128, 32) for _ in range(3)], [rnd(2, 4, 512, 64) for _ in range(3)],
-           [torch.randn(1, 2, 256, 32, generator=g, device=dev) for _ in range(3)],
-           [torch.randn(1, 2, 256, 64, generator=g, device=dev) for _ in range(3)]]
+    # local attention: (q, k, v, window); bf16 on the tensor cores, f32 on
+    # CUDA cores.  W = 32: a 64-row warpgroup spans two windows; W = 96: a
+    # key tile straddles the band's edge (and L = 288 leaves the last
+    # block's second warpgroup without a row); B·H = 1 with one window:
+    # both neighbours masked
+    loc = [([rnd(2, 3, 128, 32) for _ in range(3)], 128),
+           ([rnd(2, 4, 512, 64) for _ in range(3)], 128),
+           ([torch.randn(1, 2, 256, 32, generator=g, device=dev) for _ in range(3)], 64),
+           ([torch.randn(1, 2, 256, 64, generator=g, device=dev) for _ in range(3)], 64),
+           ([rnd(2, 3, 256, 32) for _ in range(3)], 32),
+           ([rnd(2, 2, 288, 32) for _ in range(3)], 96),
+           ([rnd(1, 4, 1024, 64) for _ in range(3)], 64),
+           ([rnd(1, 1, 128, 32) for _ in range(3)], 128)]
+    # LayerNorm: one f32 row at ESM2's width to an f32 output alone (the
+    # int8 FF's input), and 37 f32 rows at BERT's width with the f32 copy
+    x1280, x768 = (torch.randn(n, d, generator=g, device=dev) * 3.0 for n, d in ((1, 1280),
+                                                                              (37, 768)))
+    ln1280, ln768 = ((1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                      0.1 * torch.randn(d, generator=g, device=dev)) for d in (1280, 768))
+    # ... and rows past the 1280 columns held in registers, staged in shared
+    # memory: ESM2-3B's LN1 (bf16, d 2560), a Stage-3 dim of 4096, a ragged
+    # 1288 with the f32 copy, and a row over 48 KB (a block of one warp)
+    f32 = torch.float32
+    ln_wide = [((torch.randn(n, d, generator=g, device=dev) * 3.0).to(xd),
+                1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                0.1 * torch.randn(d, generator=g, device=dev),
+                dict(eps=eps, out_dtype=od, want_f32=wf))
+               for n, d, xd, eps, od, wf in ((19, 2560, bf, 1e-5, bf, False),
+                                             (37, 4096, f32, 1e-6, bf, False),
+                                             (11, 1288, f32, 1e-5, bf, True),
+                                             (3, 16384, f32, 1e-5, f32, False))]
     return {
         # int8: M, N, K off the 128x128x64 tile (K a multiple of 32), a bf16
         # residual and erf GELU; quant rows off the 8-row block and the
@@ -731,10 +765,7 @@ def edge_cases(g) -> dict[str, list]:
                     pair("gemm_i8", a8b, s8b[0], w8b, s8b[1], out_dtype=torch.float32)],
         "quant_rows": [pair("quant_rows", xl),
                        pair("quant_rows", torch.randn(7, 5120, generator=g, device=dev))],
-        "local_window_attention": [pair("local_window_attention", *loc[0], window=128),
-                                   pair("local_window_attention", *loc[1], window=128),
-                                   pair("local_window_attention", *loc[2], window=64),
-                                   pair("local_window_attention", *loc[3], window=64)],
+        "local_window_attention": [pair("local_window_attention", *t, window=w) for t, w in loc],
         "gemm_bias_act": [(lambda: K.gemm_bias_act(a, w, bias, **kw),
                            lambda: K.gemm_bias_act_plain(a, w, bias, **kw))],
         "stage3_attention_core": [
@@ -744,7 +775,10 @@ def edge_cases(g) -> dict[str, list]:
                             *(pair("dense_attention", x, heads=h) for x, h in dense)],
         "layernorm": [(lambda: K.layernorm(xl, *ln, eps=1e-5, out_dtype=bf, want_f32=True),
                        lambda: K.layernorm_plain(xl, *ln, eps=1e-5, out_dtype=bf,
-                                                 want_f32=True))],
+                                                 want_f32=True)),
+                      pair("layernorm", x1280, *ln1280, eps=1e-5, out_dtype=torch.float32),
+                      pair("layernorm", x768, *ln768, eps=1e-12, out_dtype=bf, want_f32=True),
+                      *(pair("layernorm", x, sc, sh, **kw) for x, sc, sh, kw in ln_wide)],
         "esm2_embed": [(lambda: K.esm2_embed(ids, table),
                         lambda: K.esm2_embed_plain(ids, table))],
         # the tensor-core forward: flash's edge shapes with the rotary tables

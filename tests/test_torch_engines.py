@@ -148,6 +148,7 @@ def test_pencl_f32_engine_takes_graph_and_matches_jax(pencl_files):
     ({"local_window": 4}, False, "does not tile by 4"),
     ({"local_window": 12, "max_seq_len": 96}, False, "does not tile"),
     ({"local_heads": 0, "max_seq_len": 200}, True, ""),
+    ({"dim": 4096, "heads": 64}, True, ""),
 ])
 def test_stack_supported_rules(kw, ok, reason):
     from biom3_tpu_torch.config import ProteoScribeConfig
@@ -165,6 +166,8 @@ def test_stack_supported_rules(kw, ok, reason):
     ((96, 2), (64, 2, 128), True, True, ""),                # the text side alone
     ((64, 2), (32, 2, 128), True, False, "BERT head dim 16"),
     ((64, 2), (64, 2, 136), False, False, "BERT FF width 136"),
+    ((2560, 40), (768, 12, 3072), False, True, ""),         # ESM2-3B
+    ((2560, 40), (1024, 16, 4096), True, True, ""),         # BERT-large
 ])
 def test_tower_supported_rules(esm, bert, text_only, ok, reason):
     from biom3_tpu_torch.config import BertConfig, ESM2Config, PenCLConfig

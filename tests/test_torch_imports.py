@@ -63,6 +63,7 @@ SLICE_MODULES = [
     "biom3_tpu_torch.cli.run_pencl_inference",
     "biom3_tpu_torch.cli.measure_pencl",
     "biom3_tpu_torch.cli.measure_attention",
+    "biom3_tpu_torch.cli.measure_rowwise",
     "biom3_tpu_torch.models.layers",
     "biom3_tpu_torch.ops.esm2_block",
     "biom3_tpu_torch.training.stage1_task",

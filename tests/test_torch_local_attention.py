@@ -24,7 +24,10 @@ from biom3_tpu_torch.io.from_jax import port_config, proteoscribe_from_jax
 from biom3_tpu_torch.ops import kernels
 from biom3_tpu_torch.ops.local_attention import local_window_attention
 
-CASES = [(1, 64, 32), (2, 64, 64), (8, 64, 32), (2, 128, 32), (8, 128, 64)]  # (nw, W, D)
+# (nw, W, D); W = 32 puts two windows in one 64-row warpgroup of the card's
+# kernel, W = 96 a key tile across the band's edge
+CASES = [(1, 64, 32), (2, 64, 64), (8, 64, 32), (2, 128, 32), (8, 128, 64), (4, 32, 32),
+         (3, 96, 32)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
