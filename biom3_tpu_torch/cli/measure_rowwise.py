@@ -1,35 +1,55 @@
-"""The row-wise kernels on one CUDA card: ``layernorm``.
+"""The row-wise kernels on one CUDA card: ``layernorm``, ``layernorm_bwd``
+and ``col_sum``.
 
     python -m biom3_tpu_torch.cli.measure_rowwise [--iters 50] [--out build/measure_rowwise.json]
-        [--bits-out FILE | --bits-against FILE]
+        [--only PREFIX ...] [--bits-out FILE | --bits-against FILE]
 
-At ``chip_smoke.py`` phase 3's five LayerNorm calls (Stage-3 FF pre-norm
-at B=4, 4096 x 512, f32 in, bf16 out, eps 1e-6; BERT's post-norm at B=2,
-1024 x 768, f32 in, bf16 and f32 out, eps 1e-12; ESM2-650M at B=2, 2048 x
-1280: LN1 on the bf16 residual, LN2 on the f32 one, and the final norm on
-2 CLS rows with its f32 copy, eps 1e-5) and at the sizes where the card is
-busy: Stage-3 B=32 (32768 x 512, f32 in, bf16 out) and ESM2 B=16 (16384 x
-1280, bf16); and past the 1280 columns the kernel holds in registers, on
-its shared-memory route: ESM2-3B's LN1 at B=16 (16384 x 2560, bf16) and a
-Stage-3 dim of 4096 at B=32 (32768 x 4096, f32 in, bf16 out).  Each call is held against its plain version
-(max|Δ|/max|ref| <= 2e-2), then timed: ms per call by CUDA events, device
-ms per launch from ``torch.profiler``, the wrapper's host µs per call
-(the enqueue), and the same for ``F.layer_norm`` on the same rows (γ and
-β in the input's dtype; it writes the input's dtype: f32 where the kernel
-writes bf16).  Reported beside them: the least time the card could take
-(``bound_ms``: each input read once and each output written once at
-3.35 TB/s, or 8 FLOP an element at 989 TFLOP/s if larger) and its share
-of the kernel's device time, and the library call's own bound (it writes
-the input's dtype, so f32 rows cost it twice the kernel's output bytes).  Prints one JSON object with the card's name
-and power limit and writes it to ``--out``.
+``layernorm`` at ``chip_smoke.py`` phase 3's five LayerNorm calls (Stage-3
+FF pre-norm at B=4, 4096 x 512, f32 in, bf16 out, eps 1e-6; BERT's
+post-norm at B=2, 1024 x 768, f32 in, bf16 and f32 out, eps 1e-12;
+ESM2-650M at B=2, 2048 x 1280: LN1 on the bf16 residual, LN2 on the f32
+one, and the final norm on 2 CLS rows with its f32 copy, eps 1e-5) and at
+the sizes where the card is busy: Stage-3 B=32 (32768 x 512, f32 in, bf16
+out) and ESM2 B=16 (16384 x 1280, bf16); and past the 1280 columns the
+kernel holds in registers, on its shared-memory route: ESM2-3B's LN1 at
+B=16 (16384 x 2560, bf16) and a Stage-3 dim of 4096 at B=32 (32768 x 4096,
+f32 in, bf16 out).
+
+The training backward's reductions with the callers' dtypes
+(``ops/layer_block.py``, ``ops/esm2_block.py``): a Stage-3 layer's three
+``col_sum`` (dyc bf16 x 512, dh1 bf16 x 2048, dxa f32 x 512) and two
+``layernorm_bwd`` (LN2: f32 x, bf16 residual, f32 dx with its bf16 copy;
+LN1: bf16 x, f32 residual, bf16 dx) at B=4 (4096 rows, phase 3's shape)
+and B=32 (32768 rows); an ESM2-650M layer's at B=4 (4096 rows: ``col_sum``
+over 1280, 3840 and 5120 bf16 columns; ``layernorm_bwd`` at 1280, bf16 x
+and residual into a bf16 dx); and ESM2-3B's width at B=16 (16384 rows:
+``layernorm_bwd`` at 2560, ``col_sum`` over the 10240 FF columns).
+
+Each call is held against its plain version (max|Δ|/max|ref| <= 2e-2),
+then timed: ms per call by CUDA events, device ms per call from
+``torch.profiler`` (every kernel it launches), the wrapper's host µs per
+call (the enqueue), and the same for one library call on the same rows:
+``F.layer_norm`` (γ and β in the input's dtype; it writes the input's
+dtype: f32 where the kernel writes bf16); ``x.float().sum(0)``; the
+LayerNorm backward through autograd (``F.layer_norm`` in x's dtype, the
+output gradient in it too, no residual).  Reported beside them: the
+least time the card could take (``bound_ms``: each input read once and
+each output written once at 3.35 TB/s, or the FLOPs at 989 TFLOP/s if
+larger) and its share of the kernel's device time, and the library
+call's own bound.  Prints one JSON object with the card's name and power
+limit and writes it to ``--out``.  A call that a version of the kernels
+refuses (``layernorm_bwd`` past 1280 columns before they took such rows)
+is reported as refused.
 
 ``--bits-out FILE`` saves a SHA-256 of every output's bytes for the same
-seeded inputs, as JSON; ``--bits-against FILE`` reports which outputs
-differ from that file's.  Two versions in one call (the same card): run
-this file from another checkout's root with that checkout first on the
-path, e.g. ``cd parent && PYTHONPATH=. python
-../biom3_tpu_torch/cli/measure_rowwise.py --bits-out b.json``, then this
-checkout's with ``--bits-against b.json``.  Exits non-zero without a card.
+seeded inputs, as JSON, and of one ``gemm_dw`` with split-K slabs
+(Stage-3 B=32, 32768 x 512 x 512: its slabs are summed by ``col_sum``'s
+kernel); ``--bits-against FILE`` reports which outputs differ from that
+file's.  Two versions in one call (the same card): run this file from
+another checkout's root with that checkout first on the path, e.g. ``cd
+parent && PYTHONPATH=. python ../biom3_tpu_torch/cli/measure_rowwise.py
+--bits-out b.json``, then this checkout's with ``--bits-against b.json``.
+Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -73,7 +93,48 @@ def cases(g) -> dict[str, dict]:
                 "bytes": x_bytes + 8 * d + rows * d * (2 + 4 * want_f32),
                 "lib_bytes": 2 * x_bytes + 2 * d * x.element_size()}
 
+    def col_sum(rows, n, dtype):
+        x = rnd(rows, n, dtype=dtype)
+        x_bytes = x.numel() * x.element_size()
+        return {"run": lambda: K.col_sum(x), "plain": lambda: K.col_sum_plain(x),
+                "lib": lambda: x.float().sum(0), "flops": rows * n, "bytes": x_bytes + 4 * n,
+                "lib_bytes": x_bytes + 4 * n}
+
+    def ln_bwd(rows, d, x_dtype, res_dtype, out_dtype, eps, want_cd=False):
+        """The library call: autograd's LayerNorm backward from a graph built
+        once, in x's dtype (dy too), no residual."""
+        x, dy, s = rnd(rows, d, dtype=x_dtype, scale=3.0), rnd(rows, d, dtype=f32), vec(d, 1.0)
+        res = rnd(rows, d, dtype=res_dtype)
+        kw = dict(residual=res, eps=eps, out_dtype=out_dtype, want_cd=want_cd)
+        xl = x.detach().requires_grad_()
+        wl, bl = s.to(x_dtype).requires_grad_(), torch.zeros_like(s, dtype=x_dtype).requires_grad_()
+        y, gy = F.layer_norm(xl, (d,), wl, bl, eps), dy.to(x_dtype)
+        size = x.element_size()
+        out = rows * d * (torch.finfo(out_dtype).bits // 8 + 2 * want_cd) + 8 * d
+        return {"run": lambda: K.layernorm_bwd(x, dy, s, **kw),
+                "plain": lambda: K.layernorm_bwd_plain(x, dy, s, **kw),
+                "lib": lambda: torch.autograd.grad(y, (xl, wl, bl), gy, retain_graph=True),
+                "flops": 12 * rows * d,
+                "bytes": rows * d * (size + 4 + res.element_size()) + 4 * d + out,
+                "lib_bytes": 3 * rows * d * size + 8 * rows + 6 * d * size}
+
+    def layer(rows, d, ff):
+        """A Stage-3 layer's backward reductions (ops/layer_block.py)."""
+        return [col_sum(rows, d, bf), col_sum(rows, ff, bf), col_sum(rows, d, f32),
+                ln_bwd(rows, d, f32, bf, f32, 1e-6, want_cd=True),
+                ln_bwd(rows, d, bf, f32, bf, 1e-6)]
+
+    names = ["col_sum_dyc", "col_sum_dh1", "col_sum_dxa", "ln2_bwd", "ln1_bwd"]
+    b4, b32 = layer(4 * 1024, 512, 2048), layer(32 * 1024, 512, 2048)
     return {
+        **{f"stage3_b4_{n}": c for n, c in zip(names, b4)},
+        **{f"stage3_b32_{n}": c for n, c in zip(names, b32)},
+        "esm2_b4_col_sum_dyc": col_sum(4 * 1024, 1280, bf),
+        "esm2_b4_col_sum_dqkv": col_sum(4 * 1024, 3840, bf),
+        "esm2_b4_col_sum_dh1": col_sum(4 * 1024, 5120, bf),
+        "esm2_b4_ln_bwd": ln_bwd(4 * 1024, 1280, bf, bf, bf, 1e-5),
+        "esm2_3b_b16_ln_bwd": ln_bwd(16 * 1024, 2560, bf, bf, bf, 1e-5),
+        "esm2_3b_b16_col_sum_dh1": col_sum(16 * 1024, 10240, bf),
         "stage3_b4_ff_prenorm": ln(4 * 1024, 512, f32, 1e-6),
         "bert_b2_postnorm": ln(2 * 512, 768, f32, 1e-12, want_f32=True),
         "esm2_b2_ln1": ln(2 * 1024, 1280, bf, 1e-5),
@@ -86,21 +147,26 @@ def cases(g) -> dict[str, dict]:
     }
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, tries: int = 3) -> float:
     """Device ms per call of ``fn``: its device events' time
-    (``torch.profiler``), summed over the kernels it launches."""
+    (``torch.profiler``), summed over the kernels it launches; profiled
+    again (up to ``tries`` times) when a trace holds no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type != DeviceType.CPU) / calls / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type != DeviceType.CPU)
+        if total > 0:
+            return total / calls / 1e3
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def flat(x) -> list:
@@ -140,14 +206,31 @@ def digest(t) -> str:
 
 
 def outputs(g) -> dict[str, list[str]]:
-    """Every case's outputs' digests, for a bits comparison."""
-    return {name: [digest(t) for t in flat(case["run"]())] for name, case in cases(g).items()}
+    """Every case's outputs' digests, and a split-K ``gemm_dw``'s, for a
+    bits comparison; a refused call's error instead."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    x, dy = (torch.randn(32 * 1024, 512, generator=g, device=g.device).to(torch.bfloat16)
+             for _ in range(2))
+    runs = {name: case["run"] for name, case in cases(g).items()}
+    runs["stage3_b32_gemm_dw_split_k"] = lambda: K.gemm_dw(x, dy)
+    got = {}
+    for name, run in runs.items():
+        try:
+            got[name] = [digest(t) for t in flat(run())]
+        except ValueError as e:
+            got[name] = [f"refused: {e}"]
+    return got
 
 
 def parse_arguments(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--out", type=str, default=None)
+    p.add_argument("--only", nargs="*", default=None,
+                   help="time only the cases whose names start with one of these")
     bits = p.add_mutually_exclusive_group()
     bits.add_argument("--bits-out", type=str, default=None,
                       help="save digests of the seeded cases' outputs here (JSON)")
@@ -172,7 +255,12 @@ def main(argv=None) -> None:
               "torch": torch.__version__}
     g = torch.Generator(device="cuda").manual_seed(SEED)
     for name, case in cases(g).items():
-        result[name] = measure(case, args.iters)
+        if args.only is not None and not name.startswith(tuple(args.only)):
+            continue
+        try:
+            result[name] = measure(case, args.iters)
+        except ValueError as e:   # a kernel that refuses the shape
+            result[name] = {"refused": str(e)}
         print(f"{name}: {json.dumps(result[name])}", flush=True)
     if args.bits_out or args.bits_against:
         got = outputs(torch.Generator(device="cuda").manual_seed(SEED + 1))

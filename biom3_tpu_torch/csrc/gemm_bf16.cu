@@ -52,9 +52,9 @@
 // and N (hopper::wide_tile).
 #include "hopper_gemm.cuh"
 
-// column sums of an f32 (rows, n) matrix into out (n,) (rowwise.cu)
-void b3_col_sum_f32(const float *x, int rows, long long n, float *out, float *partial,
-                    int parts, cudaStream_t stream);
+// column sums of an f32 (rows, n) matrix into out (n,), in a fixed order
+// (rowwise.cu)
+void b3_col_sum_f32(const float *x, int rows, long long n, float *out, cudaStream_t stream);
 
 namespace {
 
@@ -141,6 +141,6 @@ B3_EXPORT int b3_gemm_dw(const void *X, const void *dY, void *dW, void *ws, int 
                                                        K, ep, s, k_chunk);
   if (err || splits == 1) return err;
   b3_col_sum_f32(static_cast<const float *>(ws), splits, (long long)M * N,
-                 static_cast<float *>(dW), nullptr, 1, s);
+                 static_cast<float *>(dW), s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,18 +23,28 @@
 //   and then writes its tile of sequence rows.
 // * layernorm_bwd — _ln_bwd of the training kernels
 //   (biom3_tpu/ops/pallas/layer_block_tpu.py:58-68, inside
-//   layer_block_tpu.py:419 _bwd_call): recomputes x̂ and rstd from the
-//   layer's f32 (or bf16) input, dx = rstd·(dŷγ − mean(dŷγ) − x̂·mean(dŷγ·x̂))
-//   plus the residual's gradient, and dγ = Σ dŷ·x̂, dβ = Σ dŷ over the rows.
-//   Each block sums its rows' dγ/dβ into one partial row; a second pass
-//   (col_sum) adds the partial rows in a fixed order — the TPU adds them
-//   into one f32 strip over its sequential grid, which blocks running in
-//   parallel cannot do without atomics.
+//   layer_block_tpu.py:419 _bwd_call and esm2_block_tpu.py:411): recomputes
+//   x̂ and rstd from the layer's f32 (or bf16) input, dx = rstd·(dŷγ −
+//   mean(dŷγ) − x̂·mean(dŷγ·x̂)) plus the residual's gradient, and dγ = Σ
+//   dŷ·x̂, dβ = Σ dŷ over the rows.  Bound: bytes (x, dy, the residual and
+//   γ read once, dx and its copy written once).  One launch: up to d = 1280
+//   a warp stages its next row by cp.async while a lane holds x̂ and dy of
+//   its columns of this one in registers (layernorm_bwd_kernel<ceil(d /
+//   256)>), a wider row is staged in shared memory and worked on there
+//   (layernorm_bwd_wide_kernel); the grid fills the SMs (occupancy),
+//   each block sums its rows' dγ/dβ into one partial row, and the last
+//   blocks to finish add the partial rows over column tiles in row order
+//   (lnb_tail) — the TPU adds them into one f32 strip over its sequential
+//   grid, which blocks running in parallel cannot do without atomics.
 // * col_sum — f32 column sums of an (rows, n) matrix: the bias gradients
-//   dbo, db1, db2 (layer_block_tpu.py:230,240,262) and the fixed-order
-//   reduction of the split-K weight gradients (gemm_bf16.cu).  Pass 1 sums
-//   a slab of rows per block (8 warps, 8 columns a lane); pass 2 sums the
-//   slabs.
+//   dbo, db1, db2 (layer_block_tpu.py:230,240,262; esm2_block_tpu.py:187,
+//   352) and the fixed-order reduction of the split-K weight gradients
+//   (gemm_bf16.cu).  Bound: bytes (the matrix read once).  One launch: a
+//   grid of 64-column tiles × row slabs sized to fill the SMs, 8 rows'
+//   16-byte loads in flight a thread; the last block of a tile (an integer
+//   ticket) adds its slab sums in slab order.  Deterministic: fixed orders,
+//   no float atomics.  The tickets are one set per device, so calls on one
+//   device run one at a time (the port launches on one stream).
 // * quant_rows — the dynamic per-token activation quant of the int8 serving
 //   recipe (biom3_tpu/ops/pallas/quant.py:35-47, run inside
 //   stack_kernel_tpu.py:765, bert_stack_tpu.py:198, esm2_stack_tpu.py:294
@@ -55,8 +65,8 @@ namespace {
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
 // A row held in registers: ROW_CHUNKS 16-byte chunks of 8 columns a lane,
-// 256 columns a chunk, so d <= 1280 (ESM2-650M) — layernorm's one-read
-// kernel and layernorm_bwd.
+// 256 columns a chunk, so d <= 1280 (ESM2-650M) — the register routes of
+// layernorm and layernorm_bwd.
 constexpr int ROW_CHUNKS = 5;
 
 __device__ __forceinline__ void load8(const void *p, size_t off, int is_f32, float *v) {
@@ -401,160 +411,587 @@ __global__ void quant_rows_kernel(const void *__restrict__ x, int x_f32, int8_t 
 
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
 
-// d <= ROW_CHUNKS * 256 (checked by the wrapper).  A lane keeps x̂ and the
-// dγ/dβ sums of its columns in registers; dŷ·γ is read again (from L1/L2) for the
-// output, so the five chunks fit the registers without spilling.
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-layernorm_bwd_kernel(const void *__restrict__ x, int x_f32, const float *__restrict__ dy,
+// --------------------------------------------------------------------------
+// col_sum and layernorm_bwd: column reductions in a fixed order
+// --------------------------------------------------------------------------
+
+constexpr int RED_THREADS = 256;   // threads of a col_sum or layernorm_bwd block
+
+__device__ __forceinline__ void cp_async16(const void *smem, const void *gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 8 f32 columns another block wrote in this launch: read from L2 (.cg), past
+// this SM's L1.
+__device__ __forceinline__ void load8_l2(const float *p, float *v) {
+  const float4 a = __ldcg(reinterpret_cast<const float4 *>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4 *>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned *p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A block's column sums over the W = 8·LPR columns [c0, c0 + W) of rows
+// [r0, r1) of x (rows, n): thread (g, l) = (tid / LPR, tid % LPR) adds rows
+// r0 + g, r0 + g + G, ... (G = 256 / LPR) in order into its 8 columns,
+// with U rows' 16-byte loads in flight (8 of them); then each column's G partial sums
+// are added in g order (in K = 256 / W runs of G / K, then the K runs in
+// order).  Thread t < W returns the sum of column c0 + t.  `red` is shared
+// memory of col_red_floats<LPR>() floats; every thread of the block calls.
+// With LPR = 32 (G = 8, K = 1) the order is the one col_sum had when it
+// summed the split-K slabs of gemm_dw, whose bits it keeps.
+template <int LPR>
+__host__ __device__ constexpr int col_red_floats() {
+  return (RED_THREADS / LPR) * LPR * 8 + (LPR * 8 < RED_THREADS ? RED_THREADS : 0);
+}
+
+template <bool F32, int LPR, bool L2_ONLY>
+__device__ float block_col_sum(const void *__restrict__ x, int r0, int r1, long long n,
+                               long long c0, float *red) {
+  constexpr int G = RED_THREADS / LPR, W = LPR * 8, K = RED_THREADS / W, U = F32 ? 4 : 8;
+  const int g = threadIdx.x / LPR, l = threadIdx.x % LPR;
+  const long long c = c0 + l * 8;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c < n)
+    for (int r = r0 + g; r < r1; r += G * U) {
+      Chunk<F32> raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (r + u * G < r1) {
+          const size_t off = (size_t)(r + u * G) * n + c;
+          if constexpr (L2_ONLY) load8_l2(static_cast<const float *>(x) + off, raw[u].f);
+          else raw[u].load(x, off);
+        }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (r + u * G < r1) {
+          float v[8];
+          raw[u].unpack(v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] += v[e];
+        }
+    }
+  __syncthreads();   // red may still be read by a previous call
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[g * W + l * 8 + e] = acc[e];
+  __syncthreads();
+  const int col = threadIdx.x % W, k = threadIdx.x / W;
+  float a = 0.f;
+#pragma unroll
+  for (int i = 0; i < G / K; ++i) a += red[(k * (G / K) + i) * W + col];
+  if constexpr (K == 1) {
+    return a;
+  } else {
+    float *runs = red + G * W;
+    runs[k * W + col] = a;
+    __syncthreads();
+    a = 0.f;
+    if (threadIdx.x < W)
+#pragma unroll
+      for (int i = 0; i < K; ++i) a += runs[i * W + col];
+    return a;
+  }
+}
+
+constexpr int CS_LPR = 8;                   // col_sum: 64-column tiles, 32 rows at once
+constexpr int CS_TILE = CS_LPR * 8;
+constexpr int CS_MAX_TILES = 4096;          // tiles that may have more than one slab
+__device__ unsigned int cs_tickets[CS_MAX_TILES];   // one a tile; each resets itself
+
+// Grid (tiles, slabs): block (t, s) sums rows [s·per, (s+1)·per) over tile
+// t's columns.  With one slab it writes out; else it writes its slab sum,
+// and the last block of the tile to finish (an integer ticket after a
+// fence) adds the tile's slab sums in slab order and resets the ticket.
+template <bool F32, int LPR>
+__global__ void __launch_bounds__(RED_THREADS)
+col_sum_kernel(const void *__restrict__ x, int rows, long long n, int per, int slabs,
+               float *__restrict__ out, float *__restrict__ slab_sums) {
+  __shared__ float red[col_red_floats<LPR>()];
+  __shared__ bool last;
+  constexpr int W = LPR * 8;
+  const long long c0 = (long long)blockIdx.x * W, col = c0 + threadIdx.x;
+  const int r0 = blockIdx.y * per, r1 = min(rows, r0 + per);
+  float s = block_col_sum<F32, LPR, false>(x, r0, r1, n, c0, red);
+  const bool owner = threadIdx.x < W && col < n;
+  if (slabs == 1) {
+    if (owner) out[col] = s;
+    return;
+  }
+  if (owner) slab_sums[(size_t)blockIdx.y * n + col] = s;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&cs_tickets[blockIdx.x], 1u) == (unsigned)slabs - 1;
+    if (last) cs_tickets[blockIdx.x] = 0;   // every slab of the tile has arrived
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  s = block_col_sum<true, LPR, true>(slab_sums, 0, slabs, n, c0, red);
+  if (owner) out[col] = s;
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// layernorm_bwd's dγ/dβ tail.  Each block has written its partial row
+// [dγ | dβ] (2d floats) to partial[blockIdx.x].  The last T blocks to take
+// a ticket wait until all P = gridDim.x have (the blocks still running
+// need no slot: at least P − T ≥ T − 1 blocks have left), then tail block j
+// sums 64-column tiles j, j + T, ... over the P partial rows with
+// block_col_sum: row order within a thread, then the fixed merge — the
+// bits do not depend on which block finished when.  The last tail block
+// out resets both tickets.  A wait over ~10 s traps: a fault fails the
+// launch instead of hanging the card.
+__device__ unsigned int lnb_arrived, lnb_left;
+
+__device__ void lnb_tail(const float *partial, long long n2, float *dgb, int T, float *red) {
+  __shared__ int slot;
+  const int P = gridDim.x;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    slot = (int)atomicAdd(&lnb_arrived, 1u) - (P - T);
+    if (slot >= 0) {
+      unsigned long long t0, t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+      while (ld_acquire(&lnb_arrived) < (unsigned)P) {
+        __nanosleep(32);
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        if (t - t0 > 10000000000ull) __trap();
+      }
+    }
+  }
+  __syncthreads();
+  if (slot < 0) return;
+  __threadfence();
+  for (long long c0 = (long long)slot * CS_TILE; c0 < n2; c0 += (long long)T * CS_TILE) {
+    const float s = block_col_sum<true, CS_LPR, true>(partial, 0, P, n2, c0, red);
+    if (threadIdx.x < CS_TILE && c0 + threadIdx.x < n2) dgb[c0 + threadIdx.x] = s;
+  }
+  if (threadIdx.x == 0 && atomicAdd(&lnb_left, 1u) == (unsigned)T - 1) {
+    lnb_arrived = 0;
+    lnb_left = 0;
+  }
+}
+
+// Stores one chunk of dx (f32 or bf16) and its optional bf16 copy.
+__device__ __forceinline__ void store_dx(void *dx, int dx_f32, bf16 *dx16, size_t off,
+                                         const float *o) {
+  if (dx_f32) {
+    float4 *p = reinterpret_cast<float4 *>(static_cast<float *>(dx) + off);
+    p[0] = make_float4(o[0], o[1], o[2], o[3]);
+    p[1] = make_float4(o[4], o[5], o[6], o[7]);
+  } else {
+    *reinterpret_cast<uint4 *>(static_cast<bf16 *>(dx) + off) = pack8(o);
+  }
+  if (dx16) *reinterpret_cast<uint4 *>(dx16 + off) = pack8(o);
+}
+
+// Copies a lane's chunks (columns lane·8 + 256·i < d) of one row, esz
+// bytes an element, into a shared row laid out as the global one.
+__device__ __forceinline__ void stage_row(unsigned char *dst, const void *src, size_t row, int d,
+                                          int esz, int lane) {
+  const char *s = static_cast<const char *>(src) + row * d * esz;
+  for (int c = lane * 8; c < d; c += 256)
+    for (int k = 0; k < esz / 2; ++k) cp_async16(dst + c * esz + 16 * k, s + c * esz + 16 * k);
+}
+
+// Register route, d <= 256·NC: a warp per row, 8 rows at once, rows
+// gridDim·8 apart.  A lane loads its NC chunks of x and dy together and
+// keeps x̂, dy and its columns' dγ/dβ sums in registers; γ sits in shared
+// memory, read once a block; the residual's chunks go to the warp's shared
+// slot by cp.async at the row's start and are read back for the output.
+// x, dy, the residual and γ are each read once.  At the end the 8 warps'
+// sums are added in warp order into the block's partial row, and lnb_tail
+// adds the partial rows.  Shared memory: γ (NC·256 floats), then one region
+// that holds the warps' residual rows in the row loop, their sums after it
+// and block_col_sum's scratch in the tail (at most 45 KB).
+template <int NC>
+constexpr size_t lnb_smem() {
+  return (NC * 256 + std::max(ROWS_PER_BLOCK * NC * 256, col_red_floats<CS_LPR>())) *
+         sizeof(float);
+}
+
+template <int NC, bool XF32>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32, NC <= 2 ? 2 : 1)
+layernorm_bwd_kernel(const void *__restrict__ x, const float *__restrict__ dy,
                      const float *__restrict__ gamma, const void *__restrict__ res, int res_f32,
                      void *__restrict__ dx, int dx_f32, bf16 *__restrict__ dx16,
-                     float *__restrict__ partial, int rows, int d, float eps) {
-  __shared__ float red[ROWS_PER_BLOCK][ROW_CHUNKS * 256];
+                     float *__restrict__ dgb, float *__restrict__ partial, int rows, int d,
+                     float eps, int tail) {
+  extern __shared__ __align__(16) float lnb_smem_f[];
+  float *gs = lnb_smem_f, *region = lnb_smem_f + NC * 256;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float dg[ROW_CHUNKS][8], db[ROW_CHUNKS][8];
+  float *slot = region + warp * NC * 256;   // this warp's residual row, then its sums
+  const int res_esz = res_f32 ? 4 : 2;
+  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4)
+    *reinterpret_cast<float4 *>(gs + c) = *reinterpret_cast<const float4 *>(gamma + c);
+  __syncthreads();
+  float dg[NC][8], db[NC][8];
 #pragma unroll
-  for (int k = 0; k < ROW_CHUNKS; ++k)
+  for (int i = 0; i < NC; ++i)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) dg[k][e] = db[k][e] = 0.f;
+    for (int e = 0; e < 8; ++e) dg[i][e] = db[i][e] = 0.f;
 
   for (int row = blockIdx.x * ROWS_PER_BLOCK + warp; row < rows;
        row += gridDim.x * ROWS_PER_BLOCK) {
     const size_t off = (size_t)row * d;
-    float xv[ROW_CHUNKS][8], s = 0.f;
+    if (res) stage_row(reinterpret_cast<unsigned char *>(slot), res, row, d, res_esz, lane);
+    Chunk<XF32> raw[NC];
+    float gv[NC][8], xv[NC][8];
 #pragma unroll
-    for (int k = 0; k < ROW_CHUNKS; ++k) {
-      const int c = lane * 8 + k * 256;
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
       if (c < d) {
-        load8(x, off + c, x_f32, xv[k]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += xv[k][e];
+        raw[i].load(x, off + c);
+        load8(dy, off + c, 1, gv[i]);
       }
     }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (lane * 8 + i * 256 < d) {
+        raw[i].unpack(xv[i]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += xv[i][e];
+      }
     const float mean = warp_sum(s) / d;
     float q = 0.f;
 #pragma unroll
-    for (int k = 0; k < ROW_CHUNKS; ++k)
-      if (lane * 8 + k * 256 < d)
+    for (int i = 0; i < NC; ++i)
+      if (lane * 8 + i * 256 < d)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          xv[k][e] -= mean;
-          q += xv[k][e] * xv[k][e];
+          xv[i][e] -= mean;
+          q += xv[i][e] * xv[i][e];
         }
     const float rstd = rsqrtf(warp_sum(q) / d + eps);
-    // x̂ in xv; the two row means of dŷ·γ and dŷ·γ·x̂
+    // x̂ in xv; the row means of dŷ·γ and dŷ·γ·x̂
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int k = 0; k < ROW_CHUNKS; ++k) {
-      const int c = lane * 8 + k * 256;
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
       if (c < d) {
-        float gv[8], g[8];
-        load8(dy, off + c, 1, gv);
-        load8(gamma, c, 1, g);
+        float g[8];
+        load8(gs, c, 1, g);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          xv[k][e] *= rstd;
-          dg[k][e] += gv[e] * xv[k][e];
-          db[k][e] += gv[e];
-          s1 += gv[e] * g[e];
-          s2 += gv[e] * g[e] * xv[k][e];
+          xv[i][e] *= rstd;
+          dg[i][e] += gv[i][e] * xv[i][e];
+          db[i][e] += gv[i][e];
+          const float t = gv[i][e] * g[e];
+          s1 += t;
+          s2 += t * xv[i][e];
         }
       }
     }
     s1 = warp_sum(s1) / d;
     s2 = warp_sum(s2) / d;
+    if (res) cp_async_wait_all();
 #pragma unroll
-    for (int k = 0; k < ROW_CHUNKS; ++k) {
-      const int c = lane * 8 + k * 256;
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
       if (c < d) {
-        float gv[8], g[8], r[8], o[8];
-        load8(dy, off + c, 1, gv);
-        load8(gamma, c, 1, g);
-        if (res) load8(res, off + c, res_f32, r);
+        float g[8], r[8], o[8];
+        load8(gs, c, 1, g);
+        if (res) load8(slot, c, res_f32, r);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          o[e] = rstd * (gv[e] * g[e] - s1 - xv[k][e] * s2);
+          o[e] = rstd * (gv[i][e] * g[e] - s1 - xv[i][e] * s2);
           if (res) o[e] += r[e];
         }
-        if (dx_f32) {
-          float4 *p = reinterpret_cast<float4 *>(static_cast<float *>(dx) + off + c);
-          p[0] = make_float4(o[0], o[1], o[2], o[3]);
-          p[1] = make_float4(o[4], o[5], o[6], o[7]);
-        } else {
-          *reinterpret_cast<uint4 *>(static_cast<bf16 *>(dx) + off + c) = pack8(o);
-        }
-        if (dx16) *reinterpret_cast<uint4 *>(dx16 + off + c) = pack8(o);
+        store_dx(dx, dx_f32, dx16, off + c, o);
       }
     }
   }
-  // this block's dγ then dβ partial row: partial[blockIdx.x] = [dγ | dβ]
+  // the block's partial row [dγ | dβ]: the 8 warps' sums in warp order
   float *prow = partial + (size_t)blockIdx.x * 2 * d;
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-    for (int k = 0; k < ROW_CHUNKS; ++k) {
-      const int c = lane * 8 + k * 256;
-      if (c < d)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) red[warp][c + e] = pass ? db[k][e] : dg[k][e];
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
+      if (c < d) store8(nullptr, slot, c, pass ? db[i] : dg[i]);
     }
     __syncthreads();
     for (int c = threadIdx.x; c < d; c += blockDim.x) {
       float a = 0.f;
 #pragma unroll
-      for (int w = 0; w < ROWS_PER_BLOCK; ++w) a += red[w][c];
+      for (int w = 0; w < ROWS_PER_BLOCK; ++w) a += region[w * NC * 256 + c];
       prow[pass * d + c] = a;
     }
     __syncthreads();
   }
+  lnb_tail(partial, 2LL * d, dgb, tail, region);
 }
 
-constexpr int CS_COLS = 256;  // columns per col_sum block (8 per lane)
-
-// Rows [y·rows_per_part, (y+1)·rows_per_part) of x (rows, n) summed into
-// out[y] (one row of n floats); grid (ceil(n / 256), parts).
-template <bool F32>
+// Shared-memory route (every d > 256·ROW_CHUNKS): blocks of 8 warps take
+// `round_rows` rows a round (as many as WIDE_STAGE_BYTES of staging hold,
+// at least one).  Warp w < round_rows copies one row's x, dy and residual
+// into its shared slot (cp.async), takes the row statistics and the two
+// row means there and writes dx (γ from L1/L2).  Then, after a barrier,
+// thread t adds the round's rows in warp order into its columns t·4 +
+// 1024·k of the block's dγ/dβ sums — in registers up to d = 4096, else in
+// the block's partial row, which it alone reads and writes (in L2) — and
+// lnb_tail adds the partial rows.
+template <bool XF32>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-col_sum_kernel(const void *__restrict__ x, int rows, long long n, int rows_per_part,
-               float *__restrict__ out) {
-  __shared__ float red[ROWS_PER_BLOCK][CS_COLS + 1];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * CS_COLS + lane * 8;
-  const int r0 = blockIdx.y * rows_per_part, r1 = min(rows, r0 + rows_per_part);
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (c < n)
-    for (int r = r0 + warp; r < r1; r += ROWS_PER_BLOCK) {
-      float v[8];
-      load8(x, (size_t)r * n + c, F32, v);
+layernorm_bwd_wide_kernel(const void *__restrict__ x, const float *__restrict__ dy,
+                          const float *__restrict__ gamma, const void *__restrict__ res,
+                          int res_f32, void *__restrict__ dx, int dx_f32, bf16 *__restrict__ dx16,
+                          float *__restrict__ dgb, float *__restrict__ partial, int rows, int d,
+                          float eps, int tail, int round_rows) {
+  extern __shared__ __align__(16) unsigned char lnbw_smem[];
+  __shared__ float stats[ROWS_PER_BLOCK][2];   // mean, rstd of each warp's row
+  constexpr int XSZ = XF32 ? 4 : 2, GROUPS = 4, STEP = ROWS_PER_BLOCK * 32 * 4;
+  const int warps = round_rows, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int res_esz = res ? (res_f32 ? 4 : 2) : 0;
+  const size_t row_bytes = (size_t)d * (XSZ + 4 + res_esz);
+  auto xs = [&](int w) { return lnbw_smem + w * row_bytes; };
+  auto dys = [&](int w) { return reinterpret_cast<float *>(xs(w) + d * XSZ); };
+  float *prow = partial + (size_t)blockIdx.x * 2 * d;
+  const bool in_regs = d <= GROUPS * STEP;
+  float4 a[GROUPS], b[GROUPS];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] += v[e];
+  for (int j = 0; j < GROUPS; ++j) a[j] = b[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!in_regs)
+    for (int c = threadIdx.x * 4; c < d; c += STEP) {
+      *reinterpret_cast<float4 *>(prow + c) = a[0];
+      *reinterpret_cast<float4 *>(prow + d + c) = a[0];
     }
+  for (int base = blockIdx.x * warps; base < rows; base += gridDim.x * warps) {
+    const int row = base + warp;
+    if (warp < warps && row < rows) {
+      const size_t off = (size_t)row * d;
+      unsigned char *xr = xs(warp), *rr = xr + d * (XSZ + 4);
+      float *dr = dys(warp);
+      stage_row(xr, x, row, d, XSZ, lane);
+      stage_row(reinterpret_cast<unsigned char *>(dr), dy, row, d, 4, lane);
+      if (res) stage_row(rr, res, row, d, res_esz, lane);
+      cp_async_wait_all();
+      float sx = 0.f, q = 0.f, s1 = 0.f, s2 = 0.f, v[8], gv[8], g[8], r[8], o[8];
+#pragma unroll 4
+      for (int c = lane * 8; c < d; c += 256) {
+        load8(xr, c, XF32, v);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) red[warp][lane * 8 + e] = acc[e];
-  __syncthreads();
-  const long long col = (long long)blockIdx.x * CS_COLS + threadIdx.x;
-  if (col < n) {
-    float a = 0.f;
+        for (int e = 0; e < 8; ++e) sx += v[e];
+      }
+      const float mean = warp_sum(sx) / d;
+#pragma unroll 4
+      for (int c = lane * 8; c < d; c += 256) {
+        load8(xr, c, XF32, v);
 #pragma unroll
-    for (int w = 0; w < ROWS_PER_BLOCK; ++w) a += red[w][threadIdx.x];
-    out[(size_t)blockIdx.y * n + col] = a;
+        for (int e = 0; e < 8; ++e) q += (v[e] - mean) * (v[e] - mean);
+      }
+      const float rstd = rsqrtf(warp_sum(q) / d + eps);
+#pragma unroll 4
+      for (int c = lane * 8; c < d; c += 256) {
+        load8(xr, c, XF32, v);
+        load8(dr, c, 1, gv);
+        load8(gamma, c, 1, g);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float t = gv[e] * g[e];
+          s1 += t;
+          s2 += t * ((v[e] - mean) * rstd);
+        }
+      }
+      s1 = warp_sum(s1) / d;
+      s2 = warp_sum(s2) / d;
+#pragma unroll 2
+      for (int c = lane * 8; c < d; c += 256) {
+        load8(xr, c, XF32, v);
+        load8(dr, c, 1, gv);
+        load8(gamma, c, 1, g);
+        if (res) load8(rr, c, res_f32, r);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[e] = rstd * (gv[e] * g[e] - s1 - ((v[e] - mean) * rstd) * s2);
+          if (res) o[e] += r[e];
+        }
+        store_dx(dx, dx_f32, dx16, off + c, o);
+      }
+      if (lane == 0) {
+        stats[warp][0] = mean;
+        stats[warp][1] = rstd;
+      }
+    }
+    __syncthreads();
+    const int live = min(warps, rows - base);
+    for (int c0 = threadIdx.x * 4; c0 < d; c0 += GROUPS * STEP) {
+      if (!in_regs)
+#pragma unroll
+        for (int j = 0; j < GROUPS; ++j)
+          if (c0 + j * STEP < d) {
+            a[j] = *reinterpret_cast<const float4 *>(prow + c0 + j * STEP);
+            b[j] = *reinterpret_cast<const float4 *>(prow + d + c0 + j * STEP);
+          }
+      for (int w = 0; w < live; ++w) {
+        const float mean = stats[w][0], rstd = stats[w][1];
+#pragma unroll
+        for (int j = 0; j < GROUPS; ++j) {
+          const int c = c0 + j * STEP;
+          if (c >= d) continue;
+          float xv[4];
+          if constexpr (XF32) {
+            const float4 t = *reinterpret_cast<const float4 *>(xs(w) + c * 4);
+            xv[0] = t.x; xv[1] = t.y; xv[2] = t.z; xv[3] = t.w;
+          } else {
+            const uint2 t = *reinterpret_cast<const uint2 *>(xs(w) + c * 2);
+            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(&t.x));
+            const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(&t.y));
+            xv[0] = lo.x; xv[1] = lo.y; xv[2] = hi.x; xv[3] = hi.y;
+          }
+          const float4 gy = *reinterpret_cast<const float4 *>(dys(w) + c);
+          a[j].x += gy.x * ((xv[0] - mean) * rstd);
+          a[j].y += gy.y * ((xv[1] - mean) * rstd);
+          a[j].z += gy.z * ((xv[2] - mean) * rstd);
+          a[j].w += gy.w * ((xv[3] - mean) * rstd);
+          b[j].x += gy.x;
+          b[j].y += gy.y;
+          b[j].z += gy.z;
+          b[j].w += gy.w;
+        }
+      }
+      if (!in_regs)
+#pragma unroll
+        for (int j = 0; j < GROUPS; ++j)
+          if (c0 + j * STEP < d) {
+            *reinterpret_cast<float4 *>(prow + c0 + j * STEP) = a[j];
+            *reinterpret_cast<float4 *>(prow + d + c0 + j * STEP) = b[j];
+          }
+    }
+    __syncthreads();
   }
+  if (in_regs)
+#pragma unroll
+    for (int j = 0; j < GROUPS; ++j) {
+      const int c = threadIdx.x * 4 + j * STEP;
+      if (c < d) {
+        *reinterpret_cast<float4 *>(prow + c) = a[j];
+        *reinterpret_cast<float4 *>(prow + d + c) = b[j];
+      }
+    }
+  lnb_tail(partial, 2LL * d, dgb, tail, reinterpret_cast<float *>(lnbw_smem));
 }
 
-// x (rows, n) → out (n,): with parts > 1, pass 1 sums ceil(rows / parts)
-// rows per partial row of `partial` (parts, n) and pass 2 sums those.
-template <bool F32>
-void col_sum(const void *x, int rows, long long n, float *out, float *partial, int parts,
-             cudaStream_t stream) {
-  const unsigned gx = (unsigned)((n + CS_COLS - 1) / CS_COLS);
-  if (parts <= 1) {
-    col_sum_kernel<F32><<<dim3(gx, 1), ROWS_PER_BLOCK * 32, 0, stream>>>(x, rows, n, rows, out);
-    return;
+// The shared-memory route's rows a round and dynamic shared memory (the
+// staged rows, at least block_col_sum's scratch for the tail).
+constexpr size_t WIDE_STAGE_BYTES = 160 << 10;
+
+struct WidePlan {
+  int round_rows;
+  size_t smem;
+};
+
+WidePlan lnb_wide_plan(int d, int x_f32, int res_bytes) {
+  const size_t row_bytes = (size_t)d * ((x_f32 ? 8 : 6) + res_bytes);
+  const int n = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(ROWS_PER_BLOCK, WIDE_STAGE_BYTES / row_bytes)));
+  return {n, std::max<size_t>(n * row_bytes, col_red_floats<CS_LPR>() * sizeof(float))};
+}
+
+// Blocks of the register route: all an SM holds (occupancy), at most one
+// per 16 rows (two a warp).
+template <int NC>
+int lnb_grid(int rows, int x_f32) {
+  static int per_sm[2] = {0, 0};
+  if (!per_sm[x_f32])
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[x_f32], x_f32 ? layernorm_bwd_kernel<NC, true> : layernorm_bwd_kernel<NC, false>,
+        ROWS_PER_BLOCK * 32, lnb_smem<NC>());
+  return std::max(1, std::min(sm_count() * std::max(per_sm[x_f32], 1),
+                              (rows + 2 * ROWS_PER_BLOCK - 1) / (2 * ROWS_PER_BLOCK)));
+}
+
+// The shared-memory route's kernel for x's type, opted in to the dynamic
+// shared memory `plan` needs past 47 KB (the most asked so far); null if it
+// does not fit beside the kernel's static shared memory (under 1 KB).
+using LnbWideKernel = void (*)(const void *, const float *, const float *, const void *, int,
+                               void *, int, bf16 *, float *, float *, int, int, float, int,
+                               int);
+
+LnbWideKernel lnb_wide_kernel(const WidePlan &plan, int x_f32) {
+  const LnbWideKernel kernel =
+      x_f32 ? layernorm_bwd_wide_kernel<true> : layernorm_bwd_wide_kernel<false>;
+  static size_t opted[2] = {0, 0};
+  if (plan.smem <= (47 << 10) || plan.smem <= opted[x_f32]) return kernel;
+  static int smem_optin = 0;
+  if (!smem_optin) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  const int per = (rows + parts - 1) / parts;
-  col_sum_kernel<F32><<<dim3(gx, parts), ROWS_PER_BLOCK * 32, 0, stream>>>(x, rows, n, per,
-                                                                           partial);
-  col_sum_kernel<true><<<dim3(gx, 1), ROWS_PER_BLOCK * 32, 0, stream>>>(partial, parts, n, parts,
-                                                                        out);
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, kernel);
+  if (plan.smem + attr.sharedSizeBytes > (size_t)smem_optin) return nullptr;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(plan.smem));
+  opted[x_f32] = plan.smem;
+  return kernel;
+}
+
+// The shared-memory route's blocks the same way; 0 if a row does not fit.
+int lnb_wide_grid(int rows, int d, int x_f32, int res_bytes) {
+  const WidePlan plan = lnb_wide_plan(d, x_f32, res_bytes);
+  const LnbWideKernel kernel = lnb_wide_kernel(plan, x_f32);
+  if (!kernel) return 0;
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, ROWS_PER_BLOCK * 32,
+                                                plan.smem);
+  return std::max(1, std::min(sm_count() * std::max(per_sm, 1),
+                              (rows + 2 * plan.round_rows - 1) / (2 * plan.round_rows)));
+}
+
+// The tail's blocks: one per 64-column tile of [dγ | dβ], at most (P + 1) / 2.
+inline int lnb_tail_blocks(int blocks, int d) {
+  return std::max(1, std::min((2 * d + CS_TILE - 1) / CS_TILE, (blocks + 1) / 2));
+}
+
+template <int NC>
+int launch_layernorm_bwd(const void *x, int x_f32, const float *dy, const float *gamma,
+                         const void *res, int res_f32, void *dx, int dx_f32, bf16 *dx16,
+                         float *dgb, float *partial, int rows, int d, int blocks, float eps,
+                         cudaStream_t s) {
+  const auto kernel = x_f32 ? layernorm_bwd_kernel<NC, true> : layernorm_bwd_kernel<NC, false>;
+  kernel<<<blocks, ROWS_PER_BLOCK * 32, lnb_smem<NC>(), s>>>(
+      x, dy, gamma, res, res_f32, dx, dx_f32, dx16, dgb, partial, rows, d, eps,
+      lnb_tail_blocks(blocks, d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_layernorm_bwd_wide(const void *x, int x_f32, const float *dy, const float *gamma,
+                              const void *res, int res_f32, void *dx, int dx_f32, bf16 *dx16,
+                              float *dgb, float *partial, int rows, int d, int blocks, float eps,
+                              cudaStream_t s) {
+  const WidePlan plan = lnb_wide_plan(d, x_f32, res ? (res_f32 ? 4 : 2) : 0);
+  const LnbWideKernel kernel = lnb_wide_kernel(plan, x_f32);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<blocks, ROWS_PER_BLOCK * 32, plan.smem, s>>>(x, dy, gamma, res, res_f32, dx, dx_f32,
+                                                        dx16, dgb, partial, rows, d, eps,
+                                                        lnb_tail_blocks(blocks, d),
+                                                        plan.round_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NC>
@@ -608,9 +1045,12 @@ int launch_layernorm_wide(const void *x, int x_f32, const float *scale, const fl
 
 }  // namespace
 
-void b3_col_sum_f32(const float *x, int rows, long long n, float *out, float *partial, int parts,
-                    cudaStream_t stream) {
-  col_sum<true>(x, rows, n, out, partial, parts, stream);
+// gemm_dw's split-K slabs, x (rows, n) f32 → out (n,): one slab, 8 rows
+// at once in 256-column tiles — the order that keeps gemm_dw's bits.
+void b3_col_sum_f32(const float *x, int rows, long long n, float *out, cudaStream_t stream) {
+  const unsigned tiles = static_cast<unsigned>((n + 255) / 256);
+  col_sum_kernel<true, 32><<<dim3(tiles, 1), RED_THREADS, 0, stream>>>(x, rows, n, rows, 1, out,
+                                                                     nullptr);
 }
 
 // All row kernels need d % 8 == 0 and contiguous, 16-byte aligned rows.
@@ -685,32 +1125,72 @@ B3_EXPORT int b3_esm2_embed(const void *ids, const void *table, void *out, int B
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (rows, n) f32 or bf16 → out (n,) f32; n % 8 == 0; partial (parts, n)
-// f32 scratch when parts > 1.
-B3_EXPORT int b3_col_sum(const void *x, int x_f32, int rows, int n, void *out, void *partial,
-                         int parts, void *stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_f32)
-    col_sum<true>(x, rows, n, static_cast<float *>(out), static_cast<float *>(partial), parts, s);
-  else
-    col_sum<false>(x, rows, n, static_cast<float *>(out), static_cast<float *>(partial), parts, s);
+// Blocks of col_sum an SM holds times the SMs: the wrapper's rule
+// (ops/kernels.col_sum_plan) splits the rows into as many slabs as fill
+// them in one wave.
+B3_EXPORT int b3_col_sum_capacity(int x_f32) {
+  static int per_sm[2] = {0, 0};
+  if (!per_sm[x_f32])
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[x_f32], x_f32 ? col_sum_kernel<true, CS_LPR> : col_sum_kernel<false, CS_LPR>,
+        RED_THREADS, 0);
+  return sm_count() * std::max(per_sm[x_f32], 1);
+}
+
+// x (rows, n) f32 or bf16 → out (n,) f32; n % 8 == 0; grid (ceil(n / 64),
+// slabs), slab s summing rows [s·per, (s+1)·per); slab_sums (slabs, n) f32
+// scratch when slabs > 1 (at most CS_MAX_TILES tiles then).
+B3_EXPORT int b3_col_sum(const void *x, int x_f32, int rows, int n, void *out, void *slab_sums,
+                         int slabs, int per, void *stream) {
+  const unsigned tiles = static_cast<unsigned>((n + CS_TILE - 1) / CS_TILE);
+  if (slabs < 1 || per < 1 || (slabs > 1 && tiles > CS_MAX_TILES))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = x_f32 ? col_sum_kernel<true, CS_LPR> : col_sum_kernel<false, CS_LPR>;
+  kernel<<<dim3(tiles, slabs), RED_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, rows, n, per, slabs, static_cast<float *>(out), static_cast<float *>(slab_sums));
   return static_cast<int>(cudaGetLastError());
+}
+
+// layernorm_bwd's blocks for (rows, d), x's type, the residual's bytes an
+// element (0: none) and the route (the partial rows the wrapper
+// allocates); 0 if the route does not take the row.
+B3_EXPORT int b3_layernorm_bwd_grid(int rows, int d, int x_f32, int res_bytes, int wide) {
+  if (res_bytes != 0 && res_bytes != 2 && res_bytes != 4) return 0;
+  if (wide) return lnb_wide_grid(rows, d, x_f32, res_bytes);
+  switch ((d + 255) / 256) {
+    case 1: return lnb_grid<1>(rows, x_f32);
+    case 2: return lnb_grid<2>(rows, x_f32);
+    case 3: return lnb_grid<3>(rows, x_f32);
+    case 4: return lnb_grid<4>(rows, x_f32);
+    case 5: return lnb_grid<5>(rows, x_f32);
+    default: return 0;
+  }
 }
 
 // x (rows, d) f32 or bf16, dy (rows, d) f32, gamma (d,) f32, res (rows, d)
 // f32 or bf16 or null → dx (rows, d) f32 or bf16, optionally a bf16 copy
-// dx16 of it, and dgb (2d,) = [dγ | dβ]; partial (blocks, 2d) f32 scratch;
-// d % 8 == 0 and d <= 1280.
+// dx16 of it, and dgb (2d,) = [dγ | dβ]; partial (blocks, 2d) f32 scratch,
+// blocks from b3_layernorm_bwd_grid; d % 8 == 0.  `wide`: the
+// shared-memory route (layernorm_bwd_wide_kernel), else the register route
+// (layernorm_bwd_kernel<ceil(d / 256)>, d <= 256 · ROW_CHUNKS).
 B3_EXPORT int b3_layernorm_bwd(const void *x, int x_f32, const void *dy, const void *gamma,
                                const void *res, int res_f32, void *dx, int dx_f32, void *dx16,
-                               void *dgb, void *partial, int rows, int d, int blocks, float eps,
-                               void *stream) {
+                               void *dgb, void *partial, int rows, int d, int blocks, int wide,
+                               float eps, void *stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float *g = static_cast<const float *>(gamma), *dyf = static_cast<const float *>(dy);
+  bf16 *d16 = static_cast<bf16 *>(dx16);
+  float *out = static_cast<float *>(dgb), *part = static_cast<float *>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  layernorm_bwd_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0, s>>>(
-      x, x_f32, static_cast<const float *>(dy), static_cast<const float *>(gamma), res, res_f32,
-      dx, dx_f32, static_cast<bf16 *>(dx16), static_cast<float *>(partial), rows, d, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  col_sum<true>(partial, blocks, 2LL * d, static_cast<float *>(dgb), nullptr, 1, s);
-  return static_cast<int>(cudaGetLastError());
+#define B3_LNB_ARGS x, x_f32, dyf, g, res, res_f32, dx, dx_f32, d16, out, part, rows, d, blocks, eps, s
+  if (wide) return launch_layernorm_bwd_wide(B3_LNB_ARGS);
+  switch ((d + 255) / 256) {
+    case 1: return launch_layernorm_bwd<1>(B3_LNB_ARGS);
+    case 2: return launch_layernorm_bwd<2>(B3_LNB_ARGS);
+    case 3: return launch_layernorm_bwd<3>(B3_LNB_ARGS);
+    case 4: return launch_layernorm_bwd<4>(B3_LNB_ARGS);
+    case 5: return launch_layernorm_bwd<5>(B3_LNB_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef B3_LNB_ARGS
 }

@@ -33,14 +33,17 @@ LIB_PATH = BUILD_DIR / "libbiom3_kernels.so"
 PTXAS_REPORT = BUILD_DIR / "ptxas.txt"  # registers, spills, shared memory per kernel
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# C entry points: name → argument types (every one returns cudaGetLastError())
+# C entry points: name → argument types (every one returns an int: the
+# launches cudaGetLastError(), the ``_grid``/``_capacity`` queries a block count)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "b3_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_gemm_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_gemm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "b3_col_sum": [_P, _I, _I, _I, _P, _P, _I, _P],
-    "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    "b3_col_sum": [_P, _I, _I, _I, _P, _P, _I, _I, _P],
+    "b3_col_sum_capacity": [_I],
+    "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "b3_layernorm_bwd_grid": [_I, _I, _I, _I, _I],
     "b3_stage3_attention_bwd": [_P] * 8 + [_I] * 7 + [_P],
     "b3_stage3_attention_core": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "b3_dense_attention": [_P, _P, _I, _I, _I, _I, _P],

@@ -596,8 +596,19 @@ def esm2_embed_plain(ids, table, *, pad_idx=1, mask_idx=32, token_dropout=True):
 # (csrc/esm2_attn_bwd.cu)
 # --------------------------------------------------------------------------
 
-LNB_MAX_D = 1280      # the kernel keeps 5 chunks of 256 columns a row in registers
-LNB_BLOCKS = 4 * 132  # row blocks of layernorm_bwd: four per SM
+LNB_REGISTER_COLS = 1280        # layernorm_bwd holds rows up to this wide in registers
+LNB_STAGED_BYTES = 227 << 10    # and stages a wider row of x, dy and the residual in one
+                                # block's shared memory (sm_90's most a block)
+
+
+@functools.lru_cache(maxsize=256)
+def _layernorm_bwd_blocks(rows: int, d: int, x_f32: bool, res_bytes: int, wide: bool,
+                          device: int) -> int:
+    """layernorm_bwd's grid (its partial rows): the blocks the SMs hold at
+    the route's occupancy, at most one per two rows a warp
+    (``csrc/rowwise.cu``); 0 if the route does not take the row."""
+    with torch.cuda.device(device):
+        return _build.library().b3_layernorm_bwd_grid(rows, d, int(x_f32), res_bytes, int(wide))
 
 
 def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, *,
@@ -606,8 +617,9 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, *,
     """Backward of ``layernorm`` over the last dim of x (rows, d), from its
     input (x̂ and rstd are recomputed) and the output gradient dy (rows, d)
     f32 → (dx + residual in ``out_dtype``, dscale, dshift) with dscale and
-    dshift (d,) f32 summed over the rows.  With ``want_cd`` the first item
-    is (dx, dx in x's compute dtype)."""
+    dshift (d,) f32 summed over the rows in a fixed order (the same bits
+    every call).  With ``want_cd`` the first item is (dx, dx in x's compute
+    dtype)."""
     cd = _compute_dtypes(x)
     _check("x", x, dtypes=(torch.float32,) + cd, ndim=2, vectors=True)
     rows, d = x.shape
@@ -621,18 +633,26 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, *,
     if not x.is_cuda:
         return layernorm_bwd_plain(x, dy, scale, residual=residual, eps=eps,
                                    out_dtype=out_dtype, want_cd=want_cd)
-    if d % 8 or d > LNB_MAX_D:
-        raise ValueError(f"layernorm_bwd kernel needs d % 8 == 0 and d <= {LNB_MAX_D}, got {d}")
+    res_bytes = 0 if residual is None else residual.element_size()
+    if d % 8 or d * (x.element_size() + 4 + res_bytes) > LNB_STAGED_BYTES:
+        raise ValueError(f"layernorm_bwd kernel needs d % 8 == 0 and a row of x, dy and the "
+                         f"residual of at most {LNB_STAGED_BYTES} bytes, got d={d} in {x.dtype}")
     dx = torch.empty((rows, d), dtype=out_dtype, device=x.device)
     dx16 = torch.empty((rows, d), dtype=cd[0], device=x.device) if want_cd else None
-    blocks = max(1, min(-(-rows // 8), LNB_BLOCKS))
-    partial = torch.empty((blocks, 2 * d), dtype=torch.float32, device=x.device)
+    wide = d > LNB_REGISTER_COLS
+    blocks = _layernorm_bwd_blocks(rows, d, x.dtype == torch.float32, res_bytes, wide,
+                                   x.device.index)
+    if not blocks:
+        raise ValueError(f"layernorm_bwd kernel: a row of d={d} in {x.dtype} does not fit a "
+                         f"block's shared memory")
+    # [dγ | dβ] apart from the blocks' partial rows: the gradients outlive the call
     dgb = torch.empty(2 * d, dtype=torch.float32, device=x.device)
+    partial = torch.empty((blocks, 2 * d), dtype=torch.float32, device=x.device)
     _build.launch("b3_layernorm_bwd", _ptr(x), int(x.dtype == torch.float32), _ptr(dy),
                   _ptr(scale), _ptr(residual),
                   int(residual is not None and residual.dtype == torch.float32), _ptr(dx),
                   int(out_dtype == torch.float32), _ptr(dx16), _ptr(dgb), _ptr(partial), rows, d,
-                  blocks, eps, _stream(x))
+                  blocks, int(wide), eps, _stream(x))
     layernorm_bwd.launches += 1
     return ((dx, dx16) if want_cd else dx), dgb[:d], dgb[d:]
 
@@ -654,11 +674,34 @@ def layernorm_bwd_plain(x, dy, scale, *, residual=None, eps=1e-6, out_dtype, wan
     return out, (dyf * xhat).sum(0), dyf.sum(0)
 
 
-COL_SUM_ROWS = 256    # rows a col_sum block sums in its first pass
+COL_SUM_TILE = 64         # columns a col_sum block sums (8 a thread, 8 threads a row)
+COL_SUM_MIN_ROWS = 64     # least rows a slab sums
+COL_SUM_MAX_TILES = 4096  # tiles that may take more than one slab (the kernel's tickets)
+
+
+def col_sum_plan(rows: int, n: int, capacity: int) -> tuple[int, int]:
+    """col_sum's grid → (slabs, rows a slab): ceil(n / 64) column tiles
+    times as many row slabs as ``capacity`` resident blocks hold (the SMs
+    at the kernel's occupancy: one wave), each slab of at least
+    ``COL_SUM_MIN_ROWS`` rows; every row lies in exactly one slab, and none
+    is empty."""
+    tiles = -(-n // COL_SUM_TILE)
+    slabs = max(1, min(capacity // tiles, rows // COL_SUM_MIN_ROWS))
+    if tiles > COL_SUM_MAX_TILES:
+        slabs = 1
+    per = max(1, -(-rows // slabs))
+    return max(1, -(-rows // per)), per
+
+
+@functools.cache
+def _col_sum_capacity(x_f32: bool, device: int) -> int:
+    with torch.cuda.device(device):
+        return _build.library().b3_col_sum_capacity(int(x_f32))
 
 
 def col_sum(x: torch.Tensor) -> torch.Tensor:
-    """Column sums of x (rows, n) in f32 → (n,) f32 (the bias gradients)."""
+    """Column sums of x (rows, n) in f32 → (n,) f32 (the bias gradients),
+    in a fixed order: the same inputs give the same bits."""
     cd = _compute_dtypes(x)
     _check("x", x, dtypes=(torch.float32,) + cd, ndim=2, vectors=True)
     rows, n = x.shape
@@ -666,13 +709,13 @@ def col_sum(x: torch.Tensor) -> torch.Tensor:
         return col_sum_plain(x)
     if n % 8:
         raise ValueError(f"col_sum kernel needs n % 8 == 0, got {n}")
-    out = torch.empty(n, dtype=torch.float32, device=x.device)
-    parts = max(1, min(256, rows // COL_SUM_ROWS))
-    partial = torch.empty((parts, n), dtype=torch.float32, device=x.device) if parts > 1 else None
-    _build.launch("b3_col_sum", _ptr(x), int(x.dtype == torch.float32), rows, n, _ptr(out),
-                  _ptr(partial), parts, _stream(x))
+    f32 = x.dtype == torch.float32
+    slabs, per = col_sum_plan(rows, n, _col_sum_capacity(f32, x.device.index))
+    buf = torch.empty(n * (1 + slabs * (slabs > 1)), dtype=torch.float32, device=x.device)
+    _build.launch("b3_col_sum", _ptr(x), int(f32), rows, n, _ptr(buf), _ptr(buf) + 4 * n, slabs,
+                  per, _stream(x))
     col_sum.launches += 1
-    return out
+    return buf[:n]
 
 
 def col_sum_plain(x):

@@ -33,11 +33,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    types; ``layernorm`` also on one f32 row at d = 1280 to an f32 output
    alone, on 37 f32 rows at d = 768 with the f32 copy, and past the
    1280 columns held in registers: d = 2560 (ESM2-3B, bf16), 4096 (a
-   Stage-3 dim), a ragged 1288 and a 16384-wide f32 row; ``gemm_dx``,
-   ``gemm_dw`` and ``layernorm`` must also give the same bits on a
-   second call): bf16
+   Stage-3 dim), a ragged 1288 and a 16384-wide f32 row; ``layernorm_bwd``
+   on the same four widths (bf16 x at 2560, f32 x at 4096); ``col_sum`` on
+   1 and 7 rows, a row count one past its slabs and 8 columns;
+   ``gemm_dx``, ``gemm_dw``, ``layernorm``, ``layernorm_bwd`` and
+   ``col_sum`` must also give the same bits on a second call): bf16
    max|Δ|/max|ref| <= 2e-2 (the attention gradients per head group: 32
-   columns for Stage 3, 64 for ESM2), with the kernel's, the plain version's and, where one exists,
+   columns for Stage 3, 64 for ESM2; the f32 sums of ``col_sum`` and
+   ``layernorm_bwd``'s dγ, dβ <= 1e-3), with the kernel's, the plain version's and, where one exists,
    one PyTorch call's time, and the least time the card could take; the
    training kernels also at one ESM2-650M layer's backward (B=2, L=1024);
    The int8 serving recipe: ``gemm_i8`` at the three models' shapes (its
@@ -104,7 +107,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``layer_block`` at B=1; (c) the training CLI
    (``biom3_tpu_torch.cli.run_train_stage1``) on a seeded synthetic CSV:
    ``layer_block`` 3 steps with ``--export_bin``, ``--resume`` to 5, then
-   ``run_pencl_inference --device cuda`` on the exported ``.bin``.
+   ``run_pencl_inference --device cuda`` on the exported ``.bin``;
+   (d) one ESM2-3B-width layer (E = 2560, 40 heads, FF 10240, B = 1, L =
+   1024, a PAD tail): ``ESM2Layer(attn_impl="layer-block")`` in bf16 on the
+   kernels (``layernorm`` and ``layernorm_bwd`` on their shared-memory
+   routes) against the plain f32 layer, forward and backward, at phase
+   8a's gates.
 
 Each path (phase 4's graph-path ProteoScribe, both runs of phase 5, the
 three PenCL runs of phase 6, the serving runs, the two training CLI modes
@@ -132,6 +140,7 @@ import time
 import numpy as np
 
 REL_TOL = 2e-2     # bf16 kernel vs plain version, max|Δ| / max|ref|
+SUM_TOL = 1e-3     # f32 column sums (col_sum, layernorm_bwd's dγ and dβ), the same
 COS_MIN = 0.999    # drift gate of the serving modes (PARITY.md)
 SEED = 0
 TIMED_ITERS = 20   # calls per kernel timing
@@ -317,7 +326,9 @@ PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_w
               "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel")
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
-DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm"}
+DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum"}
+# kernel → how many of its last outputs are f32 column sums (SUM_TOL)
+COLUMN_SUMS = {"col_sum": 1, "layernorm_bwd": 2}
 
 
 def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
@@ -755,6 +766,25 @@ def edge_cases(g) -> dict[str, list]:
                                              (37, 4096, f32, 1e-6, bf, False),
                                              (11, 1288, f32, 1e-5, bf, True),
                                              (3, 16384, f32, 1e-5, f32, False))]
+    # layernorm_bwd past the 1280 columns held in registers, on its
+    # shared-memory route: ESM2-3B's (bf16 x and residual into bf16 dx), a
+    # Stage-3 dim of 4096 (f32 x, bf16 residual, f32 dx with its bf16
+    # copy), a ragged 1288 and one 16384-wide f32 row (one row a round)
+    lnb_wide = [((torch.randn(n, d, generator=g, device=dev) * 3.0).to(xd),
+                 torch.randn(n, d, generator=g, device=dev),
+                 1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                 dict(residual=torch.randn(n, d, generator=g, device=dev).to(rd), eps=1e-5,
+                      out_dtype=od, want_cd=wc))
+                for n, d, xd, rd, od, wc in ((19, 2560, bf, bf, bf, False),
+                                             (37, 4096, f32, bf, f32, True),
+                                             (11, 1288, bf, f32, bf, False),
+                                             (1, 16384, f32, f32, f32, False))]
+    # col_sum on 1 and 7 rows, one row past its slabs (4161 = 64 x 65 + 1
+    # rows of 512 columns: 65 slabs of 65 rows at the H100's 528 resident
+    # blocks, the last of one row), and 8 columns (one tile, 7 of its 8
+    # lanes idle)
+    cs_edge = [torch.randn(1, 264, generator=g, device=dev), rnd(7, 264), rnd(4161, 512),
+               torch.randn(4161, 8, generator=g, device=dev), rnd(1000, 8)]
     return {
         # int8: M, N, K off the 128x128x64 tile (K a multiple of 32), a bf16
         # residual and erf GELU; quant rows off the 8-row block and the
@@ -826,9 +856,10 @@ def edge_cases(g) -> dict[str, list]:
         "layernorm_bwd": [pair("layernorm_bwd", xl, torch.randn(1003, 264, generator=g,
                                                                  device=dev), ln[0],
                                residual=rnd(1003, 264), out_dtype=torch.float32,
-                               want_cd=True)],
+                               want_cd=True),
+                          *(pair("layernorm_bwd", x, dy, sc, **kw) for x, dy, sc, kw in lnb_wide)],
         "col_sum": [pair("col_sum", torch.randn(1003, 264, generator=g, device=dev)),
-                    pair("col_sum", rnd(7, 264))],
+                    *(pair("col_sum", x) for x in cs_edge)],
         "esm2_attention_bwd": [
             pair("esm2_attention_bwd", rnd(3, Le, 2304), rnd(3, Le, 768), pad_b, cos, sin,
                  heads=12),
@@ -901,12 +932,15 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             if name in DETERMINISTIC and not all(map(torch.equal, got, flat(run()))):
                 raise AssertionError(f"{name}: a second call on the same inputs gave other bits")
-            for a, b in zip(got, want):
+            for i, (a, b) in enumerate(zip(got, want)):
                 if name in BIT_EQUAL and not torch.equal(a, b):
                     raise AssertionError(f"{name}: {int((a != b).sum())} of {a.numel()} "
                                          f"values differ from the plain version's")
                 err_abs, err_rel = rel_err(a, b, group=grouped.get(name, 0))
                 worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
+                if i >= len(got) - COLUMN_SUMS.get(name, 0) and err_rel > SUM_TOL:
+                    raise AssertionError(f"{name}: column sums of {tuple(a.shape)} off by "
+                                         f"{err_rel:.3e} relative > {SUM_TOL}")
         if worst_rel > REL_TOL:
             raise AssertionError(f"{name}: max|Δ|/max|ref| = {worst_rel:.3e} > {REL_TOL}")
         results[name] = {"max_abs_err": worst_abs,
@@ -1851,6 +1885,74 @@ def phase_stage1_steps(stage1: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_esm2_3b_layer() -> None:
+    """One ESM2-3B-width layer (E 2560, 40 heads of 64, FF 10240) at B=1,
+    L=1024 with a PAD tail: ``ESM2Layer(attn_impl="layer-block")`` in bf16
+    on the kernels — ``layernorm`` and ``layernorm_bwd`` past the 1280
+    columns they hold in registers — against the plain f32 layer with the
+    same (bf16-rounded) parameters, forward and backward through a fixed
+    cotangent; phase 8a's gates: the output and the input gradient within
+    ``REL_TOL`` of max|ref|, the whole parameter gradient at cosine
+    ``GRAD_COS_MIN``, each tensor at ``TENSOR_COS_MIN`` (a tensor whose f32
+    gradient is zero up to rounding, if any, under ``ZERO_GRAD_MAX`` of the
+    whole's norm instead)."""
+    import torch
+
+    from biom3_tpu_torch.config import ESM2Config
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.esm2 import ESM2Layer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = ESM2Config(embed_dim=2560, attention_heads=40)
+    L = 1024
+    ref = seeded_init_(ESM2Layer(cfg, "plain", "erf"), SEED + 11)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.copy_(p.bfloat16())
+    ref = ref.to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn(1, L, cfg.embed_dim, generator=g, device=dev).bfloat16().float()
+    cot = torch.randn(1, L, cfg.embed_dim, generator=g, device=dev)
+    pad = torch.zeros(1, L, dtype=torch.bool, device=dev)
+    pad[0, 900:] = True
+
+    def run(layer, dtype):
+        xi = x.to(dtype, copy=True).requires_grad_()
+        y = layer(xi, pad)
+        y.float().backward(cot)
+        torch.cuda.synchronize()
+        return y.detach().float(), xi.grad.float(), {n: q.grad.float().flatten()
+                                             for n, q in layer.named_parameters()}
+
+    y_ref, dx_ref, g_ref = run(ref, torch.float32)
+    layer = ESM2Layer(cfg, "layer-block", "erf", dtype=torch.bfloat16).to(dev)
+    layer.load_state_dict(ref.state_dict())
+    y, dx, grads = run(layer, torch.bfloat16)
+    cos = torch.nn.functional.cosine_similarity
+    ref_norm = float(torch.cat(list(g_ref.values())).norm())
+    zero = {n for n, t in g_ref.items() if float(t.norm()) < ZERO_GRAD_REL * ref_norm}
+    total = float(cos(torch.cat(list(grads.values())), torch.cat(list(g_ref.values())), dim=0))
+    per = {n: float(cos(grads[n], g_ref[n], dim=0)) for n in grads if n not in zero}
+    zero_norm = {n: float(grads[n].norm()) / ref_norm for n in zero}
+    (_, y_rel), (_, dx_rel) = rel_err(y, y_ref), rel_err(dx, dx_ref)
+    worst = min(per, key=per.get)
+    say("stage1", f"ESM2-3B-width layer (E 2560, 40 heads, FF 10240, B=1, L={L}), bf16 kernels "
+                  f"vs plain f32: output rel {y_rel:.3e}, dx rel {dx_rel:.3e}, gradient cosine "
+                  f"{total:.6f}, worst tensor {worst} {per[worst]:.6f}, zero-gradient tensors "
+                  f"{sorted(zero)} norm / whole <= {max(zero_norm.values(), default=0):.3e}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    bad = [n for n, c in per.items() if c < TENSOR_COS_MIN]
+    bad += [n for n, r in zero_norm.items() if r > ZERO_GRAD_MAX]
+    if y_rel > REL_TOL or dx_rel > REL_TOL or total < GRAD_COS_MIN or bad:
+        raise AssertionError(f"ESM2-3B-width layer: output rel {y_rel}, dx rel {dx_rel}, "
+                             f"gradient cosine {total}, tensors off the gates "
+                             f"{[(n, per.get(n), zero_norm.get(n)) for n in bad]}")
+    del ref, layer
+    torch.cuda.empty_cache()
+
+
 def phase_stage1_cli() -> dict:
     """The Stage-1 training CLI at full width on a seeded synthetic CSV:
     ``layer_block`` 3 steps with ``--export_bin``, ``--resume`` to 5; then
@@ -1956,6 +2058,7 @@ def main() -> None:
         phase_stage1_grads(stage1)
         phase_stage1_steps(stage1)
     counts.update(phase_stage1_cli())
+    phase_esm2_3b_layer()
     say("done", f"{time.perf_counter() - t0:.1f} s of wall time")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
