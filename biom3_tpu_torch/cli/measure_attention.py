@@ -1,8 +1,10 @@
 """The attention kernels that run on the tensor cores, on one CUDA card:
 ``flash_attention``, ``esm2_attention``, ``esm2_attention_bwd``,
-``dense_attention`` and ``local_window_attention``.
+``dense_attention``, ``local_window_attention`` and ``stage3_attention_core``
+(its band heads).
 
     python -m biom3_tpu_torch.cli.measure_attention [--iters 50] [--out build/measure_attention.json]
+        [--only PREFIX ...] [--plan-sweep]
 
 At ``chip_smoke.py`` phase 3's timed shape (ESM2-650M width: B=2, 20
 heads, L=1024, head dim 64; one full-length row and one of 400 tokens
@@ -19,13 +21,26 @@ at 989 TFLOP/s, or the bytes at 3.35 TB/s if larger), its share of the
 kernel's time, and the kernel's time over the library call's; the
 wrapper's host µs per call (the enqueue); and each kernel launch's device
 ms per call from ``torch.profiler`` (the gradient's staging launch and its
-two passes apart, as the forward's staging and its sweep).  ``dense_attention``
+two passes apart, as the forward's staging and its sweep), their sum
+(``device_ms``) and the bound's share of it.  ``--only`` measures the
+cases whose names start with the prefixes given; ``--plan-sweep`` also
+times ``stage3_attention_core`` at B=2, 4 and 32 under other splits of
+its linear heads than ``ops/kernels.stage3_linear_plan``'s (ctx chunks 1,
+4, 16; statistics blocks of 64 and 256 rows; output blocks of 128 and 512
+rows), device ms per launch beside the plan's own.  ``dense_attention``
 (the BERT tower's unmasked heads) is measured the same way at BERT's
 width (L = 512, 12 heads of 64) at B=2, phase 3's timed batch, and B=16,
 PenCL's, beside SDPA with no mask.  ``local_window_attention`` (bf16)
 is measured at phase 3's shape (B=4, 8 heads, L=1024, head dim 32, W=128)
 and at Stage-3 B=32, beside SDPA with the boolean (L, L) band mask, its
-FLOPs 4·Dh per (query, band key) pair; then the ``stage3_graph`` path's
+FLOPs 4·Dh per (query, band key) pair.  ``stage3_attention_core`` (the
+fused Stage-3 attention: 8 band heads and 8 linear heads of 32 on the
+(B, L, 3·512) qkv, W=128) at phase 3's shape (B=4) and Stage-3 B=32,
+beside SDPA with the band mask on the 8 band heads alone (the linear
+heads have no library call), its FLOPs 4·Dh per band pair plus 4·L·Dh²
+a linear head, held per 32-column head group; its profile shows its
+three launches (the linear heads' statistics, their ctx, and the band
+heads with the linear output rows).  Then the ``stage3_graph`` path's
 forward, ``ProteoScribe(attn_impl="kernel")`` in bf16 at full width on
 seeded weights, at B=2 and B=32: ms per forward by CUDA events and a
 device profile by kernel.  Prints one JSON object with the card's name and
@@ -55,12 +70,15 @@ B, H, L, DH = 2, 20, 1024, 64
 LENGTHS = (1024, 400)
 BERT_L, BERT_H, BERT_BATCHES = 512, 12, (2, 16)
 LOCAL_H, LOCAL_DH, LOCAL_W, LOCAL_BATCHES = 8, 32, 128, (4, 32)   # Stage 3's band heads
+STAGE3_HEADS = 16                                                  # 8 band + 8 linear
 GRAPH_BATCHES = (2, 32)
 # kernel name fragment → its name in the profile breakdown
 LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
             ("esm2_bwd_dkv", "pass2_dkv"), ("flash_attn", "flash"),
             ("esm2_attn_stage", "fwd_stage"), ("esm2_attn", "fwd_sweep"),
-            ("dense_attn", "dense"), ("local_attn", "local"))
+            ("dense_attn", "dense"), ("local_attn", "local"),
+            ("stage3_linear_stats", "linear_stats"), ("stage3_linear_ctx", "linear_ctx"),
+            ("stage3_local_wgmma", "band_and_linear_rows"))
 
 
 def rel_err(got, want, group: int = 0) -> float:
@@ -138,6 +156,7 @@ def cases(g) -> dict[str, dict]:
             "bytes": nbytes(qkv, da, pad, cos, sin) + nbytes(qkv), "group": DH},
         **{f"dense_attention_B{b}": dense(b) for b in BERT_BATCHES},
         **{f"local_window_attention_B{b}": local(b, g) for b in LOCAL_BATCHES},
+        **{f"stage3_attention_core_B{b}": stage3(b, g) for b in LOCAL_BATCHES},
     }
 
 
@@ -166,6 +185,63 @@ def local(b: int, g) -> dict:
             "plain": lambda: K.local_window_attention_plain(q, k, v, window=LOCAL_W),
             "lib": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band),
             "flops": flops, "work_flops": flops, "bytes": nbytes(q, k, v, q), "group": 0}
+
+
+def stage3(b: int, g) -> dict:
+    """``stage3_attention_core`` at Stage-3 batch b (d = 512, 8 band and 8
+    linear heads of 32, W = 128) beside SDPA with the boolean (L, L) band
+    mask on the band heads alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    d = STAGE3_HEADS * LOCAL_DH
+    qkv = torch.randn(b, L, 3 * d, generator=g, device=g.device).bfloat16()
+    band_heads = [t.view(b, L, STAGE3_HEADS, LOCAL_DH)[:, :, :LOCAL_H].transpose(1, 2)
+                  for t in qkv.split(d, dim=-1)]
+    win = torch.arange(L, device=g.device) // LOCAL_W
+    band = (win[:, None] - win[None, :]).abs() <= 1
+    lin_flops = 4 * b * (STAGE3_HEADS - LOCAL_H) * L * LOCAL_DH ** 2
+    flops = 4 * LOCAL_DH * band_pairs(b, L, LOCAL_W, LOCAL_H) + lin_flops
+    kw = dict(heads=STAGE3_HEADS, local_heads=LOCAL_H, window=LOCAL_W)
+    return {"run": lambda: K.stage3_attention_core(qkv, **kw),
+            "plain": lambda: K.stage3_attention_core_plain(qkv, **kw),
+            "lib": lambda: F.scaled_dot_product_attention(*band_heads, attn_mask=band),
+            "flops": flops, "work_flops": flops, "bytes": nbytes(qkv) + b * L * d * 2,
+            "group": LOCAL_DH}
+
+
+def plan_sweep(g) -> dict:
+    """``stage3_attention_core`` (8 band + 8 linear heads of 32, W=128,
+    L=1024) at B=2, 4 and 32 under other linear-head splits than
+    ``stage3_linear_plan``'s: device ms per launch for each (ctx chunks,
+    statistics rows, output rows a block), the plan's own choice first."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    plan, out = K.stage3_linear_plan, {}
+    d = STAGE3_HEADS * LOCAL_DH
+    kw = dict(heads=STAGE3_HEADS, local_heads=LOCAL_H, window=LOCAL_W)
+    try:
+        for b in (2, 4, 32):
+            qkv = torch.randn(b, L, 3 * d, generator=g, device=g.device).bfloat16()
+            want = K.stage3_attention_core_plain(qkv, **kw)
+            own = plan(L, b * (STAGE3_HEADS - LOCAL_H), 132)
+            for chunks, srows, lrows in [own[:1] + own[2:]] + [
+                    (c, s, r) for c in (1, 4, 16) for s in (64, 256) for r in (128, 512)]:
+                K.stage3_linear_plan = (lambda *_, c=chunks, s=srows, r=lrows:
+                                        (c, -(-L // c), s, r))
+                run = lambda: K.stage3_attention_core(qkv, **kw)  # noqa: E731
+                err = rel_err(run(), want, LOCAL_DH)
+                launches = launch_ms(run)
+                out[f"B{b}_chunks{chunks}_srows{srows}_lrows{lrows}"] = {
+                    "device_ms": sum(launches.values()), "launch_ms": launches,
+                    "max_rel_err": err}
+    finally:
+        K.stage3_linear_plan = plan
+    return out
 
 
 def graph_forward(iters: int) -> dict:
@@ -231,16 +307,24 @@ def measure(case: dict, iters: int) -> dict:
     ms = event_ms(case["run"], iters)
     library_ms = event_ms(case["lib"], iters)
     bound_ms = max(case["flops"] / PEAK_BF16, case["bytes"] / PEAK_BYTES) * 1e3
+    launches = launch_ms(case["run"])
+    device_ms = sum(launches.values())
     return {"max_rel_err": err, "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "tflops": case["flops"] / ms * 1e-9, "work_tflops": case["work_flops"] / ms * 1e-9,
             "bound_share": bound_ms / ms, "over_library": ms / library_ms,
-            "launch_ms": launch_ms(case["run"]), "host_us": host_us(case["run"])}
+            "launch_ms": launches, "device_ms": device_ms,
+            "bound_share_device": bound_ms / device_ms, "host_us": host_us(case["run"])}
 
 
 def parse_arguments(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--out", type=str, default=None)
+    p.add_argument("--plan-sweep", action="store_true",
+                   help="also time stage3_attention_core under other linear-head splits")
+    p.add_argument("--only", nargs="*", default=None,
+                   help="measure only the cases (and stage3_graph_forward) whose names start "
+                        "with one of these")
     return p.parse_args(argv)
 
 
@@ -259,11 +343,18 @@ def main(argv=None) -> None:
     result = {"card": smi, "package": str(pathlib.Path(K.__file__).resolve().parents[1]),
               "torch": torch.__version__}
     g = torch.Generator(device="cuda").manual_seed(0)
+    wanted = lambda name: args.only is None or name.startswith(tuple(args.only))  # noqa: E731
     for name, case in cases(g).items():
+        if not wanted(name):
+            continue
         result[name] = measure(case, args.iters)
         print(f"{name}: {json.dumps(result[name])}", flush=True)
-    result["stage3_graph_forward"] = graph_forward(5)
-    print(f"stage3_graph_forward: {json.dumps(result['stage3_graph_forward'])}", flush=True)
+    if args.plan_sweep:
+        result["stage3_plan_sweep"] = plan_sweep(g)
+        print(f"stage3_plan_sweep: {json.dumps(result['stage3_plan_sweep'])}", flush=True)
+    if wanted("stage3_graph_forward"):
+        result["stage3_graph_forward"] = graph_forward(5)
+        print(f"stage3_graph_forward: {json.dumps(result['stage3_graph_forward'])}", flush=True)
     text = json.dumps(result)
     print(text)
     if args.out:

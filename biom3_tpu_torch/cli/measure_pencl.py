@@ -54,8 +54,10 @@ KERNEL_GROUPS = (("gemm_bias_act_wgmma", "gemm_bias_act"), ("gemm_i8_wgmma", "ge
                  ("flash_attn", "flash_attention"),
                  ("dense_attn", "dense_attention"), ("layernorm_bwd", "layernorm_bwd"),
                  ("layernorm", "layernorm"), ("esm2_embed", "esm2_embed"),
-                 ("local_heads_kernel", "stage3_attention_core"),
-                 ("linear_heads_kernel", "stage3_attention_core"),
+                 ("quant_rows", "quant_rows"),
+                 ("stage3_local_wgmma", "stage3_attention_core"),
+                 ("stage3_linear_stats", "stage3_attention_core"),
+                 ("stage3_linear_ctx", "stage3_attention_core"),
                  ("local_dq_kernel", "stage3_attention_bwd"),
                  ("local_dkv_kernel", "stage3_attention_bwd"),
                  ("lin_bwd", "stage3_attention_bwd"), ("col_sum", "col_sum"),

@@ -1,5 +1,5 @@
-"""The row-wise kernels on one CUDA card: ``layernorm``, ``layernorm_bwd``
-and ``col_sum``.
+"""The row-wise kernels on one CUDA card: ``layernorm``, ``layernorm_bwd``,
+``col_sum`` and ``quant_rows``.
 
     python -m biom3_tpu_torch.cli.measure_rowwise [--iters 50] [--out build/measure_rowwise.json]
         [--only PREFIX ...] [--bits-out FILE | --bits-against FILE]
@@ -24,6 +24,13 @@ and B=32 (32768 rows); an ESM2-650M layer's at B=4 (4096 rows: ``col_sum``
 over 1280, 3840 and 5120 bf16 columns; ``layernorm_bwd`` at 1280, bf16 x
 and residual into a bf16 dx); and ESM2-3B's width at B=16 (16384 rows:
 ``layernorm_bwd`` at 2560, ``col_sum`` over the 10240 FF columns).
+
+``quant_rows`` with the callers' widths and dtypes: a Stage-3 layer's four
+quants (the LN1 output and the head outputs, 512 bf16; the LN2 output, 512
+f32; the FF activation, 2048 f32) at B=4 (4096 rows, phase 3's shape) and
+B=32 (32768 rows), and an ESM2-650M layer's (1280 bf16 twice, 1280 f32,
+5120 f32) at B=16 (16384 rows).  No library call computes it: the plain
+version's device ms stands beside the kernel's.
 
 Each call is held against its plain version (max|Δ|/max|ref| <= 2e-2),
 then timed: ms per call by CUDA events, device ms per call from
@@ -124,6 +131,21 @@ def cases(g) -> dict[str, dict]:
                 ln_bwd(rows, d, f32, bf, f32, 1e-6, want_cd=True),
                 ln_bwd(rows, d, bf, f32, bf, 1e-6)]
 
+    def quant(rows, d, dtype):
+        """No library call computes the per-row dynamic int8; the plain
+        version's device time is reported beside the kernel's."""
+        x = rnd(rows, d, dtype=dtype, scale=3.0)
+        return {"run": lambda: K.quant_rows(x), "plain": lambda: K.quant_rows_plain(x),
+                "lib": None, "flops": 3 * rows * d,
+                "bytes": x.numel() * x.element_size() + rows * d + 4 * rows}
+
+    def quants(rows, d, ff):
+        """A layer's four activation quants (Stage 3, ESM2): the LN1 output
+        and the head outputs in bf16, the LN2 output and the FF activation
+        in f32 (ops/stage3_layer.py, ops/esm2_stack.py)."""
+        return {"ln1_bf16": quant(rows, d, bf), "attn_bf16": quant(rows, d, bf),
+                "ln2_f32": quant(rows, d, f32), "ff_f32": quant(rows, ff, f32)}
+
     names = ["col_sum_dyc", "col_sum_dh1", "col_sum_dxa", "ln2_bwd", "ln1_bwd"]
     b4, b32 = layer(4 * 1024, 512, 2048), layer(32 * 1024, 512, 2048)
     return {
@@ -144,6 +166,9 @@ def cases(g) -> dict[str, dict]:
         "esm2_b16_ln1": ln(16 * 1024, 1280, bf, 1e-5),
         "esm2_3b_b16_ln1": ln(16 * 1024, 2560, bf, 1e-5),
         "stage3_d4096_b32_ff_prenorm": ln(32 * 1024, 4096, f32, 1e-6),
+        **{f"stage3_b4_quant_{n}": c for n, c in quants(4 * 1024, 512, 2048).items()},
+        **{f"stage3_b32_quant_{n}": c for n, c in quants(32 * 1024, 512, 2048).items()},
+        **{f"esm2_b16_quant_{n}": c for n, c in quants(16 * 1024, 1280, 5120).items()},
     }
 
 
@@ -183,16 +208,19 @@ def measure(case: dict, iters: int) -> dict:
     if not all(bool(a.isfinite().all()) for a in got) or err > REL_TOL:
         raise AssertionError(f"max|Δ|/max|ref| = {err:.3e} > {REL_TOL}, or non-finite")
     ms, dev_ms = event_ms(case["run"], iters), device_ms(case["run"])
-    lib_ms, lib_dev_ms = event_ms(case["lib"], iters), device_ms(case["lib"])
     t_ops, t_bytes = case["flops"] / PEAK_BF16 * 1e3, case["bytes"] / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
+    out = {"max_rel_err": err, "ms": ms, "device_ms": dev_ms, "host_us": host_us(case["run"]),
+           "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_share_device": bound_ms / dev_ms, "bytes": case["bytes"]}
+    if case["lib"] is None:
+        out["plain_device_ms"] = device_ms(case["plain"])
+        return out
+    lib_ms, lib_dev_ms = event_ms(case["lib"], iters), device_ms(case["lib"])
     lib_bound_ms = max(t_ops, case["lib_bytes"] / PEAK_BYTES * 1e3)
-    return {"max_rel_err": err, "ms": ms, "device_ms": dev_ms, "host_us": host_us(case["run"]),
-            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+    return {**out, "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
             "library_host_us": host_us(case["lib"]), "library_bound_ms": lib_bound_ms,
-            "library_bound_share_device": lib_bound_ms / lib_dev_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_share_device": bound_ms / dev_ms, "bytes": case["bytes"]}
+            "library_bound_share_device": lib_bound_ms / lib_dev_ms}
 
 
 def digest(t) -> str:

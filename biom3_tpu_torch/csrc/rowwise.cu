@@ -51,7 +51,13 @@
 //   ahead of every int8 product): amax = max(max|x|, 1e-6) over the row in
 //   f32, codes rint(x · (127 / amax)) clipped to ±127 (one reciprocal
 //   multiplier, round half to even, as jnp.round), scale amax · (1/127).
-//   Its codes and scales equal the plain version's bit for bit.
+//   Its codes and scales equal the plain version's bit for bit.  Bound:
+//   bytes (the row read once, codes and scale written once).  One read:
+//   the row stays in registers as loaded, over one warp up to 2048 columns
+//   (a Stage-3 FF row in f32) and over 2, 4 or 8 warps of a block past
+//   that (ESM2's 5120), the amax combined in shared memory; the grid fills
+//   the SMs and walks rows with the next rows' loads in flight; codes go
+//   out in 16-byte stores where d % 16 == 0.
 //
 // What bounds them: device-memory bandwidth (a few bytes per FLOP).  One
 // warp per row keeps every reduction in registers and shuffles; rows are
@@ -385,28 +391,94 @@ esm2_embed_kernel(const int *__restrict__ ids, const bf16 *__restrict__ table,
   }
 }
 
-__global__ void quant_rows_kernel(const void *__restrict__ x, int x_f32, int8_t *__restrict__ q,
-                                  float *__restrict__ scale, int rows, int d) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t off = (size_t)row * d;
-  float v[8], amax = 0.f;
-  for (int c = lane * 8; c < d; c += 256) {
-    load8(x, off + c, x_f32, v);
+// quant_rows: one read of each row.  A row is split over `wpr` warps of
+// the block (1, 2, 4 or 8: the fewest that hold it at NC chunks a lane or
+// less, NC <= QR_CHUNKS), and each lane keeps its chunks as loaded
+// (Chunk<F32>): warp `piece` of a row holds chunks piece, piece + wpr, ...
+// (columns lane·8 + 256·chunk).  The grid is sized from the SM count (up to
+// QR_WAVES waves); each block walks groups of 8 / wpr rows gridDim apart
+// and issues its next rows' loads (into a second set of chunks, bf16 still
+// packed) before it reduces the current ones.  Rows of at most 2 chunks'
+// registers (512 bf16, 256 f32) run 8 blocks an SM.  amax: a warp max,
+// then with wpr > 1 the row's warps' maxima through shared memory.  Codes
+// go out 8 a lane; with st16 (d % 16 == 0) each even lane takes its odd
+// neighbour's 8 by shuffle and stores 16 bytes.
+constexpr int QR_CHUNKS = 8;   // 2048 columns a warp: a Stage-3 FF row in f32
+// Blocks of quant_rows: up to this many waves of resident blocks.  With
+// one, the rows a warp walks differ by one, and on the card the last
+// round's idle warps showed at Stage-3 B=32's and ESM2 B=16's narrow rows
+// (bf16, 512 and 1280 columns).
+constexpr int QR_WAVES = 8;
+
+// 8 codes rint(v · mul) clipped to ±127, packed little-endian.
+__device__ __forceinline__ uint2 codes8(const float *v, float mul) {
+  uint32_t w[2] = {0u, 0u};
 #pragma unroll
-    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  for (int e = 0; e < 8; ++e) {
+    const int c = static_cast<int>(fminf(fmaxf(rintf(v[e] * mul), -127.f), 127.f));
+    w[e / 4] |= (static_cast<uint32_t>(c) & 0xffu) << (8 * (e % 4));
   }
-  amax = fmaxf(warp_max(amax), 1e-6f);
-  const float mul = 127.0f / amax;
-  for (int c = lane * 8; c < d; c += 256) {
-    load8(x, off + c, x_f32, v);
-    __align__(8) int8_t o[8];
+  return make_uint2(w[0], w[1]);
+}
+
+template <int NC, bool F32>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32, (F32 ? 2 : 1) * NC <= 2 ? 8 : 1)
+quant_rows_kernel(const void *__restrict__ x, int8_t *__restrict__ q, float *__restrict__ scale,
+                  int rows, int d, int wpr, int st16) {
+  __shared__ float part[ROWS_PER_BLOCK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = ROWS_PER_BLOCK / wpr, slot = warp / wpr, piece = warp % wpr;
+  const int step = gridDim.x * group;
+  Chunk<F32> raw[NC], next[NC];   // this row and the next, as loaded
+  auto col = [&](int i) { return lane * 8 + (piece + i * wpr) * 256; };
+  auto load = [&](Chunk<F32>(&dst)[NC], int r) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o[e] = static_cast<int8_t>(fminf(fmaxf(rintf(v[e] * mul), -127.f), 127.f));
-    *reinterpret_cast<uint2 *>(q + off + c) = *reinterpret_cast<const uint2 *>(o);
+    for (int i = 0; i < NC; ++i)
+      if (col(i) < d) dst[i].load(x, (size_t)r * d + col(i));
+  };
+  if (blockIdx.x * group + slot < rows) load(raw, blockIdx.x * group + slot);
+  for (int base = blockIdx.x * group; base < rows; base += step) {   // uniform in the block
+    const int row = base + slot;
+    const bool live = row < rows;
+    if (row + step < rows) load(next, row + step);
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (!live || col(i) >= d) continue;
+      float v[8];
+      raw[i].unpack(v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+    amax = warp_max(amax);
+    if (wpr > 1) {
+      if (lane == 0) part[warp] = amax;
+      __syncthreads();
+      for (int k = 0; k < wpr; ++k) amax = fmaxf(amax, part[slot * wpr + k]);
+      __syncthreads();   // part is written again next round
+    }
+    amax = fmaxf(amax, 1e-6f);
+    const float mul = 127.0f / amax;
+    if (!live) continue;
+    int8_t *qrow = q + (size_t)row * d;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      float v[8];
+      raw[i].unpack(v);   // a lane past d holds stale values: its codes are not stored
+      const uint2 mine = codes8(v, mul);
+      if (st16) {   // d % 16 == 0: the lanes of a chunk that hold columns come in pairs
+        const uint32_t nx = __shfl_down_sync(0xffffffffu, mine.x, 1);
+        const uint32_t ny = __shfl_down_sync(0xffffffffu, mine.y, 1);
+        if (!(lane & 1) && col(i) < d)
+          *reinterpret_cast<uint4 *>(qrow + col(i)) = make_uint4(mine.x, mine.y, nx, ny);
+      } else if (col(i) < d) {
+        *reinterpret_cast<uint2 *>(qrow + col(i)) = mine;
+      }
+    }
+    if (piece == 0 && lane == 0) scale[row] = amax * (1.0f / 127.0f);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) raw[i] = next[i];
   }
-  if (lane == 0) scale[row] = amax * (1.0f / 127.0f);
 }
 
 inline dim3 row_grid(int rows) { return dim3((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
@@ -1012,6 +1084,26 @@ int launch_layernorm(const void *x, int x_f32, const float *scale, const float *
   return static_cast<int>(cudaGetLastError());
 }
 
+// quant_rows_kernel<NC>: QR_WAVES times the blocks that fit on the SMs at
+// once (one wave where a warp holds a whole wide row and two blocks fill
+// an SM: there the walk with the next row in flight gains more than the
+// later waves), or one a group of 8 / wpr rows if that is fewer.
+template <int NC>
+int launch_quant(const void *x, int x_f32, void *q, void *scale, int rows, int d, int wpr,
+                 void *stream) {
+  const auto kernel = x_f32 ? quant_rows_kernel<NC, true> : quant_rows_kernel<NC, false>;
+  static int per_sm[2] = {0, 0};   // blocks an SM holds, by x_f32
+  if (!per_sm[x_f32])
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[x_f32], kernel, ROWS_PER_BLOCK * 32, 0);
+  const int group = ROWS_PER_BLOCK / wpr;
+  const int waves = wpr == 1 && per_sm[x_f32] <= 2 ? 1 : QR_WAVES;
+  const int blocks =
+      std::min((rows + group - 1) / group, sm_count() * std::max(per_sm[x_f32], 1) * waves);
+  kernel<<<blocks, ROWS_PER_BLOCK * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<int8_t *>(q), static_cast<float *>(scale), rows, d, wpr, d % 16 == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The wide rows' blocks hold up to 48 KB of staged rows (as many warps as
 // fit, at most ROWS_PER_BLOCK), so an SM takes several; a row over 48 KB
 // gets a block of one warp and the opt-in shared memory.
@@ -1086,13 +1178,25 @@ B3_EXPORT int b3_layernorm(const void *x, int x_f32, const void *scale, const vo
   }
 }
 
-// x (rows, d) f32 or bf16 → q (rows, d) int8, scale (rows,) f32; d % 8 == 0.
+// x (rows, d) f32 or bf16 → q (rows, d) int8, scale (rows,) f32; d % 8 == 0,
+// d <= 8 warps x QR_CHUNKS x 256 = 16384 (the kernel holds the row).
 B3_EXPORT int b3_quant_rows(const void *x, int x_f32, void *q, void *scale, int rows, int d,
                             void *stream) {
-  quant_rows_kernel<<<row_grid(rows), ROWS_PER_BLOCK * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, x_f32, static_cast<int8_t *>(q), static_cast<float *>(scale), rows, d);
-  return static_cast<int>(cudaGetLastError());
+  const int chunks = (d + 255) / 256;
+  int wpr = 1;
+  while (wpr < ROWS_PER_BLOCK && (chunks + wpr - 1) / wpr > QR_CHUNKS) wpr *= 2;
+  const int nc = (chunks + wpr - 1) / wpr;
+  if (d % 8 || rows < 1 || nc > QR_CHUNKS) return static_cast<int>(cudaErrorInvalidValue);
+  switch (nc) {
+    case 1: return launch_quant<1>(x, x_f32, q, scale, rows, d, wpr, stream);
+    case 2: return launch_quant<2>(x, x_f32, q, scale, rows, d, wpr, stream);
+    case 3: return launch_quant<3>(x, x_f32, q, scale, rows, d, wpr, stream);
+    case 4: return launch_quant<4>(x, x_f32, q, scale, rows, d, wpr, stream);
+    case 5: return launch_quant<5>(x, x_f32, q, scale, rows, d, wpr, stream);
+    case 6: return launch_quant<6>(x, x_f32, q, scale, rows, d, wpr, stream);
+    case 7: return launch_quant<7>(x, x_f32, q, scale, rows, d, wpr, stream);
+    default: return launch_quant<8>(x, x_f32, q, scale, rows, d, wpr, stream);
+  }
 }
 
 B3_EXPORT int b3_embed_tokens(const void *ids, const void *tok, const void *pos, void *out,

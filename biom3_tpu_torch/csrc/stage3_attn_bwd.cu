@@ -42,8 +42,9 @@
 // What bounds it on an H100: at Stage-3 shapes the band-local part does
 // 10·Dh FLOP per (query, key) pair over 3W keys on CUDA cores and reads
 // its K/V (Q/dA) band from shared memory tiles, so it is bound by the
-// CUDA-core FLOP rate, like the forward; the linear heads are O(L·Dh²)
-// and small.  Tensor-core tiles are later work.
+// CUDA-core FLOP rate; the linear heads are O(L·Dh²) and small.  The
+// forward's band runs on tensor-core tiles (stage3_attn.cu); the
+// backward's are later work.
 #include "attn_common.cuh"
 
 namespace {

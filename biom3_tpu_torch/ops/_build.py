@@ -45,7 +45,7 @@ SIGNATURES = {
     "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "b3_layernorm_bwd_grid": [_I, _I, _I, _I, _I],
     "b3_stage3_attention_bwd": [_P] * 8 + [_I] * 7 + [_P],
-    "b3_stage3_attention_core": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "b3_stage3_attention_core": [_P, _P, _P] + [_I] * 10 + [_P],
     "b3_dense_attention": [_P, _P, _I, _I, _I, _I, _P],
     "b3_bias_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "b3_layernorm": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],

@@ -283,10 +283,45 @@ def stage3_attention_core(qkv: torch.Tensor, *, heads: int, local_heads: int,
         raise ValueError(f"stage3_attention_core kernel needs head dim 32 or 64 and a "
                          f"window that tiles by {tile}; got Dh={dh} window={window}")
     out = torch.empty((B, L, d), dtype=qkv.dtype, device=qkv.device)
-    _build.launch("b3_stage3_attention_core", _ptr(qkv), _ptr(out), B, L, d, heads,
-                  local_heads, window, _stream(qkv))
+    pairs = B * (heads - local_heads)
+    chunks, per, srows, lrows = stage3_linear_plan(L, pairs, _sm_count(qkv.device.index))
+    # f32 scratch as csrc/stage3_attn.cu's LinWs reads it: per pair the
+    # statistics of each 64 rows (max and Σexp a channel), ctx, and with
+    # more than one chunk the chunks' parts of ctx
+    floats = pairs * (-(-L // LIN_MIN_ROWS) * 2 * dh + dh * dh + (chunks > 1) * chunks * dh * dh)
+    ws = torch.empty(floats, dtype=torch.float32, device=qkv.device) if pairs else None
+    _build.launch("b3_stage3_attention_core", _ptr(qkv), _ptr(out), _ptr(ws), B, L, d, heads,
+                  local_heads, window, chunks, per, srows, lrows, _stream(qkv))
     stage3_attention_core.launches += 1
     return out
+
+
+LIN_MIN_ROWS = 64    # stage3_attention_core: least sequence rows a linear-heads chunk
+LIN_OUT_ROWS = 128   # ... and the rows of one band block, the least of a linear output block
+
+
+def stage3_linear_plan(L: int, pairs: int, sms: int = 132) -> tuple[int, int, int, int]:
+    """The linear heads' sequence splits → (ctx chunks, rows a ctx chunk,
+    rows a statistics block, output rows a block).  ctx: about two (chunk,
+    pair) blocks an SM, each chunk of at least ``LIN_MIN_ROWS`` rows; the
+    softmax statistics: the fewest rows (64 · 2^k, up to 256) that keep
+    the blocks within about eight an SM; the output rows: the most (128 ·
+    2^k, up to 512) that still give two blocks an SM.  At L=1024 and 8
+    linear heads: B=2's 16 pairs and B=4's 32 in 16 and 8 ctx chunks,
+    statistics of 64 rows, output blocks of 128; B=32's 256 in one chunk,
+    statistics of 256, output blocks of 512 (the fastest of those tried on
+    an H100).  Every row lies in exactly one chunk of each split, and none
+    is empty."""
+    pairs = max(pairs, 1)
+    chunks = max(1, min(2 * sms // pairs, L // LIN_MIN_ROWS))
+    per = -(-L // chunks)
+    srows = LIN_MIN_ROWS
+    while srows < 4 * LIN_MIN_ROWS and srows < L and pairs * -(-L // srows) > 8 * sms:
+        srows *= 2
+    lrows = LIN_OUT_ROWS
+    while lrows < 4 * LIN_OUT_ROWS and lrows < L and pairs * -(-L // (2 * lrows)) >= 2 * sms:
+        lrows *= 2
+    return -(-L // per), per, srows, lrows
 
 
 def stage3_attention_core_plain(qkv, *, heads, local_heads, window):
@@ -886,6 +921,9 @@ def esm2_attention_bwd_plain(qkv, dattn, padding_mask, cos, sin, *, heads):
 # int8 serving recipe: quant_rows (csrc/rowwise.cu), gemm_i8 (csrc/gemm_i8.cu)
 # --------------------------------------------------------------------------
 
+QUANT_ROWS_MAX_D = 16384   # quant_rows holds a row in registers: 8 warps x 2048 columns
+
+
 def quant_rows(x: torch.Tensor):
     """Dynamic per-row symmetric int8 of x (rows, d), f32 or the compute
     dtype → (codes (rows, d) int8, scales (rows,) f32): amax = max(max|x|,
@@ -895,8 +933,9 @@ def quant_rows(x: torch.Tensor):
     rows, d = x.shape
     if not x.is_cuda:
         return quant_rows_plain(x)
-    if d % 8:
-        raise ValueError(f"quant_rows kernel needs d % 8 == 0, got {d}")
+    if d % 8 or d > QUANT_ROWS_MAX_D:
+        raise ValueError(f"quant_rows kernel needs d % 8 == 0 and d <= {QUANT_ROWS_MAX_D}, "
+                         f"got {d}")
     q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
     a = torch.empty(rows, dtype=torch.float32, device=x.device)
     _build.launch("b3_quant_rows", _ptr(x), int(x.dtype == torch.float32), _ptr(q), _ptr(a),

@@ -13,11 +13,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (``cuobjdump -sass``; a ``[sass]`` line): ``gemm_bias_act``'s,
    ``gemm_dx``'s and ``gemm_dw``'s kernels must show HGMMA and
    ``gemm_i8``'s IGMMA, ``flash_attention``'s, ``dense_attention``'s,
-   ``esm2_attention``'s, ``esm2_attention_bwd``'s two passes and the bf16
-   ``local_window_attention``'s HGMMA, all with UTMALDG loads, and no kernel of the library may show HMMA (the
-   ``mma.sync`` route); a ``[ptxas]`` line gives the attention kernels',
-   their staging launches' and the ``gemm_dx``/``gemm_dw`` kernels'
-   registers and spills (``nvcc -Xptxas -v``);
+   ``esm2_attention``'s, ``esm2_attention_bwd``'s two passes, the bf16
+   ``local_window_attention``'s and ``stage3_attention_core``'s band heads'
+   HGMMA, all with UTMALDG loads, and no kernel of the library may show
+   HMMA (the ``mma.sync`` route); a ``[ptxas]`` line gives the attention
+   kernels' (``stage3_attention_core``'s three), their staging launches' and
+   the ``gemm_dx``/``gemm_dw`` kernels' registers and spills (``nvcc
+   -Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
    12 heads, FF 3072; ESM2-650M: L=1024, E=1280, 20 heads, FF 5120),
@@ -45,15 +47,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
    training kernels also at one ESM2-650M layer's backward (B=2, L=1024);
    The int8 serving recipe: ``gemm_i8`` at the three models' shapes (its
    library call ``torch._int_mm``, the int32 product only), ``quant_rows``
-   on f32 and bf16 rows, whose codes and scales must equal the plain
-   version's bit for bit, and ``local_window_attention`` (B=4, H=8, L=1024,
+   on f32 and bf16 rows (edge widths 8, 2056 and 5120 f32, each with an
+   all-zero row and a row whose max is its last column), whose codes and
+   scales must equal the plain version's bit for bit, and
+   ``local_window_attention`` (B=4, H=8, L=1024,
    D=32, bf16; edge cases one window, D=64, f32, and in bf16 W=32 (a
    warpgroup over two windows), W=96 (a key tile across the band's edge),
    W=64 at D=64 and L=1024, and B·H=1 with one window; library call SDPA
    with a boolean (L, L) band mask); then ``gemm_bias_act`` and ``gemm_i8`` at
    Stage-3 B=32 (M = 32768, a layer's four products; ``cli/measure_gemm.py``)
    against their plain versions, in TFLOP/s or TOP/s beside ``matmul`` /
-   ``torch._int_mm`` and the bound, and the host µs of one wrapper call;
+   ``torch._int_mm`` and the bound, and ``stage3_attention_core`` there
+   (per head group, the same bits on a second call, its time beside the
+   bound), then the host µs of one wrapper call.  ``stage3_attention_core``
+   is also checked at head dim 64, W = 32 and 8, no and all heads
+   band-local, and L = 1000 and 200, and must give the same bits on a
+   second call;
 4. full-width ``fused_stack_logits`` on the kernels (bf16, tanh GELU)
    against the plain f32 ProteoScribe, the full-width BERT tower and
    ``fused_esm2_cls`` against the plain f32 towers, each also in int8
@@ -318,15 +327,18 @@ SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IG
               "gemm_dx_wgmma": ("HGMMA", "UTMALDG"), "gemm_dw_wgmma": ("HGMMA", "UTMALDG"),
               "flash_attn_wgmma": ("HGMMA", "UTMALDG"), "dense_attn_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
-              "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"), "local_attn_wgmma": ("HGMMA", "UTMALDG")}
+              "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"), "local_attn_wgmma": ("HGMMA", "UTMALDG"),
+              "stage3_local_wgmma": ("HGMMA", "UTMALDG")}
 # kernels whose registers and spills the build prints (``ptxas.txt``),
 # each in two instantiations: head dims 32 and 64, or the GEMM's two tiles
 PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_wgmma_kernel",
               "esm2_attn_stage_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
-              "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel")
+              "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel",
+              "stage3_local_wgmma_kernel", "stage3_linear_stats_kernel", "stage3_linear_ctx_kernel")
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
-DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum"}
+DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum",
+                 "stage3_attention_core"}
 # kernel → how many of its last outputs are f32 column sums (SUM_TOL)
 COLUMN_SUMS = {"col_sum": 1, "layernorm_bwd": 2}
 
@@ -785,6 +797,21 @@ def edge_cases(g) -> dict[str, list]:
     # lanes idle)
     cs_edge = [torch.randn(1, 264, generator=g, device=dev), rnd(7, 264), rnd(4161, 512),
                torch.randn(4161, 8, generator=g, device=dev), rnd(1000, 8)]
+    # quant_rows: 8 columns (one lane of one warp), 2056 (two warps a row,
+    # 8-byte stores) and ESM2's 5120 in f32 (four warps a row, 16-byte
+    # stores), each with an all-zero row and a row whose max is its last
+    # column
+    q_edge = [torch.randn(n, d, generator=g, device=dev) for n, d in ((37, 8), (13, 2056),
+                                                                      (11, 5120))]
+    for x in q_edge:
+        x[0], x[1, -1] = 0.0, 1000.0
+    # stage3_attention_core (B, L, heads, local heads, W) at d = 512: head
+    # dim 64; W = 32 (a warpgroup over two windows) and W = 8; linear heads
+    # only (the sequence split in 8 chunks) and band heads only; L = 1000
+    # (ragged 64-row tiles and a short last chunk); then d = 256 at L = 200,
+    # head dim 64, B = 3
+    s3_edge = [(2, 512, 8, 4, 128), (2, 512, 16, 8, 32), (2, 256, 16, 8, 8),
+               (2, 1024, 16, 0, 128), (2, 1024, 16, 16, 128), (2, 1000, 16, 8, 40)]
     return {
         # int8: M, N, K off the 128x128x64 tile (K a multiple of 32), a bf16
         # residual and erf GELU; quant rows off the 8-row block and the
@@ -794,13 +821,17 @@ def edge_cases(g) -> dict[str, list]:
                          out_dtype=bf),
                     pair("gemm_i8", a8b, s8b[0], w8b, s8b[1], out_dtype=torch.float32)],
         "quant_rows": [pair("quant_rows", xl),
-                       pair("quant_rows", torch.randn(7, 5120, generator=g, device=dev))],
+                       pair("quant_rows", torch.randn(7, 5120, generator=g, device=dev)),
+                       *(pair("quant_rows", x) for x in q_edge)],
         "local_window_attention": [pair("local_window_attention", *t, window=w) for t, w in loc],
         "gemm_bias_act": [(lambda: K.gemm_bias_act(a, w, bias, **kw),
                            lambda: K.gemm_bias_act_plain(a, w, bias, **kw))],
         "stage3_attention_core": [
             (lambda: K.stage3_attention_core(q3, heads=16, local_heads=8, window=64),
-             lambda: K.stage3_attention_core_plain(q3, heads=16, local_heads=8, window=64))],
+             lambda: K.stage3_attention_core_plain(q3, heads=16, local_heads=8, window=64)),
+            *(pair("stage3_attention_core", rnd(b, n, 1536), heads=h, local_heads=nl, window=w)
+              for b, n, h, nl, w in s3_edge),
+            pair("stage3_attention_core", rnd(3, 200, 768), heads=4, local_heads=2, window=40)],
         "dense_attention": [pair("dense_attention", qd, heads=12),
                             *(pair("dense_attention", x, heads=h) for x, h in dense)],
         "layernorm": [(lambda: K.layernorm(xl, *ln, eps=1e-5, out_dtype=bf, want_f32=True),
@@ -922,7 +953,9 @@ def phase_kernels() -> dict:
                "col_sum": 3, "gemm_i8": 4, "quant_rows": 4}
     # dqkv: each 32-column head group against its own scale (the linear
     # heads' dk is ~1/L of the local heads' dv)
-    grouped = {"stage3_attention_bwd": 32, "esm2_attention_bwd": 64}
+    grouped = {"stage3_attention_bwd": 32, "esm2_attention_bwd": 64,
+               # the linear heads' outputs against their own scale, too
+               "stage3_attention_core": 32}
 
     results = {}
     for name, cases in timed.items():
@@ -961,9 +994,10 @@ def phase_kernels() -> dict:
 def phase_gemms_b32(results: dict, g) -> None:
     """The forward GEMMs at Stage-3 B=32 (M = 32768): one layer's four
     products in bf16 and in int8, each against its plain version, timed
-    with their library calls and bound (``cli/measure_gemm.py``); then the
-    host cost of one wrapper call beside ``layernorm``'s, which encodes no
-    tensor maps."""
+    with their library calls and bound (``cli/measure_gemm.py``), and
+    ``stage3_attention_core`` at the same batch (``stage3_core_b32``); then
+    the host cost of one wrapper call beside ``layernorm``'s, which encodes
+    no tensor maps."""
     import torch
 
     from biom3_tpu_torch.cli import measure_gemm as mg
@@ -979,9 +1013,39 @@ def phase_gemms_b32(results: dict, g) -> None:
                        f"library {t['library_ms']:.4f} ms ({t['library_rate_t_per_s']:.1f} "
                        f"{unit}) bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     del cases
+    stage3_core_b32(results, g)
     torch.cuda.empty_cache()
     say("kernels", "host µs per wrapper call (enqueue, Stage-3 B=4): "
                    + " ".join(f"{k} {v:.1f}" for k, v in mg.host_costs(g).items()))
+
+
+def stage3_core_b32(results: dict, g) -> None:
+    """``stage3_attention_core`` at Stage-3 B=32 (L 1024, d 512, 8 + 8
+    heads, W 128): against its plain version per 32-column head group, the
+    same bits on a second call, timed beside its bound."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import kernels as K
+
+    B, L, d, H, NL, W = 32, 1024, 512, 16, 8, 128
+    qkv = torch.randn(B, L, 3 * d, generator=g, device=g.device).bfloat16()
+    kw = dict(heads=H, local_heads=NL, window=W)
+    got, want = K.stage3_attention_core(qkv, **kw), K.stage3_attention_core_plain(qkv, **kw)
+    err_abs, err_rel = rel_err(got, want, group=d // H)
+    if err_rel > REL_TOL:
+        raise AssertionError(f"stage3_attention_core B=32: max|Δ|/max|ref| = {err_rel:.3e}")
+    if not torch.equal(got, K.stage3_attention_core(qkv, **kw)):
+        raise AssertionError("stage3_attention_core B=32: a second call gave other bits")
+    del want
+    ms = event_ms(lambda: K.stage3_attention_core(qkv, **kw), TIMED_ITERS)
+    flops = 4 * (d // H) * band_pairs(B, L, W, NL) + 4 * B * (H - NL) * L * (d // H) ** 2
+    bound_ms = max(flops / PEAK_FLOPS, (nbytes(qkv) + B * L * d * 2) / PEAK_BYTES) * 1e3
+    entry = results["stage3_attention_core"]
+    entry.update(ms_b32=ms, bound_ms_b32=bound_ms)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
+    say("kernels", f"stage3_attention_core, Stage-3 B=32: max|Δ| {err_abs:.3e} rel {err_rel:.3e} "
+                   f"kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_ms / ms:.0%})")
 
 
 # --------------------------------------------------------------------------

@@ -81,9 +81,19 @@ def test_quantize_weight_int8_bit_equal_jax():
     np.testing.assert_array_equal(torch.cat([p[1] for p in parts], 1).numpy(), s.numpy())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_quant_rows_and_cols_bit_equal_jax(dtype):
-    z = _activations(np.random.default_rng(1))
+@pytest.mark.parametrize("dtype,rows,d", [
+    pytest.param("float32", 16, 64, id="float32"),
+    pytest.param("bfloat16", 16, 64, id="bfloat16"),
+    # the callers' widths and dtypes (a Stage-3 layer's bf16 LN1 output and
+    # f32 FF activation, an ESM2-650M layer's bf16 and f32 FF rows), 13
+    # rows: off the kernel's 8-row blocks
+    pytest.param("bfloat16", 13, 512, id="bfloat16-13x512"),
+    pytest.param("float32", 13, 2048, id="float32-13x2048"),
+    pytest.param("bfloat16", 13, 1280, id="bfloat16-13x1280"),
+    pytest.param("float32", 13, 5120, id="float32-13x5120"),
+])
+def test_quant_rows_and_cols_bit_equal_jax(dtype, rows, d):
+    z = _activations(np.random.default_rng(1), rows, d)
     zj = jnp.asarray(z).astype(dtype)
     zt = torch.from_numpy(z).to(getattr(torch, dtype))
     for name in ("quant_rows", "quant_cols"):
