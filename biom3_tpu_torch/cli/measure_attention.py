@@ -78,7 +78,10 @@ LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
             ("esm2_attn_stage", "fwd_stage"), ("esm2_attn", "fwd_sweep"),
             ("dense_attn", "dense"), ("local_attn", "local"),
             ("stage3_linear_stats", "linear_stats"), ("stage3_linear_ctx", "linear_ctx"),
-            ("stage3_local_wgmma", "band_and_linear_rows"))
+            ("stage3_local_wgmma", "band_and_linear_rows"),
+            ("stage3_bwd_dq", "band_pass1_dq"), ("stage3_bwd_dkv", "band_pass2_dkv"),
+            ("lin_bwd1", "linear_bwd1"), ("lin_bwd2", "linear_bwd2"), ("lin_bwd3", "linear_bwd3"))
+LIN_CHUNKS = (64, 128, 256, 512, 1024)   # --lin-chunk-sweep: rows a linear-heads backward block
 
 
 def rel_err(got, want, group: int = 0) -> float:
@@ -157,6 +160,7 @@ def cases(g) -> dict[str, dict]:
         **{f"dense_attention_B{b}": dense(b) for b in BERT_BATCHES},
         **{f"local_window_attention_B{b}": local(b, g) for b in LOCAL_BATCHES},
         **{f"stage3_attention_core_B{b}": stage3(b, g) for b in LOCAL_BATCHES},
+        **{f"stage3_attention_bwd_B{b}": stage3_bwd(b, g) for b in LOCAL_BATCHES},
     }
 
 
@@ -210,6 +214,68 @@ def stage3(b: int, g) -> dict:
             "lib": lambda: F.scaled_dot_product_attention(*band_heads, attn_mask=band),
             "flops": flops, "work_flops": flops, "bytes": nbytes(qkv) + b * L * d * 2,
             "group": LOCAL_DH}
+
+
+def stage3_bwd(b: int, g) -> dict:
+    """``stage3_attention_bwd`` at Stage-3 batch b (the shapes of
+    ``stage3``) beside SDPA's backward with the boolean (L, L) band mask on
+    the band heads alone (autograd, the graph built once).  FLOPs: 10·Dh
+    per band pair and 10·L·Dh² a linear head (the function's), 18·Dh per
+    band pair (the band passes' design) as ``work_flops``; bytes: qkv and
+    dattn read, dqkv written."""
+    import torch
+    import torch.nn.functional as F
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    d = STAGE3_HEADS * LOCAL_DH
+    qkv = torch.randn(b, L, 3 * d, generator=g, device=g.device).bfloat16()
+    da = torch.randn(b, L, d, generator=g, device=g.device).bfloat16()
+    band_heads = [t.view(b, L, STAGE3_HEADS, LOCAL_DH)[:, :, :LOCAL_H].transpose(1, 2)
+                  .contiguous().requires_grad_() for t in qkv.split(d, dim=-1)]
+    win = torch.arange(L, device=g.device) // LOCAL_W
+    band = (win[:, None] - win[None, :]).abs() <= 1
+    sdpa = F.scaled_dot_product_attention(*band_heads, attn_mask=band)
+    dsdpa = da.view(b, L, STAGE3_HEADS, LOCAL_DH)[:, :, :LOCAL_H].transpose(1, 2)
+    pairs = band_pairs(b, L, LOCAL_W, LOCAL_H)
+    lin_flops = 10 * b * (STAGE3_HEADS - LOCAL_H) * L * LOCAL_DH ** 2
+    kw = dict(heads=STAGE3_HEADS, local_heads=LOCAL_H, window=LOCAL_W)
+    return {"run": lambda: K.stage3_attention_bwd(qkv, da, **kw),
+            "plain": lambda: K.stage3_attention_bwd_plain(qkv, da, **kw),
+            "lib": lambda: torch.autograd.grad(sdpa, band_heads, dsdpa, retain_graph=True),
+            "flops": 10 * LOCAL_DH * pairs + lin_flops,
+            "work_flops": 18 * LOCAL_DH * pairs + lin_flops,
+            "bytes": 2 * nbytes(qkv) + nbytes(da), "group": LOCAL_DH}
+
+
+def lin_chunk_sweep(g) -> dict:
+    """``stage3_attention_bwd`` (8 band + 8 linear heads of 32, W=128,
+    L=1024) at B=4 and 32 with the linear heads' backward on chunks of
+    each of ``LIN_CHUNKS`` sequence rows: device ms per launch,
+    ``ops/kernels.stage3_linear_bwd_plan``'s own rows first."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    plan, out = K.stage3_linear_bwd_plan, {}
+    d = STAGE3_HEADS * LOCAL_DH
+    kw = dict(heads=STAGE3_HEADS, local_heads=LOCAL_H, window=LOCAL_W)
+    try:
+        for b in LOCAL_BATCHES:
+            qkv = torch.randn(b, L, 3 * d, generator=g, device=g.device).bfloat16()
+            da = torch.randn(b, L, d, generator=g, device=g.device).bfloat16()
+            want = K.stage3_attention_bwd_plain(qkv, da, **kw)
+            own = plan(L, b * (STAGE3_HEADS - LOCAL_H), 132, K.lin_bwd_max_pairs())
+            for chunk in (own,) + tuple(c for c in LIN_CHUNKS if c != own):
+                K.stage3_linear_bwd_plan = lambda *_, c=chunk: c
+                run = lambda: K.stage3_attention_bwd(qkv, da, **kw)  # noqa: E731
+                err = rel_err(run(), want, LOCAL_DH)
+                launches = launch_ms(run)
+                out[f"B{b}_chunk{chunk}"] = {"device_ms": sum(launches.values()),
+                                             "launch_ms": launches, "max_rel_err": err}
+    finally:
+        K.stage3_linear_bwd_plan = plan
+    return out
 
 
 def plan_sweep(g) -> dict:
@@ -322,6 +388,8 @@ def parse_arguments(argv=None):
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--plan-sweep", action="store_true",
                    help="also time stage3_attention_core under other linear-head splits")
+    p.add_argument("--lin-chunk-sweep", action="store_true",
+                   help="also time stage3_attention_bwd with other linear-head block rows")
     p.add_argument("--only", nargs="*", default=None,
                    help="measure only the cases (and stage3_graph_forward) whose names start "
                         "with one of these")
@@ -352,6 +420,10 @@ def main(argv=None) -> None:
     if args.plan_sweep:
         result["stage3_plan_sweep"] = plan_sweep(g)
         print(f"stage3_plan_sweep: {json.dumps(result['stage3_plan_sweep'])}", flush=True)
+    if args.lin_chunk_sweep:
+        result["stage3_bwd_lin_chunk_sweep"] = lin_chunk_sweep(g)
+        print(f"stage3_bwd_lin_chunk_sweep: {json.dumps(result['stage3_bwd_lin_chunk_sweep'])}",
+              flush=True)
     if wanted("stage3_graph_forward"):
         result["stage3_graph_forward"] = graph_forward(5)
         print(f"stage3_graph_forward: {json.dumps(result['stage3_graph_forward'])}", flush=True)

@@ -53,13 +53,14 @@ KERNEL_GROUPS = (("gemm_bias_act_wgmma", "gemm_bias_act"), ("gemm_i8_wgmma", "ge
                  ("esm2_bwd", "esm2_attention_bwd"), ("esm2_attn", "esm2_attention"),
                  ("flash_attn", "flash_attention"),
                  ("dense_attn", "dense_attention"), ("layernorm_bwd", "layernorm_bwd"),
-                 ("layernorm", "layernorm"), ("esm2_embed", "esm2_embed"),
+                 ("bias_layernorm", "bias_layernorm"), ("layernorm", "layernorm"),
+                 ("esm2_embed", "esm2_embed"),
                  ("quant_rows", "quant_rows"),
                  ("stage3_local_wgmma", "stage3_attention_core"),
                  ("stage3_linear_stats", "stage3_attention_core"),
                  ("stage3_linear_ctx", "stage3_attention_core"),
-                 ("local_dq_kernel", "stage3_attention_bwd"),
-                 ("local_dkv_kernel", "stage3_attention_bwd"),
+                 ("stage3_bwd_dq_wgmma", "stage3_attention_bwd"),
+                 ("stage3_bwd_dkv_wgmma", "stage3_attention_bwd"),
                  ("lin_bwd", "stage3_attention_bwd"), ("col_sum", "col_sum"),
                  ("local_attn", "local_window_attention"))
 

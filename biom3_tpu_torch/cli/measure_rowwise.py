@@ -1,5 +1,6 @@
-"""The row-wise kernels on one CUDA card: ``layernorm``, ``layernorm_bwd``,
-``col_sum`` and ``quant_rows``.
+"""The row-wise kernels on one CUDA card: ``layernorm``, ``bias_layernorm``,
+``embed_tokens``, ``gather_head``, ``layernorm_bwd``, ``col_sum`` and
+``quant_rows``.
 
     python -m biom3_tpu_torch.cli.measure_rowwise [--iters 50] [--out build/measure_rowwise.json]
         [--only PREFIX ...] [--bits-out FILE | --bits-against FILE]
@@ -24,6 +25,18 @@ and B=32 (32768 rows); an ESM2-650M layer's at B=4 (4096 rows: ``col_sum``
 over 1280, 3840 and 5120 bf16 columns; ``layernorm_bwd`` at 1280, bf16 x
 and residual into a bf16 dx); and ESM2-3B's width at B=16 (16384 rows:
 ``layernorm_bwd`` at 2560, ``col_sum`` over the 10240 FF columns).
+
+``bias_layernorm`` (the Stage-3 layer's prologue: h (B, 1024, d) bf16 plus
+its batch row's bias, LayerNorm, xb f32 and xn bf16 out) at d 512 at B=4
+and B=32, at d 1280 (B=16, the widest row held in registers), a ragged
+1288 (B=3, L=997) and d 4096 (B=32, staged in shared memory); no library
+call writes both outputs, so the plain version's device ms stands beside
+the kernel's.
+
+``embed_tokens`` and ``gather_head`` (the Stage-3 stack's first and last
+steps: tok[ids] + pos at d 512, and LayerNorm with the (512, 29) head at 1
+or 8 gathered positions a batch row) at B=4, phase 3's shape, and B=32;
+no library call, the plain version's device ms beside the kernel's.
 
 ``quant_rows`` with the callers' widths and dtypes: a Stage-3 layer's four
 quants (the LN1 output and the head outputs, 512 bf16; the LN2 output, 512
@@ -146,6 +159,36 @@ def cases(g) -> dict[str, dict]:
         return {"ln1_bf16": quant(rows, d, bf), "attn_bf16": quant(rows, d, bf),
                 "ln2_f32": quant(rows, d, f32), "ff_f32": quant(rows, ff, f32)}
 
+    def bias_ln(b, d, L=1024):
+        """The Stage-3 layer's prologue: h (b, L, d) bf16 plus its batch
+        row's bias, LayerNorm (eps 1e-6) → xb f32 and xn bf16.  No library
+        call writes both outputs: the plain version's device ms stands
+        beside the kernel's."""
+        h, bias, s, t = rnd(b, L, d, scale=3.0), rnd(b, d), vec(d, 1.0), vec(d)
+        rows = b * L
+        return {"run": lambda: K.bias_layernorm(h, bias, s, t),
+                "plain": lambda: K.bias_layernorm_plain(h, bias, s, t), "lib": None,
+                "flops": 9 * rows * d, "bytes": rows * d * (2 + 4 + 2) + b * d * 2 + 8 * d}
+
+    def embed(b, d=512, L=1024, vocab=29):
+        """The Stage-3 stack's layer-0 embed: tok[ids] + pos."""
+        ids = torch.randint(0, vocab, (b, L), generator=g, device=dev, dtype=torch.int32)
+        tok, pos = rnd(vocab, d), rnd(L, d)
+        return {"run": lambda: K.embed_tokens(ids, tok, pos),
+                "plain": lambda: K.embed_tokens_plain(ids, tok, pos), "lib": None,
+                "flops": b * L * d, "bytes": ids.numel() * 4 + (vocab + L) * d * 2 + b * L * d * 2}
+
+    def head(b, k, d=512, L=1024, classes=29):
+        """The Stage-3 stack's epilogue: LayerNorm and the (d, 29) head at k
+        gathered positions a batch row."""
+        h, s, t = rnd(b, L, d, scale=3.0), vec(d, 1.0), vec(d)
+        pos = torch.randint(0, L, (b, k), generator=g, device=dev, dtype=torch.int32)
+        w, hb = rnd(d, classes, scale=d ** -0.5), vec(classes)
+        return {"run": lambda: K.gather_head(h, pos, s, t, w, hb),
+                "plain": lambda: K.gather_head_plain(h, pos, s, t, w, hb), "lib": None,
+                "flops": 2 * b * k * d * classes + 8 * b * k * d,
+                "bytes": b * k * (d * 2 + 4 + classes * 4) + 8 * d + d * classes * 2 + classes * 4}
+
     names = ["col_sum_dyc", "col_sum_dh1", "col_sum_dxa", "ln2_bwd", "ln1_bwd"]
     b4, b32 = layer(4 * 1024, 512, 2048), layer(32 * 1024, 512, 2048)
     return {
@@ -166,6 +209,16 @@ def cases(g) -> dict[str, dict]:
         "esm2_b16_ln1": ln(16 * 1024, 1280, bf, 1e-5),
         "esm2_3b_b16_ln1": ln(16 * 1024, 2560, bf, 1e-5),
         "stage3_d4096_b32_ff_prenorm": ln(32 * 1024, 4096, f32, 1e-6),
+        "stage3_b4_embed_tokens": embed(4),
+        "stage3_b32_embed_tokens": embed(32),
+        "stage3_b4_gather_head_k1": head(4, 1),
+        "stage3_b4_gather_head_k8": head(4, 8),
+        "stage3_b32_gather_head_k8": head(32, 8),
+        "stage3_b4_bias_ln": bias_ln(4, 512),
+        "stage3_b32_bias_ln": bias_ln(32, 512),
+        "d1280_b16_bias_ln": bias_ln(16, 1280),
+        "d1288_b3_bias_ln": bias_ln(3, 1288, L=997),
+        "d4096_b32_bias_ln": bias_ln(32, 4096),
         **{f"stage3_b4_quant_{n}": c for n, c in quants(4 * 1024, 512, 2048).items()},
         **{f"stage3_b32_quant_{n}": c for n, c in quants(32 * 1024, 512, 2048).items()},
         **{f"esm2_b16_quant_{n}": c for n, c in quants(16 * 1024, 1280, 5120).items()},

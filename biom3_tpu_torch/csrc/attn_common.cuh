@@ -1,9 +1,3 @@
-// Helpers shared by the attention kernels that are not on the tensor-core
-// sweep of attn_hopper.cuh:
-//
-// S: threads that cooperate on one query row in the Stage-3 attention
-// backward on CUDA cores (stage3_attn_bwd.cu).
-//
 // rope8: GPT-NeoX rotary of one 8-column chunk, x·cos + rotate_half(x)·sin
 // with each product and the sum rounded through bf16, as the TPU kernel
 // rotates in bf16 (esm2_stack_tpu.py:164-176); the ESM2 kernels' staging
@@ -13,8 +7,6 @@
 #include "common.cuh"
 
 namespace b3 {
-
-constexpr int S = 4;              // threads per query row
 
 // Rotary of one 8-column chunk at column c: x·cos + rotate_half(x)·sin,
 // where rotate_half gives -x[c + DH/2] in the first half, x[c - DH/2] in

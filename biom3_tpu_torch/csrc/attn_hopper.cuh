@@ -1,7 +1,9 @@
 // Tensor-core softmax attention for Hopper, shared by flash_attention
 // (flash_attn.cu), dense_attention (dense_attn.cu), esm2_attention
-// (esm2_attn.cu), esm2_attention_bwd (esm2_attn_bwd.cu) and the bf16
-// local_window_attention (local_attn.cu, a band of keys): head dim 64
+// (esm2_attn.cu), esm2_attention_bwd (esm2_attn_bwd.cu), the bf16
+// local_window_attention (local_attn.cu, a band of keys) and the band heads
+// of stage3_attention_core (stage3_attn.cu) and stage3_attention_bwd
+// (stage3_attn_bwd.cu): head dim 64
 // tiles in shared memory loaded by TMA, products on wgmma, an online f32
 // softmax in the accumulator registers.
 //
@@ -112,10 +114,13 @@ __device__ __forceinline__ uint64_t desc_mn(const uint8_t *tile, int kk) {
   return smem_desc(tile + kk * 16 * 128, TILE_BYTES, 1024);
 }
 
-// S (+)= A·Bᵀ over the 64-wide reduced dim: both tiles K-major.
+// S (+)= A·Bᵀ over the reduced dim: both tiles K-major.  KSTEPS = 4 takes
+// the tiles' 64 columns; 2 takes the first 32 (head dim 32, whose columns
+// 32..63 are zeros).
+template <int KSTEPS = 4>
 __device__ __forceinline__ void product_nt(float (&d)[32], const uint8_t *a, const uint8_t *b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss<0>(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
+  for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss<0>(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
 }
 
 // D += P·B, P (64 x 64) as A fragments, B the tile read MN-major.
@@ -131,6 +136,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// The first 1024-byte-aligned byte of a dynamic shared-memory block (the
+// 128-byte swizzle's atoms).
+__device__ __forceinline__ uint8_t *aligned_smem(uint8_t *raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// A ring of STAGES (full, empty) barrier pairs, emptied by one arrive per
+// consumer warp of NWG warpgroups, and one barrier for the tiles a block
+// loads once; thread 0 initialises them (the caller synchronises).
+template <int STAGES, int NWG>
+__device__ __forceinline__ void init_ring(uint64_t *full, uint64_t *empty, uint64_t *once) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,6 +54,15 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// (max, Σexp(x − max)) of two sets of values → of their union; a set of
+// no values is (−inf, 0).
+__device__ __forceinline__ void merge_stats(float &m, float &s, float mo, float so) {
+  const float mn = fmaxf(m, mo);
+  if (mn == -INFINITY) return;
+  s = s * __expf(m - mn) + so * __expf(mo - mn);
+  m = mn;
 }
 
 // Unpack 8 bf16 values held in a 16-byte vector.

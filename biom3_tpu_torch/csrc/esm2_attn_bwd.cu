@@ -110,22 +110,6 @@ __device__ __forceinline__ void unrotate_store(const float (&d)[32], int h, int 
   }
 }
 
-__device__ __forceinline__ uint8_t *aligned_smem(uint8_t *raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void init_ring(uint64_t *full, uint64_t *empty, uint64_t *once) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NWG * 4);  // one arrive per consumer warp
-    }
-    mbar_init(once, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-}
-
 // Pass 1 (query-owned): queries [q0, q0 + BR) of head blockIdx.y, batch
 // row blockIdx.z.  Two blocks an SM (96 registers, ~100 bytes of spills a
 // thread) measured 4 % faster than one at 128 registers (PERF.md).
@@ -141,7 +125,7 @@ esm2_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_ops, Args a) {
   const int bh = b * a.H + head, BH = a.B * a.H, q0 = blockIdx.x * BR;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int *key_pad = a.pad + (size_t)b * L;
-  init_ring(full, empty, once);
+  init_ring<STAGES, NWG>(full, empty, once);
   const int live = block_live_keys(key_pad, L);  // synchronises the block
   const int tiles = (live + TILE - 1) / TILE;
 
@@ -276,7 +260,7 @@ esm2_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_ops,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int *key_pad = a.pad + (size_t)b * L;
   bf16 *out = a.dqkv + (size_t)b * L * 3 * E + head * DH;
-  init_ring(full, empty, once);
+  init_ring<STAGES, NWG>(full, empty, once);
   const int live = block_live_keys(key_pad, L);  // synchronises the block
   if (k0 >= live) {  // every key of the block is past the last live key: p = 0
     const int rows = min(BR, L - k0), vecs = DH / 8;

@@ -6,12 +6,15 @@
 //   of biom3_tpu/ops/pallas/fused_layer_tpu.py:186 (fused_attn_half,
 //   :117-119) and of each layer of stack_kernel_tpu.py:765
 //   (fused_stack_logits, :541-547).  Writes xb (f32, it is the residual of
-//   the attention half) and LN(xb) (bf16, the q/k/v GEMM's input).
+//   the attention half) and LN(xb) (bf16, the q/k/v GEMM's input).  It is
+//   layernorm's kernels with the bias row added to each chunk as it is
+//   loaded: one read of h, the bits of the two-pass reference order.
 // * layernorm — the FF half's pre-norm (fused_layer_tpu.py:269,
 //   fused_ff_half :255) and BERT's post-norms (bert_stack_tpu.py:198,
 //   :138-141 and :176-179), eps passed in.  One read of each row: up to
 //   d = 1280 the row, γ and β stay in registers (layernorm_kernel), a
-//   wider row is staged in shared memory (layernorm_wide_kernel).
+//   wider row is staged in shared memory (layernorm_wide_kernel), and one
+//   past a block's shared memory is read three times from global memory.
 // * embed_tokens — tok[ids] + pos_emb, the l == 0 embed of
 //   stack_kernel_tpu.py:522-537 (a one-hot matmul there; a gather here).
 // * gather_head — the l == depth-1 epilogue of stack_kernel_tpu.py:562-581:
@@ -111,45 +114,30 @@ __device__ __forceinline__ void row_stats(const void *x, int x_f32, size_t xoff,
   rstd = rsqrtf(warp_sum(q) / d + eps);
 }
 
-__global__ void bias_layernorm_kernel(const bf16 *__restrict__ h, const bf16 *__restrict__ bias,
-                                      const float *__restrict__ scale,
-                                      const float *__restrict__ shift, float *__restrict__ xb,
-                                      bf16 *__restrict__ xn, int rows, int rows_per_bias, int d,
-                                      float eps) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t off = (size_t)row * d;
-  const bf16 *brow = bias + (size_t)(row / rows_per_bias) * d;
-  float mean, rstd;
-  row_stats(h, 0, off, brow, d, lane, eps, mean, rstd);
-  float v[8], a[8], y[8];
-  for (int c = lane * 8; c < d; c += 256) {
-    unpack8(*reinterpret_cast<const uint4 *>(h + off + c), v);
-    unpack8(*reinterpret_cast<const uint4 *>(brow + c), a);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      v[e] += a[e];
-      y[e] = (v[e] - mean) * rstd * scale[c + e] + shift[c + e];
-    }
-    float4 *xp = reinterpret_cast<float4 *>(xb + off + c);
-    xp[0] = make_float4(v[0], v[1], v[2], v[3]);
-    xp[1] = make_float4(v[4], v[5], v[6], v[7]);
-    *reinterpret_cast<uint4 *>(xn + off + c) = pack8(y);
-  }
+// layernorm and bias_layernorm: one read of x.  Rows of up to ROW_CHUNKS
+// chunks a lane (d <= 1280) run on layernorm_rows (layernorm_kernel,
+// bias_layernorm_kernel), wider ones on layernorm_wide_rows
+// (layernorm_wide_kernel, bias_layernorm_wide_kernel).  Both sum the mean, then the centred sum of
+// squares, in row_stats' order (chunk by chunk, 8 columns in order, one
+// warp_sum), so the output has the bits of a kernel that reads the row
+// three times.  With BIAS (bias_layernorm) x is h in bf16: each chunk adds
+// its batch row's bias chunk as it is loaded, the sum goes out as xb (f32)
+// and is normalised into y (bf16).
+struct RowBias {
+  const bf16 *bias;   // (rows / per, d)
+  float *xb;          // (rows, d)
+  int per;            // rows that share a bias row
+};
+
+__device__ __forceinline__ void store8_f32(float *p, const float *v) {
+  float4 *q = reinterpret_cast<float4 *>(p);
+  q[0] = make_float4(v[0], v[1], v[2], v[3]);
+  q[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// layernorm: one read of x.  Rows of up to ROW_CHUNKS chunks a lane
-// (d <= 1280) run on layernorm_kernel, wider ones on layernorm_wide_kernel.
-// Both sum the mean, then the centred sum of squares, in row_stats' order
-// (chunk by chunk, 8 columns in order, one warp_sum), so the output has the
-// bits of a kernel that reads the row three times.
 __device__ __forceinline__ void store8(bf16 *y, float *y32, size_t off, const float *v) {
   if (y) *reinterpret_cast<uint4 *>(y + off) = pack8(v);
-  if (y32) {
-    float4 *yp = reinterpret_cast<float4 *>(y32 + off);
-    yp[0] = make_float4(v[0], v[1], v[2], v[3]);
-    yp[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
+  if (y32) store8_f32(y32 + off, v);
 }
 
 template <bool F32>
@@ -173,15 +161,16 @@ struct Chunk<false> {
 };
 
 // Each warp holds its row in registers, NC chunks a lane (columns lane·8 +
-// 256·i, i < NC, those < d), and issues the next row's loads before it
-// reduces the current one; the grid is sized from the SM count and each
-// warp walks rows gridDim·8 apart.  γ and β arrive once a warp as float4
-// loads and stay in registers across its rows.
-template <int NC, bool F32>
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-layernorm_kernel(const void *__restrict__ x, const float *__restrict__ scale,
-                 const float *__restrict__ shift, bf16 *__restrict__ y,
-                 float *__restrict__ y32, int rows, int d, float eps) {
+// 256·i, i < NC, those < d), and issues the next row's loads (with BIAS its
+// bias row's too) before it reduces the current one; the grid is sized from
+// the SM count and each warp walks rows gridDim·8 apart.  γ and β arrive
+// once a warp as float4 loads and stay in registers across its rows.
+template <int NC, bool F32, bool BIAS>
+__device__ __forceinline__ void layernorm_rows(const void *__restrict__ x,
+                                               const float *__restrict__ scale,
+                                               const float *__restrict__ shift,
+                                               bf16 *__restrict__ y, float *__restrict__ y32,
+                                               int rows, int d, float eps, const RowBias &rb) {
   const int lane = threadIdx.x & 31, stride = gridDim.x * ROWS_PER_BLOCK;
   int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -195,19 +184,33 @@ layernorm_kernel(const void *__restrict__ x, const float *__restrict__ scale,
     }
   }
   Chunk<F32> raw[NC];
+  Chunk<false> braw[NC];   // BIAS: the row's bias chunks
   auto load = [&](int r) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane * 8 + i * 256;
-      if (c < d) raw[i].load(x, (size_t)r * d + c);
+      if (c < d) {
+        raw[i].load(x, (size_t)r * d + c);
+        if constexpr (BIAS) braw[i].load(rb.bias, (size_t)(r / rb.per) * d + c);
+      }
     }
   };
   load(row);
   for (; row < rows; row += stride) {
     float v[NC][8];
 #pragma unroll
-    for (int i = 0; i < NC; ++i)
-      if (lane * 8 + i * 256 < d) raw[i].unpack(v[i]);
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane * 8 + i * 256;
+      if (c >= d) continue;
+      raw[i].unpack(v[i]);
+      if constexpr (BIAS) {
+        float a[8];
+        braw[i].unpack(a);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[i][e] += a[e];
+        store8_f32(rb.xb + (size_t)row * d + c, v[i]);
+      }
+    }
     if (row + stride < rows) load(row + stride);
     float s = 0.f;
 #pragma unroll
@@ -238,34 +241,50 @@ layernorm_kernel(const void *__restrict__ x, const float *__restrict__ scale,
 }
 
 // Rows wider than ROW_CHUNKS chunks a lane (ESM2-3B's 2560, a Stage-3 dim
-// of 4096): each warp copies its row once into shared memory with
-// cp.async, 16 bytes at a time, and each lane reads back only the columns
-// it copied, so no barrier is needed.  row_stats and the normalise loop
-// then read the row there; γ and β come as float4 loads for each chunk,
-// from L1/L2 (every warp reads the same ones).  blockDim.x / 32 warps, each
-// with d elements of the input's type in shared memory.
-template <bool F32>
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-layernorm_wide_kernel(const void *__restrict__ x, const float *__restrict__ scale,
-                      const float *__restrict__ shift, bf16 *__restrict__ y,
-                      float *__restrict__ y32, int rows, int d, float eps) {
+// of 4096): with STAGED each warp copies its row once into shared memory
+// with cp.async, 16 bytes at a time, and each lane reads back only the
+// columns it copied, so no barrier is needed.  row_stats and the normalise
+// loop then read the row there; γ and β (and with BIAS the bias row) come
+// as 16-byte loads for each chunk, from L1/L2 (every warp reads the same
+// ones).  blockDim.x / 32 warps, each with d elements of the input's type
+// in shared memory.  A row past one block's shared memory runs without
+// STAGED and reads x three times from global memory, in the same order.
+template <bool F32, bool BIAS, bool STAGED>
+__device__ __forceinline__ void layernorm_wide_rows(const void *__restrict__ x,
+                                                    const float *__restrict__ scale,
+                                                    const float *__restrict__ shift,
+                                                    bf16 *__restrict__ y, float *__restrict__ y32,
+                                                    int rows, int d, float eps, const RowBias &rb) {
   extern __shared__ __align__(16) unsigned char staged[];
   constexpr int ESZ = F32 ? 4 : 2;   // bytes an element: a chunk is 2 or 1 copies of 16
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned char *row_s = staged + (size_t)warp * d * ESZ;
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(row_s));
   for (int row = blockIdx.x * warps + warp; row < rows; row += gridDim.x * warps) {
-    const char *src = static_cast<const char *>(x) + (size_t)row * d * ESZ;
-    for (int c = lane * 8; c < d; c += 256)
+    const void *src = x;   // the row: x from column off, or its staged copy from 0
+    size_t off = (size_t)row * d;
+    if constexpr (STAGED) {
+      const char *xr = static_cast<const char *>(x) + off * ESZ;
+      for (int c = lane * 8; c < d; c += 256)
 #pragma unroll
-      for (int k = 0; k < ESZ / 2; ++k)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst + c * ESZ + 16 * k),
-                     "l"(src + c * ESZ + 16 * k));
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+        for (int k = 0; k < ESZ / 2; ++k)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst + c * ESZ + 16 * k),
+                       "l"(xr + c * ESZ + 16 * k));
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      src = row_s;
+      off = 0;
+    }
     float mean, rstd, v[8], g[8], b[8];
-    row_stats(row_s, F32, 0, nullptr, d, lane, eps, mean, rstd);
+    const bf16 *brow = BIAS ? rb.bias + (size_t)(row / rb.per) * d : nullptr;
+    row_stats(src, F32, off, brow, d, lane, eps, mean, rstd);
     for (int c = lane * 8; c < d; c += 256) {
-      load8(row_s, c, F32, v);
+      load8(src, off + c, F32, v);
+      if constexpr (BIAS) {
+        unpack8(*reinterpret_cast<const uint4 *>(brow + c), g);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += g[e];
+        store8_f32(rb.xb + (size_t)row * d + c, v);
+      }
       load8(scale, c, 1, g);
       load8(shift, c, 1, b);
 #pragma unroll
@@ -273,6 +292,33 @@ layernorm_wide_kernel(const void *__restrict__ x, const float *__restrict__ scal
       store8(y, y32, (size_t)row * d + c, v);
     }
   }
+}
+
+// The kernels: layernorm's (rb unused) and bias_layernorm's, one signature.
+#define B3_LN_PARAMS                                                                      \
+  const void *__restrict__ x, const float *__restrict__ scale,                            \
+      const float *__restrict__ shift, bf16 *__restrict__ y, float *__restrict__ y32, int rows, \
+      int d, float eps, RowBias rb
+#define B3_LN_ARGS x, scale, shift, y, y32, rows, d, eps, rb
+
+template <int NC, bool F32>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32) layernorm_kernel(B3_LN_PARAMS) {
+  layernorm_rows<NC, F32, false>(B3_LN_ARGS);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32) bias_layernorm_kernel(B3_LN_PARAMS) {
+  layernorm_rows<NC, false, true>(B3_LN_ARGS);
+}
+
+template <bool F32, bool STAGED>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32) layernorm_wide_kernel(B3_LN_PARAMS) {
+  layernorm_wide_rows<F32, false, STAGED>(B3_LN_ARGS);
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32) bias_layernorm_wide_kernel(B3_LN_PARAMS) {
+  layernorm_wide_rows<false, true, STAGED>(B3_LN_ARGS);
 }
 
 __global__ void embed_tokens_kernel(const int *__restrict__ ids, const bf16 *__restrict__ tok,
@@ -1066,10 +1112,11 @@ int launch_layernorm_bwd_wide(const void *x, int x_f32, const float *dy, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC>
+template <int NC, bool BIAS>
 int launch_layernorm(const void *x, int x_f32, const float *scale, const float *shift, bf16 *y,
-                     float *y32, int rows, int d, float eps, cudaStream_t stream) {
-  const auto kernel = x_f32 ? layernorm_kernel<NC, true> : layernorm_kernel<NC, false>;
+                     float *y32, int rows, int d, float eps, RowBias rb, cudaStream_t stream) {
+  const auto kernel = BIAS ? bias_layernorm_kernel<NC>   // bias_layernorm's h is bf16
+                          : x_f32 ? layernorm_kernel<NC, true> : layernorm_kernel<NC, false>;
   static int sms = 0, per_sm[2] = {0, 0};   // blocks an SM holds, by x_f32
   if (!sms) {
     int dev = 0;
@@ -1080,7 +1127,7 @@ int launch_layernorm(const void *x, int x_f32, const float *scale, const float *
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[x_f32], kernel, ROWS_PER_BLOCK * 32, 0);
   const int blocks =
       std::min((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, sms * per_sm[x_f32]);
-  kernel<<<blocks, ROWS_PER_BLOCK * 32, 0, stream>>>(x, scale, shift, y, y32, rows, d, eps);
+  kernel<<<blocks, ROWS_PER_BLOCK * 32, 0, stream>>>(x, scale, shift, y, y32, rows, d, eps, rb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1106,10 +1153,12 @@ int launch_quant(const void *x, int x_f32, void *q, void *scale, int rows, int d
 
 // The wide rows' blocks hold up to 48 KB of staged rows (as many warps as
 // fit, at most ROWS_PER_BLOCK), so an SM takes several; a row over 48 KB
-// gets a block of one warp and the opt-in shared memory.
+// gets a block of one warp and the opt-in shared memory, and a row past
+// that a block of ROWS_PER_BLOCK warps that reads it from global memory.
+template <bool BIAS>
 int launch_layernorm_wide(const void *x, int x_f32, const float *scale, const float *shift,
-                          bf16 *y, float *y32, int rows, int d, float eps, cudaStream_t stream) {
-  const auto kernel = x_f32 ? layernorm_wide_kernel<true> : layernorm_wide_kernel<false>;
+                          bf16 *y, float *y32, int rows, int d, float eps, RowBias rb,
+                          cudaStream_t stream) {
   static int sms = 0, smem_optin = 0;
   static bool opted[2] = {false, false};
   if (!sms) {
@@ -1119,10 +1168,16 @@ int launch_layernorm_wide(const void *x, int x_f32, const float *scale, const fl
     cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   const size_t row_bytes = (size_t)d * (x_f32 ? 4 : 2);
-  if (row_bytes > (size_t)smem_optin) return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = static_cast<int>(
+  const bool staged = row_bytes <= (size_t)smem_optin;
+  const auto kernel = BIAS    ? (staged ? bias_layernorm_wide_kernel<true>
+                                        : bias_layernorm_wide_kernel<false>)
+                      : x_f32 ? (staged ? layernorm_wide_kernel<true, true>
+                                        : layernorm_wide_kernel<true, false>)
+                              : (staged ? layernorm_wide_kernel<false, true>
+                                        : layernorm_wide_kernel<false, false>);
+  const int warps = !staged ? ROWS_PER_BLOCK : static_cast<int>(
       std::max<size_t>(1, std::min<size_t>(ROWS_PER_BLOCK, (48 << 10) / row_bytes)));
-  const int smem = static_cast<int>(warps * row_bytes);
+  const int smem = staged ? static_cast<int>(warps * row_bytes) : 0;
   if (smem > (48 << 10) && !opted[x_f32]) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin);
     opted[x_f32] = true;
@@ -1130,7 +1185,7 @@ int launch_layernorm_wide(const void *x, int x_f32, const float *scale, const fl
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
   const int blocks = std::min((rows + warps - 1) / warps, sms * std::max(per_sm, 1));
-  kernel<<<blocks, warps * 32, smem, stream>>>(x, scale, shift, y, y32, rows, d, eps);
+  kernel<<<blocks, warps * 32, smem, stream>>>(x, scale, shift, y, y32, rows, d, eps, rb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1146,35 +1201,47 @@ void b3_col_sum_f32(const float *x, int rows, long long n, float *out, cudaStrea
 }
 
 // All row kernels need d % 8 == 0 and contiguous, 16-byte aligned rows.
+// h (rows, d) bf16 + bias (rows / rows_per_bias, d) bf16 → xb (rows, d)
+// f32 and LayerNorm(xb) → xn (rows, d) bf16; scale/shift (d,) f32, 16-byte
+// aligned.  layernorm's routes: d <= 256 · ROW_CHUNKS in registers, a wider
+// row (in bf16) staged in shared memory, one past it read from global memory.
 B3_EXPORT int b3_bias_layernorm(const void *h, const void *bias, const void *scale,
                                 const void *shift, void *xb, void *xn, int rows,
                                 int rows_per_bias, int d, float eps, void *stream) {
-  bias_layernorm_kernel<<<row_grid(rows), ROWS_PER_BLOCK * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16 *>(h), static_cast<const bf16 *>(bias),
-      static_cast<const float *>(scale), static_cast<const float *>(shift),
-      static_cast<float *>(xb), static_cast<bf16 *>(xn), rows, rows_per_bias, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  const float *g = static_cast<const float *>(scale), *b = static_cast<const float *>(shift);
+  bf16 *y = static_cast<bf16 *>(xn);
+  const RowBias rb{static_cast<const bf16 *>(bias), static_cast<float *>(xb), rows_per_bias};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % 8 || rows_per_bias < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((d + 255) / 256) {
+    case 1: return launch_layernorm<1, true>(h, 0, g, b, y, nullptr, rows, d, eps, rb, s);
+    case 2: return launch_layernorm<2, true>(h, 0, g, b, y, nullptr, rows, d, eps, rb, s);
+    case 3: return launch_layernorm<3, true>(h, 0, g, b, y, nullptr, rows, d, eps, rb, s);
+    case 4: return launch_layernorm<4, true>(h, 0, g, b, y, nullptr, rows, d, eps, rb, s);
+    case 5: return launch_layernorm<5, true>(h, 0, g, b, y, nullptr, rows, d, eps, rb, s);
+    default: return launch_layernorm_wide<true>(h, 0, g, b, y, nullptr, rows, d, eps, rb, s);
+  }
 }
 
 // x (rows, d) f32 (x_f32) or bf16, scale/shift (d,) f32, all 16-byte
 // aligned; y (rows, d) bf16 and/or y32 f32 (either may be null); d % 8 ==
 // 0.  d <= 256 · ROW_CHUNKS runs on layernorm_kernel<ceil(d / 256)>, a
-// wider row on layernorm_wide_kernel, which needs it to fit one block's
-// shared memory (sm_90: 227 KB).
+// wider row on layernorm_wide_kernel, staged in shared memory where it
+// fits one block's (sm_90: 227 KB), else read from global memory.
 B3_EXPORT int b3_layernorm(const void *x, int x_f32, const void *scale, const void *shift,
                            void *y, void *y32, int rows, int d, float eps, void *stream) {
   const float *g = static_cast<const float *>(scale), *b = static_cast<const float *>(shift);
   bf16 *yb = static_cast<bf16 *>(y);
   float *yf = static_cast<float *>(y32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RowBias none{nullptr, nullptr, 1};
   switch ((d + 255) / 256) {
-    case 1: return launch_layernorm<1>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
-    case 2: return launch_layernorm<2>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
-    case 3: return launch_layernorm<3>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
-    case 4: return launch_layernorm<4>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
-    case 5: return launch_layernorm<5>(x, x_f32, g, b, yb, yf, rows, d, eps, s);
-    default: return launch_layernorm_wide(x, x_f32, g, b, yb, yf, rows, d, eps, s);
+    case 1: return launch_layernorm<1, false>(x, x_f32, g, b, yb, yf, rows, d, eps, none, s);
+    case 2: return launch_layernorm<2, false>(x, x_f32, g, b, yb, yf, rows, d, eps, none, s);
+    case 3: return launch_layernorm<3, false>(x, x_f32, g, b, yb, yf, rows, d, eps, none, s);
+    case 4: return launch_layernorm<4, false>(x, x_f32, g, b, yb, yf, rows, d, eps, none, s);
+    case 5: return launch_layernorm<5, false>(x, x_f32, g, b, yb, yf, rows, d, eps, none, s);
+    default: return launch_layernorm_wide<false>(x, x_f32, g, b, yb, yf, rows, d, eps, none, s);
   }
 }
 

@@ -88,15 +88,6 @@ struct LinWs {
         part(ctx + (size_t)pairs * dh * dh) {}
 };
 
-// (max, Σexp(x − max)) of two sets of values → of their union; a set of
-// no values is (−inf, 0).
-__device__ __forceinline__ void merge_stats(float &m, float &s, float mo, float so) {
-  const float mn = fmaxf(m, mo);
-  if (mn == -INFINITY) return;
-  s = s * __expf(m - mn) + so * __expf(mo - mn);
-  m = mn;
-}
-
 // Block (c, p): sequence rows [c·srows, min(L, (c+1)·srows)) of pair p =
 // b·ng + j (head local + j).  Thread (g, v) walks rows g, g + G, ... of the
 // chunk, 8 channels v·8.. from one 16-byte load a row, U rows' loads in

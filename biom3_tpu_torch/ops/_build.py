@@ -34,7 +34,8 @@ PTXAS_REPORT = BUILD_DIR / "ptxas.txt"  # registers, spills, shared memory per k
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # C entry points: name → argument types (every one returns an int: the
-# launches cudaGetLastError(), the ``_grid``/``_capacity`` queries a block count)
+# launches cudaGetLastError(), the ``_grid``/``_capacity`` queries a block count,
+# the ``stage3_bwd`` queries a pair count and a workspace size)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "b3_gemm_bias_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -44,7 +45,9 @@ SIGNATURES = {
     "b3_col_sum_capacity": [_I],
     "b3_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "b3_layernorm_bwd_grid": [_I, _I, _I, _I, _I],
-    "b3_stage3_attention_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    "b3_stage3_attention_bwd": [_P] * 5 + [_I] * 7 + [_P],
+    "b3_stage3_bwd_lin_max_pairs": [],
+    "b3_stage3_bwd_ws_floats": [_I, _I],
     "b3_stage3_attention_core": [_P, _P, _P] + [_I] * 10 + [_P],
     "b3_dense_attention": [_P, _P, _I, _I, _I, _I, _P],
     "b3_bias_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -471,7 +471,8 @@ def esm2_attention_plain(qkv, padding_mask, cos, sin, *, heads):
 
 def bias_layernorm(h: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor, *, eps: float = 1e-6):
-    """h (B, L, d) + bias (B, d) → (xb f32, LayerNorm(xb) in h's dtype)."""
+    """h (B, L, d) + bias (B, d) → (xb f32, LayerNorm(xb) in h's dtype), on
+    ``layernorm``'s kernels with the bias added as h is read."""
     _check("h", h, dtypes=_compute_dtypes(h), ndim=3, vectors=True)
     B, L, d = h.shape
     _check("bias", bias, dtypes=(h.dtype,), shape=(B, d), device=h.device, vectors=True)
@@ -480,7 +481,7 @@ def bias_layernorm(h: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
     if not h.is_cuda:
         return bias_layernorm_plain(h, bias, scale, shift, eps=eps)
     if d % 8:
-        raise ValueError(f"bias_layernorm kernel needs d % 8 == 0, got {d}")
+        raise ValueError(f"bias_layernorm kernel needs d % 8 == 0, got d={d}")
     xb = torch.empty((B, L, d), dtype=torch.float32, device=h.device)
     xn = torch.empty_like(h)
     _build.launch("b3_bias_layernorm", _ptr(h), _ptr(bias), _ptr(scale), _ptr(shift),
@@ -492,10 +493,6 @@ def bias_layernorm(h: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
 def bias_layernorm_plain(h, bias, scale, shift, *, eps=1e-6):
     xb = h.float() + bias.float()[:, None, :]
     return xb, _layernorm_f32(xb, scale, shift, eps).to(h.dtype)
-
-
-LN_STAGED_BYTES = 227 << 10   # layernorm stages a row over 1280 columns in one block's shared
-                              # memory (sm_90's most a block)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, eps: float,
@@ -513,9 +510,8 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, eps:
     if not x.is_cuda:
         return layernorm_plain(x, scale, shift, eps=eps, out_dtype=out_dtype,
                                want_f32=want_f32)
-    if d % 8 or d * x.element_size() > LN_STAGED_BYTES:
-        raise ValueError(f"layernorm kernel needs d % 8 == 0 and a row of at most "
-                         f"{LN_STAGED_BYTES} bytes, got d={d} in {x.dtype}")
+    if d % 8:
+        raise ValueError(f"layernorm kernel needs d % 8 == 0, got d={d}")
     f32_only = out_dtype == torch.float32
     y = None if f32_only else torch.empty(x.shape, dtype=out_dtype, device=x.device)
     y32 = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
@@ -757,7 +753,33 @@ def col_sum_plain(x):
     return x.float().sum(0)
 
 
-LIN_CHUNK = 128       # sequence rows per block of the linear-heads backward
+LIN_BWD_MIN_ROWS = 128      # stage3_attention_bwd: least sequence rows a linear-heads chunk
+LIN_BWD_BLOCKS_PER_SM = 4   # ... and about this many (chunk, pair) blocks an SM
+
+
+def stage3_linear_bwd_plan(L: int, pairs: int, sms: int, max_pairs: int) -> int:
+    """Rows a chunk of the linear heads' backward (``csrc/stage3_attn_bwd.cu``
+    ``lin_bwd1..3``): the fewest rows, ``LIN_BWD_MIN_ROWS`` · 2^k, whose
+    (chunk, pair) blocks stay within ``LIN_BWD_BLOCKS_PER_SM`` an SM; the
+    whole sequence past ``max_pairs`` pairs (the kernel's tickets,
+    ``lin_bwd_max_pairs``).  At L=1024 and 8 linear heads: B=2 and B=4 in
+    chunks of 128 rows, B=32 of 512 (at B=4 and 32 the fastest of 64 to
+    1024 rows on an H100, ``cli/measure_attention.py --lin-chunk-sweep``).
+    Every row lies in exactly one chunk, and none is empty."""
+    pairs = max(pairs, 1)
+    if pairs > max_pairs:
+        return L
+    rows = LIN_BWD_MIN_ROWS
+    while rows < L and pairs * -(-L // rows) > LIN_BWD_BLOCKS_PER_SM * sms:
+        rows *= 2
+    return min(rows, L)
+
+
+@functools.cache
+def lin_bwd_max_pairs() -> int:
+    """(batch row, linear head) pairs whose backward may take more than one
+    chunk: the kernel's ticket count."""
+    return _build.library().b3_stage3_bwd_lin_max_pairs()
 
 
 def stage3_attention_bwd(qkv: torch.Tensor, dattn: torch.Tensor, *, heads: int,
@@ -780,23 +802,21 @@ def stage3_attention_bwd(qkv: torch.Tensor, dattn: torch.Tensor, *, heads: int,
         return stage3_attention_bwd_plain(qkv, dattn, heads=heads, local_heads=local_heads,
                                           window=window)
     dh = d // heads
-    tile = min(window, 64)
-    if dh not in (32, 64) or (local_heads and (window % tile or tile % 8)):
-        raise ValueError(f"stage3_attention_bwd kernel needs head dim 32 or 64 and a window "
-                         f"that tiles by {tile}; got Dh={dh} window={window}")
+    if dh not in (32, 64):   # the band passes check each row's band: any window L divides
+        raise ValueError(f"stage3_attention_bwd kernel needs head dim 32 or 64, got {dh}")
     dev, f32 = qkv.device, torch.float32
-    ng, C = heads - local_heads, -(-L // LIN_CHUNK)
+    ng = heads - local_heads
+    chunk = stage3_linear_bwd_plan(L, B * ng, _sm_count(dev.index), lin_bwd_max_pairs())
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((B, local_heads, L, 2), dtype=f32, device=dev) if local_heads else None
-    kst = dctx = ctx = gp = None
+    # the band heads' (m, 1/l, D, 0) a query row, pass 1 to pass 2
+    stats = torch.empty((B, local_heads, L, 4), dtype=f32, device=dev) if local_heads else None
+    ws = None
     if ng:
-        kst = torch.empty((B, ng, C, 2, dh), dtype=f32, device=dev)
-        dctx = torch.empty((B, ng, C, dh, dh), dtype=f32, device=dev)
-        ctx = torch.empty_like(dctx)
-        gp = torch.empty((B, ng, C, dh), dtype=f32, device=dev)
+        # f32 scratch a pair, of the size csrc/stage3_attn_bwd.cu's LinWs lays out
+        floats = _build.library().b3_stage3_bwd_ws_floats(-(-L // chunk), dh)
+        ws = torch.empty(B * ng * floats, dtype=f32, device=dev)
     _build.launch("b3_stage3_attention_bwd", _ptr(qkv), _ptr(dattn), _ptr(dqkv), _ptr(stats),
-                  _ptr(kst), _ptr(dctx), _ptr(ctx), _ptr(gp), B, L, d, heads, local_heads,
-                  window, LIN_CHUNK, _stream(qkv))
+                  _ptr(ws), B, L, d, heads, local_heads, window, chunk, _stream(qkv))
     stage3_attention_bwd.launches += 1
     return dqkv
 

@@ -14,12 +14,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``gemm_dx``'s and ``gemm_dw``'s kernels must show HGMMA and
    ``gemm_i8``'s IGMMA, ``flash_attention``'s, ``dense_attention``'s,
    ``esm2_attention``'s, ``esm2_attention_bwd``'s two passes, the bf16
-   ``local_window_attention``'s and ``stage3_attention_core``'s band heads'
-   HGMMA, all with UTMALDG loads, and no kernel of the library may show
-   HMMA (the ``mma.sync`` route); a ``[ptxas]`` line gives the attention
-   kernels' (``stage3_attention_core``'s three), their staging launches' and
-   the ``gemm_dx``/``gemm_dw`` kernels' registers and spills (``nvcc
-   -Xptxas -v``);
+   ``local_window_attention``'s, ``stage3_attention_core``'s band heads'
+   and ``stage3_attention_bwd``'s two band passes' HGMMA, all with UTMALDG
+   loads, and no kernel of the library may show HMMA (the ``mma.sync``
+   route); a ``[ptxas]`` line gives the attention kernels'
+   (``stage3_attention_core``'s three, ``stage3_attention_bwd``'s band
+   passes), their staging launches' and the ``gemm_dx``/``gemm_dw``
+   kernels' registers and spills (``nvcc -Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
    12 heads, FF 3072; ESM2-650M: L=1024, E=1280, 20 heads, FF 5120),
@@ -29,17 +30,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    PAD tails, an all-PAD row; for the ESM2 and flash attention kernels
    also L = 1000 and 65, a 3-token protein, an all-PAD row at a ragged L
    and head dim 32; ``dense_attention`` at B = 1 and 16, L = 1, 65 and
-   100, head dims 32 and 64; for the training kernels edge windows,
-   local_heads 0 and = heads, head dim 64, ragged rows, ``gemm_dx`` also
+   100, head dims 32 and 64; for the training kernels edge windows
+   (``stage3_attention_bwd`` at W = 8, 16, 40, 64, 96 and 128, W = 40 also
+   at L = 1000 and 200), local_heads 0 and = heads, head dim 64 (also at
+   W = 32), ragged rows, ``gemm_dx`` also
    at M < 64 and at N = 5120 with both GELU derivatives and both output
    types; ``layernorm`` also on one f32 row at d = 1280 to an f32 output
    alone, on 37 f32 rows at d = 768 with the f32 copy, and past the
    1280 columns held in registers: d = 2560 (ESM2-3B, bf16), 4096 (a
-   Stage-3 dim), a ragged 1288 and a 16384-wide f32 row; ``layernorm_bwd``
+   Stage-3 dim), a ragged 1288, a 16384-wide f32 row and a 60000-wide
+   f32 row past one block's shared memory; ``bias_layernorm`` on 74 rows
+   at d = 1280, 1288, 2560 and 4096 and on 6 rows at d = 120000 (past
+   one block's shared memory); ``layernorm_bwd``
    on the same four widths (bf16 x at 2560, f32 x at 4096); ``col_sum`` on
    1 and 7 rows, a row count one past its slabs and 8 columns;
-   ``gemm_dx``, ``gemm_dw``, ``layernorm``, ``layernorm_bwd`` and
-   ``col_sum`` must also give the same bits on a second call): bf16
+   ``gemm_dx``, ``gemm_dw``, ``layernorm``, ``bias_layernorm``,
+   ``layernorm_bwd``, ``col_sum`` and ``stage3_attention_bwd`` must also
+   give the same bits on a second call): bf16
    max|Δ|/max|ref| <= 2e-2 (the attention gradients per head group: 32
    columns for Stage 3, 64 for ESM2; the f32 sums of ``col_sum`` and
    ``layernorm_bwd``'s dγ, dβ <= 1e-3), with the kernel's, the plain version's and, where one exists,
@@ -57,9 +64,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    with a boolean (L, L) band mask); then ``gemm_bias_act`` and ``gemm_i8`` at
    Stage-3 B=32 (M = 32768, a layer's four products; ``cli/measure_gemm.py``)
    against their plain versions, in TFLOP/s or TOP/s beside ``matmul`` /
-   ``torch._int_mm`` and the bound, and ``stage3_attention_core`` there
-   (per head group, the same bits on a second call, its time beside the
-   bound), then the host µs of one wrapper call.  ``stage3_attention_core``
+   ``torch._int_mm`` and the bound, ``stage3_attention_core`` and
+   ``stage3_attention_bwd`` there (per head group, the same bits on a
+   second call, each time beside its bound), and ``bias_layernorm`` there (xb equal to h + bias, the same
+   bits on a second call, its time beside the bound), then the host µs of
+   one wrapper call.  ``stage3_attention_core``
    is also checked at head dim 64, W = 32 and 8, no and all heads
    band-local, and L = 1000 and 200, and must give the same bits on a
    second call;
@@ -328,17 +337,20 @@ SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IG
               "flash_attn_wgmma": ("HGMMA", "UTMALDG"), "dense_attn_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_attn_wgmma": ("HGMMA", "UTMALDG"), "esm2_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
               "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"), "local_attn_wgmma": ("HGMMA", "UTMALDG"),
-              "stage3_local_wgmma": ("HGMMA", "UTMALDG")}
+              "stage3_local_wgmma": ("HGMMA", "UTMALDG"),
+              "stage3_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
+              "stage3_bwd_dkv_wgmma": ("HGMMA", "UTMALDG")}
 # kernels whose registers and spills the build prints (``ptxas.txt``),
 # each in two instantiations: head dims 32 and 64, or the GEMM's two tiles
 PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_wgmma_kernel",
               "esm2_attn_stage_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
               "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel",
-              "stage3_local_wgmma_kernel", "stage3_linear_stats_kernel", "stage3_linear_ctx_kernel")
+              "stage3_local_wgmma_kernel", "stage3_linear_stats_kernel", "stage3_linear_ctx_kernel",
+              "stage3_bwd_dq_wgmma_kernel", "stage3_bwd_dkv_wgmma_kernel")
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
 DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum",
-                 "stage3_attention_core"}
+                 "stage3_attention_core", "stage3_attention_bwd", "bias_layernorm"}
 # kernel → how many of its last outputs are f32 column sums (SUM_TOL)
 COLUMN_SUMS = {"col_sum": 1, "layernorm_bwd": 2}
 
@@ -768,7 +780,8 @@ def edge_cases(g) -> dict[str, list]:
                       0.1 * torch.randn(d, generator=g, device=dev)) for d in (1280, 768))
     # ... and rows past the 1280 columns held in registers, staged in shared
     # memory: ESM2-3B's LN1 (bf16, d 2560), a Stage-3 dim of 4096, a ragged
-    # 1288 with the f32 copy, and a row over 48 KB (a block of one warp)
+    # 1288 with the f32 copy, and a row over 48 KB (a block of one warp);
+    # then a row over one block's shared memory (read from global memory)
     f32 = torch.float32
     ln_wide = [((torch.randn(n, d, generator=g, device=dev) * 3.0).to(xd),
                 1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
@@ -777,7 +790,8 @@ def edge_cases(g) -> dict[str, list]:
                for n, d, xd, eps, od, wf in ((19, 2560, bf, 1e-5, bf, False),
                                              (37, 4096, f32, 1e-6, bf, False),
                                              (11, 1288, f32, 1e-5, bf, True),
-                                             (3, 16384, f32, 1e-5, f32, False))]
+                                             (3, 16384, f32, 1e-5, f32, False),
+                                             (5, 60000, f32, 1e-5, bf, True))]
     # layernorm_bwd past the 1280 columns held in registers, on its
     # shared-memory route: ESM2-3B's (bf16 x and residual into bf16 dx), a
     # Stage-3 dim of 4096 (f32 x, bf16 residual, f32 dx with its bf16
@@ -812,6 +826,22 @@ def edge_cases(g) -> dict[str, list]:
     # head dim 64, B = 3
     s3_edge = [(2, 512, 8, 4, 128), (2, 512, 16, 8, 32), (2, 256, 16, 8, 8),
                (2, 1024, 16, 0, 128), (2, 1024, 16, 16, 128), (2, 1000, 16, 8, 40)]
+    # stage3_attention_bwd's band passes (B, L, heads, local heads, W) at d =
+    # 512: W = 16 and 40 (a 64-row warpgroup over several windows, W = 40
+    # also at L = 1000: keys past the last 64-row tile), W = 8, W = 96 (a
+    # tile across the band's edge; L = 288 leaves a warpgroup without a
+    # row), head dim 64 at W = 32; then d = 256 at L = 200, head dim 64
+    s3b_edge = [(2, 256, 16, 8, 16), (2, 1000, 16, 8, 40), (2, 256, 16, 8, 8),
+                (2, 288, 16, 8, 96), (2, 512, 8, 4, 32)]
+    # bias_layernorm: 74 rows (off the 8-row block; a warp's rows cross a
+    # batch row's bias) at d = 1280 (the widest row held in registers), a
+    # ragged 1288, 2560 and 4096 (staged in shared memory); then 6 rows of
+    # 120000 (a bf16 row past one block's shared memory, read from global)
+    bln_edge = [(rnd(b, n, d, scale=3.0), rnd(b, d),
+                 1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                 0.1 * torch.randn(d, generator=g, device=dev))
+                for b, n, d in ((2, 37, 1280), (2, 37, 1288), (2, 37, 2560), (2, 37, 4096),
+                                (2, 3, 120000))]
     return {
         # int8: M, N, K off the 128x128x64 tile (K a multiple of 32), a bf16
         # residual and erf GELU; quant rows off the 8-row block and the
@@ -873,7 +903,12 @@ def edge_cases(g) -> dict[str, list]:
                  local_heads=16, window=128),
             pair("stage3_attention_bwd", rnd(2, 256, 1536), rnd(2, 256, 512), heads=8,
                  local_heads=4, window=64),
+            *(pair("stage3_attention_bwd", rnd(b, n, 1536), rnd(b, n, 512), heads=h,
+                   local_heads=nl, window=w) for b, n, h, nl, w in s3b_edge),
+            pair("stage3_attention_bwd", rnd(3, 200, 768), rnd(3, 200, 256), heads=4,
+                 local_heads=2, window=40),
         ],
+        "bias_layernorm": [pair("bias_layernorm", *t) for t in bln_edge],
         "gemm_dx": [pair("gemm_dx", rnd(1000, 264), rnd(200, 264, scale=264 ** -0.5),
                          gelu_of=torch.randn(1000, 200, generator=g, device=dev),
                          out_dtype=torch.float32),
@@ -1014,6 +1049,8 @@ def phase_gemms_b32(results: dict, g) -> None:
                        f"{unit}) bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     del cases
     stage3_core_b32(results, g)
+    stage3_bwd_b32(results, g)
+    bias_layernorm_b32(results, g)
     torch.cuda.empty_cache()
     say("kernels", "host µs per wrapper call (enqueue, Stage-3 B=4): "
                    + " ".join(f"{k} {v:.1f}" for k, v in mg.host_costs(g).items()))
@@ -1045,6 +1082,70 @@ def stage3_core_b32(results: dict, g) -> None:
     entry.update(ms_b32=ms, bound_ms_b32=bound_ms)
     entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
     say("kernels", f"stage3_attention_core, Stage-3 B=32: max|Δ| {err_abs:.3e} rel {err_rel:.3e} "
+                   f"kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_ms / ms:.0%})")
+
+
+def stage3_bwd_b32(results: dict, g) -> None:
+    """``stage3_attention_bwd`` at Stage-3 B=32 (L 1024, d 512, 8 + 8
+    heads, W 128; the linear heads in the larger chunks that batch gets):
+    against its plain version per 32-column head group, the same bits on a
+    second call, timed beside its bound."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import kernels as K
+
+    B, L, d, H, NL, W = 32, 1024, 512, 16, 8, 128
+    qkv = torch.randn(B, L, 3 * d, generator=g, device=g.device).bfloat16()
+    da = torch.randn(B, L, d, generator=g, device=g.device).bfloat16()
+    kw = dict(heads=H, local_heads=NL, window=W)
+    got = K.stage3_attention_bwd(qkv, da, **kw)
+    want = K.stage3_attention_bwd_plain(qkv, da, **kw)
+    err_abs, err_rel = rel_err(got, want, group=d // H)
+    if err_rel > REL_TOL:
+        raise AssertionError(f"stage3_attention_bwd B=32: max|Δ|/max|ref| = {err_rel:.3e}")
+    if not torch.equal(got, K.stage3_attention_bwd(qkv, da, **kw)):
+        raise AssertionError("stage3_attention_bwd B=32: a second call gave other bits")
+    del want
+    ms = event_ms(lambda: K.stage3_attention_bwd(qkv, da, **kw), TIMED_ITERS)
+    flops = 10 * (d // H) * band_pairs(B, L, W, NL) + 10 * B * (H - NL) * L * (d // H) ** 2
+    bound_ms = max(flops / PEAK_FLOPS, (2 * nbytes(qkv) + nbytes(da)) / PEAK_BYTES) * 1e3
+    entry = results["stage3_attention_bwd"]
+    entry.update(ms_b32=ms, bound_ms_b32=bound_ms)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
+    say("kernels", f"stage3_attention_bwd, Stage-3 B=32: max|Δ| {err_abs:.3e} rel {err_rel:.3e} "
+                   f"kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_ms / ms:.0%})")
+
+
+def bias_layernorm_b32(results: dict, g) -> None:
+    """``bias_layernorm`` at Stage-3 B=32 (32768 rows of 512): xb equal to
+    the plain version's, xn within the gate, the same bits on a second
+    call, timed beside its bound (8 bytes an element)."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import kernels as K
+
+    B, L, d = 32, 1024, 512
+    h = (torch.randn(B, L, d, generator=g, device=g.device) * 3.0).bfloat16()
+    bias = torch.randn(B, d, generator=g, device=g.device).bfloat16()
+    s = 1.0 + 0.1 * torch.randn(d, generator=g, device=g.device)
+    t = 0.1 * torch.randn(d, generator=g, device=g.device)
+    got, want = K.bias_layernorm(h, bias, s, t), K.bias_layernorm_plain(h, bias, s, t)
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError("bias_layernorm B=32: xb differs from h + bias")
+    err_abs, err_rel = rel_err(got[1], want[1])
+    if err_rel > REL_TOL:
+        raise AssertionError(f"bias_layernorm B=32: max|Δ|/max|ref| = {err_rel:.3e}")
+    if not all(map(torch.equal, got, K.bias_layernorm(h, bias, s, t))):
+        raise AssertionError("bias_layernorm B=32: a second call gave other bits")
+    del want
+    ms = event_ms(lambda: K.bias_layernorm(h, bias, s, t), TIMED_ITERS)
+    bound_ms = (nbytes(h, bias, s, t) + B * L * d * 6) / PEAK_BYTES * 1e3
+    entry = results["bias_layernorm"]
+    entry.update(ms_b32=ms, bound_ms_b32=bound_ms)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
+    say("kernels", f"bias_layernorm, Stage-3 B=32: max|Δ| {err_abs:.3e} rel {err_rel:.3e} "
                    f"kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_ms / ms:.0%})")
 
 

@@ -42,3 +42,29 @@ def test_layernorm_plain_matches_jax(d, eps, in_dtype, want_f32):
     for y in outs:
         assert y.dtype == torch.float32 and y.shape == (37, d)
         np.testing.assert_allclose(y.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [512, 1280, 1288, 2560])
+def test_bias_layernorm_plain_matches_jax(d):
+    """``bias_layernorm`` (its plain version on the CPU) against the JAX
+    package's f32 LayerNorm of h + bias (``fused_layer_tpu._layernorm``,
+    eps 1e-6) at the widths of the kernel's routes: Stage 3's 512, 1280
+    (the widest row held in registers), a ragged 1288 and 2560 (staged in
+    shared memory).  h in bf16-rounded values, as the card gives it; 37
+    rows a batch row, so a bias row spans rows off the 8-row blocks.  xb
+    is the f32 sum exactly; xn atol 1e-5 (summation order only)."""
+    rng = np.random.default_rng(d + 1)
+    h = torch.from_numpy((3.0 * rng.standard_normal((2, 37, d)) + 0.5).astype(np.float32))
+    h = h.bfloat16().float()
+    bias = torch.from_numpy(rng.standard_normal((2, d)).astype(np.float32)).bfloat16().float()
+    scale = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    shift = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    xsum = h.numpy() + bias.numpy()[:, None, :]
+    want = np.asarray(_layernorm(jnp.asarray(xsum), jnp.asarray(scale), jnp.asarray(shift),
+                                 eps=1e-6))
+    K.reset_launches()
+    xb, xn = K.bias_layernorm(h, bias, torch.from_numpy(scale), torch.from_numpy(shift))
+    assert K.launch_counts()["bias_layernorm"] == 0   # the CPU runs the plain version
+    assert xb.dtype == xn.dtype == torch.float32 and xb.shape == xn.shape == (2, 37, d)
+    np.testing.assert_array_equal(xb.numpy(), xsum)
+    np.testing.assert_allclose(xn.numpy(), want, atol=1e-5, rtol=0)

@@ -7,8 +7,9 @@
   band-local, windows 16 and 32, L = 4 windows.  Tolerance atol 2e-4 /
   rtol 1e-3, as ``tests/test_torch_stage3.py``: f32 on both sides,
   different summation orders.
-* ``stage3_linear_plan``, the linear heads' sequence split on the card:
-  every row in exactly one chunk, none empty.
+* ``stage3_linear_plan``, the linear heads' sequence split on the card,
+  and ``stage3_linear_bwd_plan``, their backward's: every row in exactly
+  one chunk, none empty.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from biom3_tpu_torch.ops.stage3_layer import fused_attn_half
 
 TOL = dict(atol=2e-4, rtol=1e-3)
 D = 128
+LIN_BWD_MAX_PAIRS = 8192   # csrc/stage3_attn_bwd.cu's LIN_MAX_PAIRS (its tickets)
 
 
 def _np(rng, *shape, scale=1.0):
@@ -67,3 +69,26 @@ def test_stage3_linear_plan_covers_every_row_once(L, pairs, sms):
     assert chunks * pairs <= max(2 * sms, pairs)   # about two blocks an SM, or one chunk a pair
     assert srows % K.LIN_MIN_ROWS == 0 and srows <= 4 * K.LIN_MIN_ROWS
     assert lrows % K.LIN_OUT_ROWS == 0 and lrows <= 4 * K.LIN_OUT_ROWS
+
+
+@pytest.mark.parametrize("L,pairs,sms", [(1024, 16, 132), (1024, 32, 132), (1024, 256, 132),
+                                         (1000, 16, 132), (64, 16, 132), (200, 3, 132),
+                                         (1024, 10000, 132), (8, 1, 132), (4096, 8, 78),
+                                         (1024, 2048, 132)])
+def test_stage3_linear_bwd_plan_covers_every_row_once(L, pairs, sms):
+    """The linear heads' backward chunks (``lin_bwd1..3`` launch ceil(L /
+    chunk) of them a pair): every row in exactly one, none empty; more than
+    one only within the kernel's ticket count; about the blocks an SM the
+    rule allows, unless the chunks are already the least."""
+    chunk = K.stage3_linear_bwd_plan(L, pairs, sms, LIN_BWD_MAX_PAIRS)
+    n = -(-L // chunk)
+    covered = np.zeros(L, dtype=int)
+    for c in range(n):
+        rows = range(c * chunk, min(L, (c + 1) * chunk))
+        assert len(rows) > 0
+        covered[list(rows)] += 1
+    assert (covered == 1).all()
+    assert n == 1 or pairs <= LIN_BWD_MAX_PAIRS
+    assert chunk == L or chunk % K.LIN_BWD_MIN_ROWS == 0
+    assert (n * pairs <= K.LIN_BWD_BLOCKS_PER_SM * sms or n == 1
+            or chunk == K.LIN_BWD_MIN_ROWS)

@@ -77,15 +77,23 @@ def _layer_args(rng, d=64, ff=256):
 
 # --- the two training kernels ----------------------------------------------
 
-@pytest.mark.parametrize("local_heads", [2, 0, 4])
-def test_layer_block_matches_jax(local_heads):
+@pytest.mark.parametrize("local_heads, heads, d, window", [
+    pytest.param(2, 4, 64, 16, id="2"), pytest.param(0, 4, 64, 16, id="0"),
+    pytest.param(4, 4, 64, 16, id="4"),
+    # the head dims the card's kernels take (32, 64), each with a window
+    # under the 64-row tile, beside a linear head
+    pytest.param(1, 2, 64, 16, id="dh32-w16"), pytest.param(1, 2, 128, 32, id="dh64-w32"),
+])
+def test_layer_block_matches_jax(local_heads, heads, d, window):
     """Forward at tests/test_layer_block.py's tolerance (atol 3e-5, rtol
     1e-4); loss rtol/atol 2e-4, dx atol 2e-4 rtol 2e-3, each parameter
-    gradient atol 5e-4·max|g| rtol 3e-3."""
+    gradient atol 5e-4·max|g| rtol 3e-3.  The attention backward inside is
+    ``stage3_attention_bwd_plain``, against JAX ``_bwd_call`` in
+    interpret mode."""
     rng = np.random.default_rng(10 + local_heads)
-    args = _layer_args(rng)
-    cot = _np(rng, 2, 64, 64)
-    kw = dict(local_heads=local_heads, heads=4, window=16)
+    args = _layer_args(rng, d=d)
+    cot = _np(rng, 2, 64, d)
+    kw = dict(local_heads=local_heads, heads=heads, window=window)
 
     def jax_loss(*a):
         out = jax_layer_block(*a, **kw, ff_block_l=32, interpret=True)
