@@ -1,6 +1,6 @@
 """The row-wise kernels on one CUDA card: ``layernorm``, ``bias_layernorm``,
-``embed_tokens``, ``gather_head``, ``layernorm_bwd``, ``col_sum`` and
-``quant_rows``.
+``embed_tokens``, ``gather_head``, ``esm2_embed``, ``layernorm_bwd``,
+``col_sum`` and ``quant_rows``.
 
     python -m biom3_tpu_torch.cli.measure_rowwise [--iters 50] [--out build/measure_rowwise.json]
         [--only PREFIX ...] [--bits-out FILE | --bits-against FILE]
@@ -35,8 +35,12 @@ the kernel's.
 
 ``embed_tokens`` and ``gather_head`` (the Stage-3 stack's first and last
 steps: tok[ids] + pos at d 512, and LayerNorm with the (512, 29) head at 1
-or 8 gathered positions a batch row) at B=4, phase 3's shape, and B=32;
-no library call, the plain version's device ms beside the kernel's.
+or 8 gathered positions a batch row, and at every position, k = L = 1024,
+the full grid that confidence order and MaskGIT rank) at B=4, phase 3's
+shape, and B=32; ``esm2_embed`` (the ESM2 tower's layer-0 embed with the
+token-dropout rescale, E 1280) at ESM2 B=2 (lengths 1024 and 400, a PAD
+tail) and B=16 (L 1024, no PAD); no library call, the plain version's
+device ms beside the kernel's.
 
 ``quant_rows`` with the callers' widths and dtypes: a Stage-3 layer's four
 quants (the LN1 output and the head outputs, 512 bf16; the LN2 output, 512
@@ -180,14 +184,36 @@ def cases(g) -> dict[str, dict]:
 
     def head(b, k, d=512, L=1024, classes=29):
         """The Stage-3 stack's epilogue: LayerNorm and the (d, 29) head at k
-        gathered positions a batch row."""
+        gathered positions a batch row (k = L: every position, in order).
+        The head is packed as the stack packs it (``pad_head``, where the
+        kernels have it)."""
         h, s, t = rnd(b, L, d, scale=3.0), vec(d, 1.0), vec(d)
-        pos = torch.randint(0, L, (b, k), generator=g, device=dev, dtype=torch.int32)
+        if k == L:
+            pos = torch.arange(L, device=dev, dtype=torch.int32).expand(b, L).contiguous()
+        else:
+            pos = torch.randint(0, L, (b, k), generator=g, device=dev, dtype=torch.int32)
         w, hb = rnd(d, classes, scale=d ** -0.5), vec(classes)
+        w = K.pad_head(w) if hasattr(K, "pad_head") else w
         return {"run": lambda: K.gather_head(h, pos, s, t, w, hb),
                 "plain": lambda: K.gather_head_plain(h, pos, s, t, w, hb), "lib": None,
                 "flops": 2 * b * k * d * classes + 8 * b * k * d,
                 "bytes": b * k * (d * 2 + 4 + classes * 4) + 8 * d + d * classes * 2 + classes * 4}
+
+    def esm_embed(lengths, L=1024, E=1280):
+        """The ESM2 tower's layer-0 embed: <cls>, residues, <eos>, a PAD tail
+        to L, one <mask> in row 0; table (33, E)."""
+        ids = torch.ones((len(lengths), L), dtype=torch.int32, device=dev)
+        for r, n in enumerate(lengths):
+            ids[r, 1:n - 1] = torch.randint(4, 24, (n - 2,), generator=g, device=dev,
+                                            dtype=torch.int32)
+            ids[r, 0], ids[r, n - 1] = 0, 2
+        ids[0, 5] = 32
+        table = rnd(33, E)
+        rows = ids.numel()
+        return {"run": lambda: K.esm2_embed(ids, table), "lib": None,
+                "plain": lambda: K.esm2_embed_plain(ids, table, pad_idx=1, mask_idx=32,
+                                                    token_dropout=True),
+                "flops": 3 * rows * E, "bytes": rows * 4 + 33 * E * 2 + rows * E * 2}
 
     names = ["col_sum_dyc", "col_sum_dh1", "col_sum_dxa", "ln2_bwd", "ln1_bwd"]
     b4, b32 = layer(4 * 1024, 512, 2048), layer(32 * 1024, 512, 2048)
@@ -214,6 +240,10 @@ def cases(g) -> dict[str, dict]:
         "stage3_b4_gather_head_k1": head(4, 1),
         "stage3_b4_gather_head_k8": head(4, 8),
         "stage3_b32_gather_head_k8": head(32, 8),
+        "stage3_b4_gather_head_kL": head(4, 1024),
+        "stage3_b32_gather_head_kL": head(32, 1024),
+        "esm2_b2_embed": esm_embed([1024, 400]),
+        "esm2_b16_embed": esm_embed([1024] * 16),
         "stage3_b4_bias_ln": bias_ln(4, 512),
         "stage3_b32_bias_ln": bias_ln(32, 512),
         "d1280_b16_bias_ln": bias_ln(16, 1280),

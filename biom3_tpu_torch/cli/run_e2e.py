@@ -6,7 +6,9 @@ output, plus ``--device`` (default ``cuda``) and ``--dtype`` (``cli/dtype.py``:
 the port's kernels, in int8 by default (``--ff-quant`` and ``--proj-quant``
 reach Stage 3 only, as in the JAX CLI; the text tower's int8 is its
 engine's default); in f32 they run the PyTorch modules (erf GELU, no int8)
-on either device.
+on either device.  ``--sampler maskgit`` (``--maskgit_steps`` forwards) and
+``--decode_order confidence`` run the fast modes; ``--inpaint_sequence`` is
+refused (ROADMAP queue 1, item 4).
 
   python -m biom3_tpu_torch.cli.run_e2e --device cuda \\
       --stage1_json ... --stage1_model ... \\
@@ -41,8 +43,11 @@ def parse_arguments(argv=None):
                    help="Stage-3 FF matmuls in int8 (auto: int8 in bf16 on cuda, else none)")
     p.add_argument("--proj-quant", choices=["auto", "none", "int8"], default="auto",
                    help="Stage-3 q/k/v/out projections in int8 (auto: int8 in bf16 on cuda)")
-    p.add_argument("--decode_order", choices=["path", "confidence"], default="path")
-    p.add_argument("--sampler", choices=["ardm", "maskgit"], default="ardm")
+    p.add_argument("--decode_order", choices=["path", "confidence"], default="path",
+                   help="confidence = easy-first decoding (with --positions_per_step > 1)")
+    p.add_argument("--sampler", choices=["ardm", "maskgit"], default="ardm",
+                   help="maskgit = parallel iterative re-masking (--maskgit_steps forwards "
+                        "instead of L)")
     p.add_argument("--maskgit_steps", type=int, default=16)
     p.add_argument("--inpaint_sequence", type=str, default=None,
                    help="partial design to fill (not ported yet)")
@@ -57,11 +62,6 @@ def _refuse_unported(args) -> None:
     """The JAX CLI's paths that the port does not have yet, and where they wait."""
     if args.inpaint_sequence is not None:
         raise NotImplementedError("--inpaint_sequence is not ported yet (ROADMAP queue 1, item 4)")
-    if args.sampler == "maskgit":
-        raise NotImplementedError("--sampler maskgit is not ported yet (ROADMAP queue 1, item 3)")
-    if args.decode_order == "confidence":
-        raise NotImplementedError("--decode_order confidence is not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
 
 
 def main(argv=None) -> None:
@@ -90,7 +90,9 @@ def main(argv=None) -> None:
                             device=args.device, dtype=dtype, temperature=args.temperature,
                             positions_per_step=args.positions_per_step,
                             ff_quant=None if args.ff_quant == "auto" else args.ff_quant,
-                            proj_quant=None if args.proj_quant == "auto" else args.proj_quant)
+                            proj_quant=None if args.proj_quant == "auto" else args.proj_quant,
+                            decode_order=args.decode_order, sampler_mode=args.sampler,
+                            maskgit_steps=args.maskgit_steps)
     sequences = s3.generate_sequences(z_c, num_replicas=args.num_replicas, seed=args.seed)
 
     result = {"prompts": prompts, "z_t": z_t, "z_c": z_c, "sequences": sequences}

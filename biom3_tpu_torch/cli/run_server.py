@@ -5,7 +5,8 @@ Port of ``biom3_tpu/cli/run_server.py``: the same flags and presets, plus
 (``cli/dtype.py``: ``auto`` = bf16 on cuda, f32 on cpu).  It loads the three
 stages once and serves concurrent HTTP requests (``serving.BioM3Server``)
 with chunk-boundary continuous batching for exact mode and the
-row-granular trajectory scheduler for blocked mode; in bf16 the engines
+row-granular trajectory scheduler for the fast modes (blocked path order,
+confidence order, MaskGIT); in bf16 the engines
 serve on the kernels in int8 by default, in f32 through the PyTorch
 modules.  On ``cuda`` the kernels are built and loaded
 before the server binds its port, so no client waits on the build.
@@ -21,9 +22,8 @@ before the server binds its port, so no client waits on the build.
       -d '{"prompt": "membrane transport protein", "num_replicas": 3}'
 
 Refused (``NotImplementedError``, with the ROADMAP item that ports them):
-``--preset throughput`` and ``--sampler maskgit``, ``--decode_order
-confidence`` (queue 1, item 3), ``--continuous_inpaint`` (item 4),
-``--mesh_dp``/``--mesh_fsdp`` above 1 (item 8).
+``--continuous_inpaint`` (queue 1, item 4), ``--mesh_dp``/``--mesh_fsdp``
+above 1 (item 8).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from biom3_tpu_torch.config import load_json_config
 # Serving bundles, as the JAX CLI's: each sets the flags below unless the
 # flag was given.  quality = the reference's exact OA-ARDM semantics;
 # latency = blocked k=8 at temperature 0 on the trajectory scheduler;
-# throughput = MaskGIT (not ported).
+# throughput = MaskGIT, 16 forwards a design, on the trajectory scheduler.
 PRESETS = {
     "quality": {
         "sampler": "ardm", "decode_order": "path", "temperature": 1.0,
@@ -72,8 +72,8 @@ def parse_arguments(argv=None):
         p.add_argument(f"--stage{stage}_model", type=str, required=True)
     p.add_argument("--preset", choices=sorted(PRESETS), default=None,
                    help="config bundle (quality: exact reference ARDM; latency: blocked "
-                        "k=8 temperature 0; throughput: maskgit, not ported).  Explicit "
-                        "flags override preset values")
+                        "k=8 temperature 0; throughput: maskgit, 16 steps).  Explicit flags "
+                        "override preset values")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--rows_per_dispatch", type=int, default=None,
@@ -101,7 +101,8 @@ def parse_arguments(argv=None):
                    help="sampler chunk (outer steps): the continuous batcher's admission "
                         "granularity; default 64")
     p.add_argument("--continuous", choices=["auto", "on", "off"], default=None,
-                   help="chunk-boundary continuous batching for generate (auto: on)")
+                   help="chunk-boundary continuous batching for generate (auto: on for exact "
+                        "path-order ARDM, off for the maskgit/confidence fast modes)")
     p.add_argument("--continuous_inpaint", action="store_true",
                    help="route inpaint through the continuous scheduler (not ported)")
     p.add_argument("--packed_scheduler", choices=["trajectory", "micro"],
@@ -122,10 +123,6 @@ def parse_arguments(argv=None):
 
 def refuse_unported(args) -> None:
     """The JAX CLI's options that the port does not have yet, and where they wait."""
-    if args.sampler == "maskgit" or args.decode_order == "confidence":
-        raise NotImplementedError("MaskGIT and confidence-order serving (--preset throughput, "
-                                  "--sampler maskgit, --decode_order confidence) are not "
-                                  "ported yet (ROADMAP queue 1, item 3)")
     if args.continuous_inpaint:
         raise NotImplementedError("--continuous_inpaint is not ported yet "
                                   "(ROADMAP queue 1, item 4)")
@@ -159,7 +156,9 @@ def build_server(args):
         temperature=args.temperature, chunk_steps=args.chunk_steps,
         positions_per_step=args.positions_per_step,
         ff_quant=None if args.ff_quant == "auto" else args.ff_quant,
-        proj_quant=None if args.proj_quant == "auto" else args.proj_quant)
+        proj_quant=None if args.proj_quant == "auto" else args.proj_quant,
+        decode_order=args.decode_order, sampler_mode=args.sampler,
+        maskgit_steps=args.maskgit_steps)
     pipeline = ServingPipeline(s1, s2, s3, rows_per_dispatch=args.rows_per_dispatch,
                                default_replicas=args.num_replicas, seed=args.seed,
                                embed_cache=args.embed_cache)

@@ -17,8 +17,8 @@
 //   past a block's shared memory is read three times from global memory.
 // * embed_tokens — tok[ids] + pos_emb, the l == 0 embed of
 //   stack_kernel_tpu.py:522-537 (a one-hot matmul there; a gather here).
-// * gather_head — the l == depth-1 epilogue of stack_kernel_tpu.py:562-581:
-//   gather the k decode positions, final LayerNorm (eps 1e-6), d x C head.
+// (gather_head, the stack's last epilogue, is in gather_head.cu: its head
+// product runs on the tensor cores.)
 // * esm2_embed — the l == 0 embed of esm2_stack_tpu.py:294 (fused_esm2_cls,
 //   :91-115): table[id] with fair-esm's token-dropout rescale, <mask> and
 //   PAD rows zeroed.  The rescale needs the row's <mask> and PAD counts, so
@@ -335,62 +335,6 @@ __global__ void embed_tokens_kernel(const int *__restrict__ ids, const bf16 *__r
 #pragma unroll
     for (int e = 0; e < 8; ++e) a[e] += b[e];
     *reinterpret_cast<uint4 *>(out + (size_t)row * d + c) = pack8(a);
-  }
-}
-
-constexpr int HEAD_THREADS = 128;
-
-__global__ void __launch_bounds__(HEAD_THREADS)
-gather_head_kernel(const bf16 *__restrict__ h, const int *__restrict__ pos,
-                   const float *__restrict__ scale, const float *__restrict__ shift,
-                   const bf16 *__restrict__ hw, const float *__restrict__ hb,
-                   float *__restrict__ out, int L, int k, int d, int C, float eps) {
-  extern __shared__ float hn[];  // d floats
-  __shared__ float red[HEAD_THREADS / 32];
-  __shared__ float stat[2];
-  const int r = blockIdx.x, b = r / k;  // r indexes (b, j) over B*k
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const bf16 *src = h + ((size_t)b * L + pos[r]) * d;
-
-  float s = 0.f;
-  for (int c = t; c < d; c += HEAD_THREADS) {
-    hn[c] = __bfloat162float(src[c]);
-    s += hn[c];
-  }
-  s = warp_sum(s);
-  if (lane == 0) red[warp] = s;
-  __syncthreads();
-  if (t == 0) {
-    float a = 0.f;
-    for (int w = 0; w < HEAD_THREADS / 32; ++w) a += red[w];
-    stat[0] = a / d;
-  }
-  __syncthreads();
-  const float mean = stat[0];
-  float q = 0.f;
-  for (int c = t; c < d; c += HEAD_THREADS) {
-    const float x = hn[c] - mean;
-    q += x * x;
-  }
-  q = warp_sum(q);
-  __syncthreads();
-  if (lane == 0) red[warp] = q;
-  __syncthreads();
-  if (t == 0) {
-    float a = 0.f;
-    for (int w = 0; w < HEAD_THREADS / 32; ++w) a += red[w];
-    stat[1] = rsqrtf(a / d + eps);
-  }
-  __syncthreads();
-  const float rstd = stat[1];
-  for (int c = t; c < d; c += HEAD_THREADS)
-    hn[c] = round_bf16((hn[c] - mean) * rstd * scale[c] + shift[c]);
-  __syncthreads();
-  for (int cls = warp; cls < C; cls += HEAD_THREADS / 32) {
-    float acc = 0.f;
-    for (int i = lane; i < d; i += 32) acc = fmaf(hn[i], __bfloat162float(hw[(size_t)i * C + cls]), acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[(size_t)r * C + cls] = acc + hb[cls];
   }
 }
 
@@ -1272,18 +1216,6 @@ B3_EXPORT int b3_embed_tokens(const void *ids, const void *tok, const void *pos,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int *>(ids), static_cast<const bf16 *>(tok),
       static_cast<const bf16 *>(pos), static_cast<bf16 *>(out), rows, L, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-B3_EXPORT int b3_gather_head(const void *h, const void *pos, const void *scale,
-                             const void *shift, const void *hw, const void *hb, void *out,
-                             int B, int L, int k, int d, int C, float eps, void *stream) {
-  gather_head_kernel<<<B * k, HEAD_THREADS, d * sizeof(float),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16 *>(h), static_cast<const int *>(pos),
-      static_cast<const float *>(scale), static_cast<const float *>(shift),
-      static_cast<const bf16 *>(hw), static_cast<const float *>(hb),
-      static_cast<float *>(out), L, k, d, C, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

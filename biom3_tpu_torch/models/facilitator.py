@@ -4,7 +4,8 @@ Port of ``biom3_tpu/models/facilitator.py:25-64``:
 weight_norm(Linear(in, hid), dim=None) → exact GELU → Dropout →
 weight_norm(Linear(hid, out), dim=None), with W = g·V/‖V‖_F over the whole
 matrix (one scalar gain).  Parameter names are the published ``.bin``'s
-(``main.{0,3}.weight_g``, ``weight_v``, ``bias``).
+(``main.{0,3}.weight_g``, ``weight_v``, ``bias``).  ``mse_loss`` and
+``mmd_loss`` are the Stage-2 diagnostics (:70-87; ref model.py:495-554).
 """
 
 from __future__ import annotations
@@ -44,3 +45,18 @@ class Facilitator(nn.Module):
 
     def forward(self, z_t: torch.Tensor) -> torch.Tensor:
         return self.main(z_t)
+
+
+def mse_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((output - target) ** 2).mean()
+
+
+def _rbf_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """exp(-mean((x-y)², axis=-1) / dim); ref model.py:511-533."""
+    sq = ((x[:, None, :] - y[None, :, :]) ** 2).mean(dim=-1)
+    return torch.exp(-sq / x.shape[-1])
+
+
+def mmd_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Maximum Mean Discrepancy with the reference RBF kernel (model.py:535-554)."""
+    return _rbf_kernel(x, x).mean() + _rbf_kernel(y, y).mean() - 2.0 * _rbf_kernel(x, y).mean()

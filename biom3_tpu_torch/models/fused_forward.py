@@ -29,6 +29,7 @@ from biom3_tpu_torch.models.proteoscribe import (
     ProteoScribe,
     sinusoidal_time_embedding,
 )
+from biom3_tpu_torch.ops.kernels import HEAD_CLASSES
 from biom3_tpu_torch.ops.quant import quantize_weight_int8
 from biom3_tpu_torch.ops.stack import pack_stack_weights, stack_logits
 
@@ -48,12 +49,15 @@ def stack_supported(cfg) -> tuple[bool, str]:
     """(True, "") when the stack forward's kernels take ``cfg``, else
     (False, the first reason): one block, d divisible by the heads, a head
     dim the attention kernels take, L a multiple of the window, and the
-    window tiled by ``stage3_attention_core``'s query tile.  d = heads ·
-    head dim is then a multiple of 32, which every GEMM (int8: K % 32) and
-    row-wise kernel (d % 8) takes."""
+    window tiled by ``stage3_attention_core``'s query tile, and at most 32
+    classes (``gather_head``'s n32 head).  d = heads · head dim is then a
+    multiple of 32, which every GEMM (int8: K % 32) and row-wise kernel
+    (d % 8, ``gather_head`` d % 16) takes."""
     d, heads, L, W = cfg.dim, cfg.heads, cfg.max_seq_len, cfg.local_window
     if cfg.n_blocks != 1:
         return False, f"n_blocks={cfg.n_blocks} (the stack forward serves one block)"
+    if cfg.num_classes > HEAD_CLASSES:
+        return False, f"num_classes={cfg.num_classes} (gather_head takes {HEAD_CLASSES})"
     if d % heads:
         return False, f"dim={d} not divisible by heads={heads}"
     dh = d // heads
@@ -89,7 +93,9 @@ def make_stack_apply(model: ProteoScribe, *, dtype: torch.dtype = torch.bfloat16
                      gelu: str = "erf", ff_quant: str = "none", proj_quant: str = "none"):
     """Pack ``model`` for ``ops.stack.stack_logits``; returns
     ``apply(x (B, L) int, t (B,) int, z_c (B, cond_dim) | None, pos (B, k)
-    int) → (B, k, C) f32``.  The module stays the owner of the condition
+    int) → (B, k, C) f32``, k from 1 to L: confidence order and MaskGIT
+    pass every position, ``pos`` (B, L), and get the full logit grid (the
+    engine's ``gather_k``).  The module stays the owner of the condition
     MLP, which runs per call in f32."""
     cfg = model.config
     if cfg.n_blocks != 1:

@@ -555,25 +555,45 @@ def embed_tokens_plain(ids, tok, pos):
     return (tok[ids.long()].float() + pos[:L].float()).to(tok.dtype)
 
 
+HEAD_CLASSES = 32   # columns of the packed head: gather_head's products are n32
+
+
+def pad_head(head_w: torch.Tensor) -> torch.Tensor:
+    """(d, C) head → (d, 32), zero columns past C: the layout
+    ``gather_head``'s kernel reads.  Pack it once with the weights."""
+    d, C = head_w.shape
+    if C > HEAD_CLASSES:
+        raise ValueError(f"gather_head takes at most {HEAD_CLASSES} classes, got {C}")
+    out = head_w.new_zeros((d, HEAD_CLASSES))
+    out[:, :C] = head_w
+    return out
+
+
 def gather_head(h: torch.Tensor, pos: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 head_w: torch.Tensor, head_b: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """Final LayerNorm + (d, C) head at the k positions ``pos`` (B, k) int32
-    of h (B, L, d) → (B, k, C) f32.  The kernel trusts pos to lie in
-    [0, L): checking would synchronise."""
-    _check("h", h, dtypes=_compute_dtypes(h), ndim=3)
+    """Final LayerNorm + head at the k positions ``pos`` (B, k) int32 of h
+    (B, L, d) → (B, k, C) f32, C = len(head_b); ``head_w`` (d, ≥ C) is read
+    in its first C columns — on the card it must be ``pad_head``'s (d, 32).
+    The kernel trusts pos to lie in [0, L): checking would synchronise."""
+    _check("h", h, dtypes=_compute_dtypes(h), ndim=3, vectors=True)
     B, L, d = h.shape
     _check("pos", pos, dtypes=(torch.int32,), ndim=2, device=h.device)
     if pos.shape[0] != B:
         raise ValueError(f"pos: batch {pos.shape[0]} != {B}")
-    _check("scale", scale, dtypes=(torch.float32,), shape=(d,), device=h.device)
-    _check("shift", shift, dtypes=(torch.float32,), shape=(d,), device=h.device)
-    _check("head_w", head_w, dtypes=(h.dtype,), ndim=2, device=h.device)
-    if head_w.shape[0] != d:
-        raise ValueError(f"head_w: shape {tuple(head_w.shape)} does not take d={d}")
-    C = head_w.shape[1]
-    _check("head_b", head_b, dtypes=(torch.float32,), shape=(C,), device=h.device)
+    _check("scale", scale, dtypes=(torch.float32,), shape=(d,), device=h.device, vectors=True)
+    _check("shift", shift, dtypes=(torch.float32,), shape=(d,), device=h.device, vectors=True)
+    _check("head_b", head_b, dtypes=(torch.float32,), ndim=1, device=h.device)
+    C = head_b.shape[0]
+    _check("head_w", head_w, dtypes=(h.dtype,), ndim=2, device=h.device, vectors=True)
+    if head_w.shape[0] != d or head_w.shape[1] < C:
+        raise ValueError(f"head_w: shape {tuple(head_w.shape)} does not take d={d}, C={C}")
     if not h.is_cuda:
         return gather_head_plain(h, pos, scale, shift, head_w, head_b, eps=eps)
+    if head_w.shape[1] != HEAD_CLASSES:
+        raise ValueError(f"head_w: the kernel reads the head packed by pad_head, (d, "
+                         f"{HEAD_CLASSES}); got {tuple(head_w.shape)}")
+    if d % 16:
+        raise ValueError(f"gather_head kernel needs d % 16 == 0, got {d}")
     k = pos.shape[1]
     out = torch.empty((B, k, C), dtype=torch.float32, device=h.device)
     _build.launch("b3_gather_head", _ptr(h), _ptr(pos), _ptr(scale), _ptr(shift),
@@ -585,7 +605,7 @@ def gather_head(h: torch.Tensor, pos: torch.Tensor, scale: torch.Tensor, shift: 
 def gather_head_plain(h, pos, scale, shift, head_w, head_b, *, eps=1e-6):
     hk = torch.gather(h, 1, pos.long()[..., None].expand(-1, -1, h.shape[2]))
     hn = _layernorm_f32(hk, scale, shift, eps).to(h.dtype).float()
-    return hn @ head_w.float() + head_b
+    return hn @ head_w[:, :head_b.shape[0]].float() + head_b
 
 
 def esm2_embed(ids: torch.Tensor, table: torch.Tensor, *, pad_idx: int = 1,

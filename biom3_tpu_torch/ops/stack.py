@@ -9,7 +9,8 @@ On the TPU this is one persistent kernel with every layer's weights
 resident in VMEM.  Hopper cannot hold them: 16 layers of bf16 weights are
 ~100 MB against 228 KB of shared memory per SM and a 50 MB L2.  Here it is
 a chain of kernels — ``embed_tokens`` → ``depth`` × (attention half, FF
-half; ``ops.stage3_layer``) → ``gather_head`` — with the residual in bf16
+half; ``ops.stage3_layer``) → ``gather_head`` at k positions, up to every
+one (``pos`` (B, L): the full grid) — with the residual in bf16
 between layers and in f32 inside a layer, the TPU kernel's rounding points
 (stack_kernel_tpu.py:540-560).
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from biom3_tpu_torch.ops.kernels import embed_tokens, gather_head
+from biom3_tpu_torch.ops.kernels import embed_tokens, gather_head, pad_head
 from biom3_tpu_torch.ops.stage3_layer import LN_EPS, attn_half, ff_half
 
 
@@ -32,14 +33,16 @@ def pack_stack_weights(tok_table, pos_emb, ln1_scale, ln1_bias, wq, wk, wv, wo, 
                        head_b, s1=None, s2=None, sq=None, sk=None, sv=None,
                        so=None) -> dict:
     """Gather the stack's weights into the dict ``stack_logits`` reads, with
-    q/k/v fused to one (depth, d, 3d) product — (depth, 3d, d) in int8."""
+    q/k/v fused to one (depth, d, 3d) product — (depth, 3d, d) in int8 —
+    and the (d, C) head padded to ``gather_head``'s (d, 32)."""
     proj8 = wq.dtype == torch.int8
     return dict(
         tok=tok_table, pos_emb=pos_emb, ln1_scale=ln1_scale, ln1_bias=ln1_bias,
         wqkv=torch.cat([wq, wk, wv], dim=1 if proj8 else 2).contiguous(), wo=wo, bo=bo,
         sqkv=torch.cat([sq, sk, sv], dim=1).contiguous() if proj8 else None, so=so,
         ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, b1=b1, w2=w2, b2=b2, s1=s1, s2=s2,
-        fn_scale=fn_scale, fn_bias=fn_bias, head_w=head_w, head_b=head_b,
+        fn_scale=fn_scale, fn_bias=fn_bias, head_w=pad_head(head_w).contiguous(),
+        head_b=head_b,
     )
 
 

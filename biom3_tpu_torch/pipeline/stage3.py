@@ -1,7 +1,7 @@
 """Stage-3 inference engine: conditional sequence generation.
 
-Port of ``biom3_tpu/pipeline/stage3.py:31-431,609-654`` for the
-path-ordered ARDM sampler: for each conditioning vector z_c, generate
+Port of ``biom3_tpu/pipeline/stage3.py:31-431,609-654``: for each
+conditioning vector z_c, generate
 ``num_replicas`` sequences, ``batch_size_sample`` at a time, decode with
 the 29-token table and strip the markers; and the serving schedulers'
 device halves (``make_continuous_stepper``, ``make_trajectory_row_fn``).
@@ -21,8 +21,15 @@ device halves (``make_continuous_stepper``, ``make_trajectory_row_fn``).
 
 ``use_stack=True`` forces the stack forward: on ``cpu`` it runs the
 kernels' plain versions in f32 with erf GELU and quant auto ``"none"``;
-``use_stack=False`` forces the module.  ``decode_order="confidence"`` and
-``sampler_mode="maskgit"`` are not ported (ROADMAP queue 1, item 3).
+``use_stack=False`` forces the module.
+
+The samplers (``diffusion/sampler.py``): path-order ARDM, the reference's;
+``decode_order="confidence"`` and ``sampler_mode="maskgit"`` (``maskgit_steps``
+forwards), which see every position each forward — the stack forward is
+given the full grid, ``gather_k = L``, as in JAX (stage3.py:98-108); and
+``legacy_batch_update``, the reference's batched-update quirk, which needs
+the full logit grid and so serves through the module, as JAX's does
+(stage3.py:79-83).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from biom3_tpu_torch.config import Config, ProteoScribeConfig
 from biom3_tpu_torch.diffusion.sampler import (
     make_chunk_stepper,
+    make_maskgit_sampler,
     make_sampler,
     sample_permutations,
 )
@@ -53,6 +61,7 @@ class ProteoScribeEngine:
         dtype: torch.dtype = torch.float32,
         use_stack: bool | None = None,
         temperature: float = 1.0,
+        legacy_batch_update: bool = False,
         chunk_steps: int | None = 128,
         positions_per_step: int = 1,
         top_k: int | None = None,
@@ -61,14 +70,15 @@ class ProteoScribeEngine:
         proj_quant: str | None = None,
         decode_order: str = "path",
         sampler_mode: str = "ardm",
+        maskgit_steps: int = 16,
     ):
-        if decode_order == "confidence" or sampler_mode == "maskgit":
-            raise NotImplementedError(
-                f"decode_order={decode_order!r}, sampler_mode={sampler_mode!r} are not ported "
-                "yet (ROADMAP queue 1, item 3)")
-        if decode_order != "path" or sampler_mode != "ardm":
-            raise ValueError(f"decode_order must be 'path' or 'confidence', sampler_mode "
-                             f"'ardm' or 'maskgit'; got {decode_order!r}, {sampler_mode!r}")
+        if decode_order not in ("path", "confidence"):
+            raise ValueError(f"decode_order must be 'path' or 'confidence', got {decode_order!r}")
+        if sampler_mode not in ("ardm", "maskgit"):
+            raise ValueError(f"sampler_mode must be 'ardm' or 'maskgit', got {sampler_mode!r}")
+        if sampler_mode == "maskgit" and legacy_batch_update:
+            raise ValueError("legacy_batch_update replays the reference's sequential sampler; "
+                             "incompatible with maskgit")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         self.stage_config = stage_config
@@ -76,12 +86,16 @@ class ProteoScribeEngine:
         self.device = torch.device(device)
         self.vocab = Stage3Vocab()
         on_cuda = self.device.type == "cuda"
-        on_accel = on_cuda and dtype == torch.bfloat16
+        # legacy replay needs the full logit grid: the module serves it
+        on_accel = on_cuda and dtype == torch.bfloat16 and not legacy_batch_update
         supported, reason = stack_supported(self.config)
         if use_stack is None:
             use_stack = on_accel and supported
             if on_accel and not supported:
                 log_once(f"ProteoScribeEngine: serving through the ProteoScribe module: {reason}")
+        if use_stack and legacy_batch_update:
+            raise ValueError("legacy_batch_update needs the full logit grid of the module: "
+                             "pass use_stack=False (or None)")
         if use_stack and on_cuda and dtype != torch.bfloat16:
             raise ValueError("the stack forward's kernels run bf16 on cuda: pass "
                              "dtype=torch.bfloat16 or use_stack=False")
@@ -110,6 +124,12 @@ class ProteoScribeEngine:
         chunk = chunk_steps or None
         if chunk and (chunk > outer or outer % chunk != 0):
             chunk = None
+        # positions the forward's head runs at: every one in the modes that
+        # rank the whole grid (the stack then gives (B, L, C) per forward)
+        self.gather_k = (self.config.max_seq_len
+                         if decode_order == "confidence" or sampler_mode == "maskgit"
+                         else positions_per_step)
+        takes_positions = not legacy_batch_update
         if self.use_stack:
             self._apply_fn = make_stack_apply(self.model, dtype=self.dtype, gelu=self.gelu,
                                               ff_quant=self.ff_quant, proj_quant=self.proj_quant)
@@ -117,18 +137,35 @@ class ProteoScribeEngine:
             self._apply_fn = torch.no_grad()(self.model)
         self._sampler_cfg = dict(temperature=temperature, chunk_steps=chunk,
                                  positions_per_step=positions_per_step, top_k=top_k, top_p=top_p)
-        self.sampler = make_sampler(self._apply_fn, self.config.num_timesteps,
-                                    apply_takes_positions=True, **self._sampler_cfg)
+        self.decode_order, self.sampler_mode = decode_order, sampler_mode
+        self.maskgit_steps, self.legacy_batch_update = maskgit_steps, legacy_batch_update
+        if sampler_mode == "maskgit":
+            self.sampler = make_maskgit_sampler(
+                self._apply_fn, self.config.max_seq_len, steps=maskgit_steps,
+                temperature=temperature, top_k=top_k, top_p=top_p, apply_takes_positions=True)
+        else:
+            self.sampler = make_sampler(self._apply_fn, self.config.num_timesteps,
+                                        legacy_batch_update=legacy_batch_update,
+                                        apply_takes_positions=takes_positions,
+                                        order=decode_order, **self._sampler_cfg)
 
     def supports_continuous_stepping(self) -> bool:
-        """Exact path-order ARDM runs under the chunk-boundary continuous
-        batcher — every engine of the port."""
-        return True
+        """True when the engine's sampling runs under the chunk-boundary
+        continuous batcher: exact path-order ARDM without the Q5 legacy
+        replay.  MaskGIT and confidence order finish in a few forwards, and
+        trajectory-start packing serves them (JAX stage3.py:362-370)."""
+        return (self.sampler_mode == "ardm" and self.decode_order == "path"
+                and not self.legacy_batch_update)
 
     def make_continuous_stepper(self):
         """The per-row-offset chunk stepper over this engine's serving
         forward (same kernels, same quant modes) → ``(chunk_fn, meta)``, meta
         holding ``chunk_steps``, ``positions_per_step`` and ``num_steps``."""
+        if not self.supports_continuous_stepping():
+            raise ValueError(
+                "continuous stepping needs exact path-order ARDM "
+                f"(sampler_mode={self.sampler_mode!r}, order={self.decode_order!r}, "
+                f"legacy_batch_update={self.legacy_batch_update})")
         cfg = self._sampler_cfg
         k = cfg["positions_per_step"]
         chunk = cfg["chunk_steps"] or self.config.num_timesteps // k
@@ -145,28 +182,43 @@ class ProteoScribeEngine:
         (``serving/trajectory.TrajectoryBatcher``) → ``row_fn(z_c (B, C),
         inv (B, L), key_data (B, 2)) → (B, L) ids``, numpy in and a device
         tensor out, not fetched, so the scheduler overlaps its fetch with
-        the next dispatch.  Each row decodes in its own order ``inv`` with
-        its own noise stream (``diffusion.sampler.row_gumbel``), so a
-        seeded row reproduces in any batch — the chunk stepper run over the
-        whole trajectory from fresh rows."""
+        the next dispatch.  Each row draws its noise from its own Philox
+        stream (``diffusion.sampler.row_gumbel``), so a seeded row
+        reproduces in any batch.  Path order decodes each row in its own
+        order ``inv`` (the chunk stepper run over the whole trajectory from
+        fresh rows); MaskGIT and confidence order ignore ``inv``.  Legacy
+        replay writes the union of a batch's positions, so a row depends on
+        its batch: it has no row function."""
+        if self.legacy_batch_update:
+            raise ValueError("legacy_batch_update couples the rows of a batch (union "
+                             "writes): no per-row trajectory dispatch")
         cfg = self._sampler_cfg
         k = cfg["positions_per_step"]
-        step = make_chunk_stepper(
-            self._apply_fn, self.config.num_timesteps,
-            chunk_steps=self.config.num_timesteps // k, positions_per_step=k,
-            temperature=cfg["temperature"], top_k=cfg["top_k"], top_p=cfg["top_p"],
-            apply_takes_positions=True)
         dev, L = self.device, self.config.max_seq_len
+        if self.sampler_mode == "maskgit" or self.decode_order == "confidence":
+            sampler = self.sampler
+
+            def run(zc, inv, kd):
+                return sampler(zc, inv, key_data=kd)
+        else:
+            step = make_chunk_stepper(
+                self._apply_fn, self.config.num_timesteps,
+                chunk_steps=self.config.num_timesteps // k, positions_per_step=k,
+                temperature=cfg["temperature"], top_k=cfg["top_k"], top_p=cfg["top_p"],
+                apply_takes_positions=True)
+
+            def run(zc, inv, kd):
+                B = zc.shape[0]
+                zero = torch.zeros(B, dtype=torch.int64, device=dev)
+                x, _ = step(zc, inv, torch.zeros((B, L), dtype=torch.int32, device=dev), zero,
+                            kd, kd)
+                return x
 
         def row_fn(z_c, inv, key_data):
             from biom3_tpu_torch.serving.continuous import to_device
 
-            B = len(z_c)
-            zero = torch.zeros(B, dtype=torch.int64, device=dev)
-            kd = to_device(key_data, torch.int64, dev)
-            x, _ = step(to_device(z_c, torch.float32, dev), to_device(inv, torch.int64, dev),
-                        torch.zeros((B, L), dtype=torch.int32, device=dev), zero, kd, kd)
-            return x
+            return run(to_device(z_c, torch.float32, dev), to_device(inv, torch.int64, dev),
+                       to_device(key_data, torch.int64, dev))
 
         return row_fn
 

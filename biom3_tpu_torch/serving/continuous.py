@@ -26,7 +26,7 @@ pipeline's ``_device_lock``; it runs in ``torch.inference_mode``, which is
 thread-local, so it is set inside the thread.
 
 Not ported: continuous inpaint rows (a request carrying ``masked_ids``
-raises; ROADMAP queue 1, item 7) and the mesh's sharded dispatch.
+raises; ROADMAP queue 1, item 4) and the mesh's sharded dispatch.
 """
 
 from __future__ import annotations
@@ -147,10 +147,10 @@ class ContinuousGenerateBatcher:
 
     def submit(self, request: dict) -> Future:
         """Queue one request.  A request carrying ``masked_ids`` (continuous
-        inpaint) is refused: not ported (ROADMAP queue 1, item 7)."""
+        inpaint) is refused: not ported (ROADMAP queue 1, item 4)."""
         if request.get("masked_ids") is not None:
             raise NotImplementedError("continuous inpaint rows are not ported yet "
-                                      "(ROADMAP queue 1, item 7)")
+                                      "(ROADMAP queue 1, item 4)")
         n_rep = int(request.get("num_replicas") or self.pipeline.default_replicas)
         fut: Future = Future()
         group = {"request": request, "future": fut, "n_rep": n_rep, "next_rep": 0,

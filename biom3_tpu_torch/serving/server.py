@@ -21,7 +21,7 @@ Endpoints (stdlib ``http.server``; JSON in/out):
     a ``torch.profiler`` window over the daemon's work, written as a
     Chrome trace;
   * ``POST /v1/inpaint`` → HTTP 501: inpainting is not ported yet (ROADMAP
-    queue 1, item 7);
+    queue 1, item 4);
   * ``GET /healthz`` → liveness and the device platform (``gpu`` on the
     card);
   * ``GET /v1/metrics`` → scheduler counters (occupancy, latency, errors),
@@ -43,7 +43,7 @@ import torch
 from biom3_tpu_torch.serving.batcher import MicroBatcher
 from biom3_tpu_torch.serving.continuous import host_rng, row_streams
 
-INPAINT_REFUSAL = "inpainting is not ported yet (ROADMAP queue 1, item 7)"
+INPAINT_REFUSAL = "inpainting is not ported yet (ROADMAP queue 1, item 4)"
 
 
 class ServingPipeline:
@@ -212,8 +212,9 @@ class BioM3Server:
     """HTTP front end with continuous micro-batching over a ServingPipeline.
 
     ``continuous=None`` (auto) serves exact path-order ARDM on the
-    chunk-boundary ``ContinuousGenerateBatcher`` — every engine of the port
-    supports it; ``False`` takes ``packed_scheduler``: the row-granular
+    chunk-boundary ``ContinuousGenerateBatcher`` and the fast modes (MaskGIT,
+    confidence order), which the engine's ``supports_continuous_stepping``
+    refuses, on the packed scheduler; ``False`` takes ``packed_scheduler``: the row-granular
     ``TrajectoryBatcher`` (``"trajectory"``, default) or the
     request-granular ``MicroBatcher`` (``"micro"``).  Inpainting is refused
     (HTTP 501)."""

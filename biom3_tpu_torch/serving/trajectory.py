@@ -1,9 +1,10 @@
 """Row-granular packed scheduling for whole-trajectory dispatches.
 
-Port of ``biom3_tpu/serving/trajectory.py`` for the fast mode the port
-serves: blocked path-order ARDM (``--preset latency``: k=8, temperature 0,
-L/k forwards a design), whose trajectories have no useful admission
-boundaries inside them.
+Port of ``biom3_tpu/serving/trajectory.py`` for the fast modes, whose
+trajectories have no useful admission boundaries inside them: blocked
+path-order ARDM (``--preset latency``: k=8, temperature 0, L/k forwards a
+design), confidence order (L/k forwards) and MaskGIT (``--preset
+throughput``: 16 forwards).
 
   * **row granularity** — (request, replica) rows pack across request
     boundaries into fixed ``rows_per_dispatch`` batches, so a partial
@@ -16,8 +17,9 @@ boundaries inside them.
     while the wait is free (a dispatch in flight keeps the device busy; the
     window stretches toward the measured dispatch time).
 
-Each row decodes in its own order with its own noise stream
-(``serving.continuous.row_streams``, ``diffusion.sampler.row_gumbel``), so
+Each row decodes with its own noise stream (``serving.continuous.
+row_streams``, ``diffusion.sampler.row_gumbel``; path order also in its own
+order, which the other modes ignore), so
 a seeded request reproduces bit for bit in any dispatch and needs no solo
 padded dispatch, which the JAX scheduler gives it (its RNG is per
 dispatch).
@@ -81,7 +83,7 @@ class TrajectoryBatcher:
     def submit(self, request: dict) -> Future:
         if request.get("masked_ids") is not None:
             raise ValueError("this engine's trajectory scheduler cannot carry inpaint rows "
-                             "(inpaint is not ported yet: ROADMAP queue 1, item 7)")
+                             "(inpaint is not ported yet: ROADMAP queue 1, item 4)")
         fut: Future = Future()
         n_rep = int(request.get("num_replicas") or self.pipeline.default_replicas)
         group = {"request": request, "future": fut, "n_rep": n_rep, "next_rep": 0,

@@ -16,8 +16,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``esm2_attention``'s, ``esm2_attention_bwd``'s two passes, the bf16
    ``local_window_attention``'s, ``stage3_attention_core``'s band heads'
    and ``stage3_attention_bwd``'s two band passes' HGMMA, all with UTMALDG
-   loads, and no kernel of the library may show HMMA (the ``mma.sync``
-   route); a ``[ptxas]`` line gives the attention kernels'
+   loads, ``gather_head``'s HGMMA (its head product), and no kernel of the
+   library may show HMMA (the ``mma.sync`` route); a ``[ptxas]`` line gives the attention kernels'
    (``stage3_attention_core``'s three, ``stage3_attention_bwd``'s band
    passes), their staging launches' and the ``gemm_dx``/``gemm_dw``
    kernels' registers and spills (``nvcc -Xptxas -v``);
@@ -67,8 +67,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``torch._int_mm`` and the bound, ``stage3_attention_core`` and
    ``stage3_attention_bwd`` there (per head group, the same bits on a
    second call, each time beside its bound), and ``bias_layernorm`` there (xb equal to h + bias, the same
-   bits on a second call, its time beside the bound), then the host µs of
-   one wrapper call.  ``stage3_attention_core``
+   bits on a second call, its time beside the bound), ``gather_head`` on
+   the full grid there (k = L: 32768 rows, the same bits on a second call,
+   its time beside the plain version's and the bound; edge shapes in
+   phase 3 off its 64-row tiles, d = 96 to 4096 and 5 to 32 classes), then
+   the host µs of one wrapper call.  ``stage3_attention_core``
    is also checked at head dim 64, W = 32 and 8, no and all heads
    band-local, and L = 1000 and 200, and must give the same bits on a
    second call;
@@ -83,8 +86,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. the text→protein CLI (``biom3_tpu_torch.cli.run_e2e``) at full width on
    seeded random weights: 1 prompt, 2 replicas, exact mode (1024 denoise
    steps), at its default (int8 on the card), then with ``--ff-quant none
-   --proj-quant none`` (Stage 3 in bf16, the ``e2e_bf16`` path); checks the
-   sequences;
+   --proj-quant none`` (Stage 3 in bf16, the ``e2e_bf16`` path), then the
+   fast modes at the default, ``--sampler maskgit --maskgit_steps 16`` and
+   ``--decode_order confidence --positions_per_step 8`` (the stack forward
+   on the full grid: ``gather_head`` at k = L); checks the sequences, that
+   the replicas differ, and that ``stage3_attention_core`` ran depth times
+   and ``gather_head`` once a forward (1024, 16 and 128 forwards), and
+   prints each run's wall time;
 6. the PenCL CLI (``biom3_tpu_torch.cli.run_pencl_inference``) at full
    width on seeded random weights in the published ``.bin`` layout (LM,
    contact and MLM heads and buffers included): the 5 demo pairs at its
@@ -98,10 +106,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    serving, at full width on phase 5's files: an in-process ``BioM3Server``
    (``rows_per_dispatch=4``, default flags: continuous, exact mode, int8)
    answers 3 concurrent requests x 2 replicas (one prompt twice, one seeded
-   request twice: identical sequences), then ``--preset latency`` through
-   the trajectory scheduler (both the ``serve`` path), then the
-   ``run_server`` CLI as a subprocess: one request, SIGTERM, exit code 0;
-   seqs/s, p50 request latency and row occupancy on a line of their own;
+   request twice: identical sequences), then ``--preset latency`` and
+   ``--preset throughput`` (MaskGIT, 16 steps) through the trajectory
+   scheduler (``/healthz``: ``continuous: false``; all three the ``serve``
+   path), then the ``run_server`` CLI as a subprocess: one request,
+   SIGTERM, exit code 0; seqs/s, p50 request latency and row occupancy on
+   a line of their own; then the sample CLIs on phase 5's files:
+   ``run_facilitator_sample`` (3 seeded z_t / z_p rows; no kernel, path
+   ``facilitator_sample``) and ``run_proteoscribe_sample --sampler
+   maskgit`` on its z_c (3 prompts x 2 replicas, path
+   ``proteoscribe_sample``);
 7. Stage-3 training at full width on seeded weights: the loss and every
    parameter gradient of ``ProteoScribe(attn_impl="layer-block")``, then
    ``"block"``, in bf16 on the kernels against the plain f32 module (fixed
@@ -132,8 +146,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    routes) against the plain f32 layer, forward and backward, at phase
    8a's gates.
 
-Each path (phase 4's graph-path ProteoScribe, both runs of phase 5, the
-three PenCL runs of phase 6, the serving runs, the two training CLI modes
+Each path (phase 4's graph-path ProteoScribe, the four runs of phase 5,
+the three PenCL runs of phase 6, the serving runs, the sample CLIs, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
 ``.bin`` in phase 8) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
@@ -202,7 +216,7 @@ KERNEL_SOURCES = {
                   "biom3_tpu/ops/pallas/fused_layer_tpu.py:269"),
     "embed_tokens": ("biom3_tpu_torch/csrc/rowwise.cu",
                      "biom3_tpu/ops/pallas/stack_kernel_tpu.py:765"),
-    "gather_head": ("biom3_tpu_torch/csrc/rowwise.cu",
+    "gather_head": ("biom3_tpu_torch/csrc/gather_head.cu",
                     "biom3_tpu/ops/pallas/stack_kernel_tpu.py:765"),
     "esm2_embed": ("biom3_tpu_torch/csrc/rowwise.cu",
                    "biom3_tpu/ops/pallas/esm2_stack_tpu.py:294"),
@@ -232,10 +246,17 @@ BIT_EQUAL = {"quant_rows"}   # codes and scales equal to the plain version's
 
 # path → the kernels it launches, and no other
 INT8 = {"gemm_i8", "quant_rows"}
-E2E_INT8 = INT8 | {"stage3_attention_core", "dense_attention", "bias_layernorm", "layernorm",
-                   "embed_tokens", "gather_head"}
+STAGE3_INT8 = INT8 | {"stage3_attention_core", "bias_layernorm", "layernorm", "embed_tokens",
+                      "gather_head"}
+E2E_INT8 = STAGE3_INT8 | {"dense_attention"}
 PATH_KERNELS = {
     "e2e": E2E_INT8,
+    # the fast modes: the stack forward on the full grid
+    "e2e_maskgit": E2E_INT8,
+    "e2e_confidence": E2E_INT8,
+    # the sample CLIs: the Facilitator has no kernel; Stage 3 alone
+    "facilitator_sample": set(),
+    "proteoscribe_sample": STAGE3_INT8,
     # Stage 3 in bf16; the text tower stays at its engine's int8 default
     "e2e_bf16": E2E_INT8 | {"gemm_bias_act"},
     "serve": E2E_INT8,
@@ -339,7 +360,9 @@ SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IG
               "esm2_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"), "local_attn_wgmma": ("HGMMA", "UTMALDG"),
               "stage3_local_wgmma": ("HGMMA", "UTMALDG"),
               "stage3_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
-              "stage3_bwd_dkv_wgmma": ("HGMMA", "UTMALDG")}
+              "stage3_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"),
+              # the head product on wgmma from shared memory the warps fill
+              "gather_head": ("HGMMA",)}
 # kernels whose registers and spills the build prints (``ptxas.txt``),
 # each in two instantiations: head dims 32 and 64, or the GEMM's two tiles
 PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_wgmma_kernel",
@@ -350,7 +373,8 @@ PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_w
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
 DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum",
-                 "stage3_attention_core", "stage3_attention_bwd", "bias_layernorm"}
+                 "stage3_attention_core", "stage3_attention_bwd", "bias_layernorm",
+                 "gather_head"}
 # kernel → how many of its last outputs are f32 column sums (SUM_TOL)
 COLUMN_SUMS = {"col_sum": 1, "layernorm_bwd": 2}
 
@@ -630,7 +654,7 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
         "gather_head": [case("gather_head", h,
                              torch.randint(0, L, (B, k), generator=g, device=dev,
                                            dtype=torch.int32),
-                             s, t, rnd(d, 29, scale=d ** -0.5), vec(29),
+                             s, t, K.pad_head(rnd(d, 29, scale=d ** -0.5)), vec(29),
                              flops=2 * B * k * d * 29 + 8 * B * k * d, out=B * k * 29 * 4)
                         for k in (1, 8)],
         "esm2_embed": [case("esm2_embed", ids, rnd(33, Ee), flops=Be * L * Ee,
@@ -837,6 +861,24 @@ def edge_cases(g) -> dict[str, list]:
     # batch row's bias) at d = 1280 (the widest row held in registers), a
     # ragged 1288, 2560 and 4096 (staged in shared memory); then 6 rows of
     # 120000 (a bf16 row past one block's shared memory, read from global)
+    # gather_head: 64-row tiles left ragged (3 x 37 rows), the full grid at
+    # L = 100 and 130, d = 96 (a 64-column block half used) and 256 (one
+    # register chunk a lane), d past one shared-memory slab (1280, 4096, a
+    # slab of 256 after 1024), 5 and 32 classes, one row
+    def head_case(B, L, k, d, C):
+        pos = (torch.arange(L, device=dev, dtype=torch.int32).expand(B, L).contiguous()
+               if k == L else torch.randint(0, L, (B, k), generator=g, device=dev,
+                                             dtype=torch.int32))
+        return pair("gather_head", rnd(B, L, d, scale=3.0), pos,
+                    1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                    0.1 * torch.randn(d, generator=g, device=dev),
+                    K.pad_head(rnd(d, C, scale=d ** -0.5)),
+                    0.1 * torch.randn(C, generator=g, device=dev))
+
+    gh_edge = [head_case(*a) for a in ((3, 100, 37, 512, 29), (2, 100, 100, 96, 5),
+                                       (2, 130, 130, 256, 32), (2, 70, 70, 1280, 29),
+                                       (2, 64, 64, 4096, 29), (3, 50, 50, 1280 + 256, 29),
+                                       (1, 1024, 1, 512, 29))]
     bln_edge = [(rnd(b, n, d, scale=3.0), rnd(b, d),
                  1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
                  0.1 * torch.randn(d, generator=g, device=dev))
@@ -909,6 +951,7 @@ def edge_cases(g) -> dict[str, list]:
                  local_heads=2, window=40),
         ],
         "bias_layernorm": [pair("bias_layernorm", *t) for t in bln_edge],
+        "gather_head": gh_edge,
         "gemm_dx": [pair("gemm_dx", rnd(1000, 264), rnd(200, 264, scale=264 ** -0.5),
                          gelu_of=torch.randn(1000, 200, generator=g, device=dev),
                          out_dtype=torch.float32),
@@ -1051,6 +1094,7 @@ def phase_gemms_b32(results: dict, g) -> None:
     stage3_core_b32(results, g)
     stage3_bwd_b32(results, g)
     bias_layernorm_b32(results, g)
+    gather_head_full_grid(results, g)
     torch.cuda.empty_cache()
     say("kernels", "host µs per wrapper call (enqueue, Stage-3 B=4): "
                    + " ".join(f"{k} {v:.1f}" for k, v in mg.host_costs(g).items()))
@@ -1147,6 +1191,42 @@ def bias_layernorm_b32(results: dict, g) -> None:
     entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
     say("kernels", f"bias_layernorm, Stage-3 B=32: max|Δ| {err_abs:.3e} rel {err_rel:.3e} "
                    f"kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_ms / ms:.0%})")
+
+
+def gather_head_full_grid(results: dict, g) -> None:
+    """``gather_head`` at Stage-3 B=32 on the full grid (k = L = 1024: the
+    head of every forward in confidence order and MaskGIT; 32768 rows of
+    512, the (512, 29) head packed to 32 columns): within the gate of its
+    plain version, the same bits on a second call, timed beside its bound
+    (h read once, the logits written once)."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import kernels as K
+
+    B, L, d, C = 32, 1024, 512, 29
+    h = (torch.randn(B, L, d, generator=g, device=g.device) * 3.0).bfloat16()
+    pos = torch.arange(L, device=g.device, dtype=torch.int32).expand(B, L).contiguous()
+    s = 1.0 + 0.1 * torch.randn(d, generator=g, device=g.device)
+    t = 0.1 * torch.randn(d, generator=g, device=g.device)
+    w = K.pad_head((torch.randn(d, C, generator=g, device=g.device) * d ** -0.5).bfloat16())
+    hb = 0.1 * torch.randn(C, generator=g, device=g.device)
+    got, want = K.gather_head(h, pos, s, t, w, hb), K.gather_head_plain(h, pos, s, t, w, hb)
+    err_abs, err_rel = rel_err(got, want)
+    if err_rel > REL_TOL:
+        raise AssertionError(f"gather_head B=32 k=L: max|Δ|/max|ref| = {err_rel:.3e}")
+    if not torch.equal(got, K.gather_head(h, pos, s, t, w, hb)):
+        raise AssertionError("gather_head B=32 k=L: a second call gave other bits")
+    del want
+    ms = event_ms(lambda: K.gather_head(h, pos, s, t, w, hb), TIMED_ITERS)
+    plain_ms = event_ms(lambda: K.gather_head_plain(h, pos, s, t, w, hb), TIMED_ITERS)
+    bound_ms = (nbytes(h, pos, s, t, w, hb) + B * L * C * 4) / PEAK_BYTES * 1e3
+    entry = results["gather_head"]
+    entry.update(ms_kL_b32=ms, plain_ms_kL_b32=plain_ms, bound_ms_kL_b32=bound_ms)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
+    say("kernels", f"gather_head, Stage-3 B=32 k=L (32768 rows): max|Δ| {err_abs:.3e} rel "
+                   f"{err_rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                   f"{bound_ms:.4f} ms ({bound_ms / ms:.0%})")
 
 
 # --------------------------------------------------------------------------
@@ -1379,8 +1459,12 @@ def write_stage_files(root: pathlib.Path) -> dict:
 
 def phase_e2e(root: pathlib.Path, files: dict) -> dict:
     """``run_e2e`` at its default (Stage 3 and the text tower in int8), then
-    with Stage 3 in bf16 (``--ff-quant none --proj-quant none``) → each
-    path's launch counts."""
+    with Stage 3 in bf16 (``--ff-quant none --proj-quant none``), then the
+    fast modes at the default: MaskGIT in 16 steps and confidence order at
+    k = 8 (the stack forward on the full grid) → each path's launch counts.
+    Every run: 1 prompt x 2 replicas at temperature 1, distinct replicas,
+    ``stage3_attention_core`` depth times a forward and ``gather_head``
+    once a forward."""
     import torch
 
     from biom3_tpu_torch.cli import run_e2e
@@ -1388,16 +1472,22 @@ def phase_e2e(root: pathlib.Path, files: dict) -> dict:
 
     (root / "prompts.txt").write_text(
         "PROTEIN NAME: kinase. FUNCTION: catalyzes transport with atp binding activity\n")
-    counts = {}
-    for path, extra in (("e2e", []), ("e2e_bf16", ["--ff-quant", "none", "--proj-quant", "none"])):
+    steps = files["steps"]
+    runs = (("e2e", [], steps),
+            ("e2e_bf16", ["--ff-quant", "none", "--proj-quant", "none"], steps),
+            ("e2e_maskgit", ["--sampler", "maskgit", "--maskgit_steps", "16"], 16),
+            ("e2e_confidence", ["--decode_order", "confidence", "--positions_per_step", "8"],
+             steps // 8))
+    counts, walls = {}, {}
+    for path, extra, forwards in runs:
         out = root / f"{path}.pt"
         K.reset_launches()
         t0 = time.perf_counter()
         run_e2e.main([*files["flags"], "--prompts", str(root / "prompts.txt"),
                       "--output_path", str(out), "--device", "cuda", "--num_replicas", "2",
-                      "--positions_per_step", "1", "--seed", str(SEED), *extra])
+                      "--seed", str(SEED), *extra])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        walls[path] = time.perf_counter() - t0
         counts[path] = K.launch_counts()
         saved = torch.load(out, weights_only=False)
         z_t, z_c = np.asarray(saved["z_t"]), np.asarray(saved["z_c"])
@@ -1410,16 +1500,74 @@ def phase_e2e(root: pathlib.Path, files: dict) -> dict:
             raise AssertionError(f"expected 2 sequences, got {len(seqs)}")
         check_sequences(seqs)
         if seqs[0] == seqs[1]:
-            raise AssertionError("the two replicas are identical")
+            raise AssertionError(f"{path}: the two replicas are identical")
         check_path(path, counts[path])
-        forwards = files["steps"]          # exact mode: one forward per step, one batch
-        if counts[path]["stage3_attention_core"] != files["depth"] * forwards:
-            raise AssertionError(f"stage3_attention_core launched "
-                                 f"{counts[path]['stage3_attention_core']} times, expected "
-                                 f"{files['depth']} x {forwards}")
-        say("e2e", f"{path}: 1 prompt x 2 replicas, exact mode ({forwards} steps) {' '.join(extra)}"
-                   f": {wall:.2f} s wall; lengths {[len(s) for s in seqs]}; "
+        # one batch of the two replicas: a stack forward is `depth` attention
+        # launches and one head launch
+        for name, want in (("stage3_attention_core", files["depth"] * forwards),
+                           ("gather_head", forwards)):
+            if counts[path][name] != want:
+                raise AssertionError(f"{path}: {name} launched {counts[path][name]} times, "
+                                     f"expected {want} ({forwards} forwards)")
+        say("e2e", f"{path}: 1 prompt x 2 replicas, {forwards} forwards {' '.join(extra)}: "
+                   f"{walls[path]:.2f} s wall; lengths {[len(s) for s in seqs]}; "
                    f"launches {counts[path]}")
+    say("e2e", "wall s, set-up included: " + " ".join(f"{p} {w:.2f}" for p, w in walls.items()))
+    return counts
+
+
+def phase_sample_clis(root: pathlib.Path, files: dict) -> dict:
+    """The Stage-2 and Stage-3 sample CLIs on the card, on phase 5's files:
+    ``run_facilitator_sample`` on seeded z_t / z_p of 3 prompts, then
+    ``run_proteoscribe_sample --sampler maskgit`` on its z_c (2 replicas
+    each) → each path's launch counts."""
+    import torch
+
+    from biom3_tpu_torch.cli import run_facilitator_sample, run_proteoscribe_sample
+    from biom3_tpu_torch.ops import kernels as K
+
+    flag = dict(zip(files["flags"][::2], files["flags"][1::2]))
+    g = torch.Generator().manual_seed(SEED)
+    torch.save({"z_t": torch.randn(3, 512, generator=g), "z_p": torch.randn(3, 512, generator=g)},
+               root / "embeddings.pt")
+    counts = {}
+    t0 = time.perf_counter()
+    K.reset_launches()
+    run_facilitator_sample.main(["--input_data_path", str(root / "embeddings.pt"),
+                                 "--output_data_path", str(root / "facilitated.pt"),
+                                 "--model_path", flag["--stage2_model"],
+                                 "--json_path", flag["--stage2_json"], "--device", "cuda"])
+    counts["facilitator_sample"] = K.launch_counts()
+    check_path("facilitator_sample", counts["facilitator_sample"])
+    z_c = np.asarray(torch.load(root / "facilitated.pt", weights_only=False)["z_c"])
+    if z_c.shape != (3, 512) or not np.isfinite(z_c).all():
+        raise AssertionError(f"run_facilitator_sample: z_c {z_c.shape}, finite "
+                             f"{np.isfinite(z_c).all()}")
+    t1 = time.perf_counter()
+    K.reset_launches()
+    run_proteoscribe_sample.main(["--json_path", flag["--stage3_json"],
+                                  "--model_path", flag["--stage3_model"],
+                                  "--input_path", str(root / "facilitated.pt"),
+                                  "--output_path", str(root / "designs.pt"), "--device", "cuda",
+                                  "--sampler", "maskgit", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    counts["proteoscribe_sample"] = K.launch_counts()
+    check_path("proteoscribe_sample", counts["proteoscribe_sample"])
+    designs = torch.load(root / "designs.pt", weights_only=False)
+    seqs = [s for rep in designs.values() for s in rep]
+    if sorted(designs) != ["replica_0", "replica_1"] or len(seqs) != 6:
+        raise AssertionError(f"run_proteoscribe_sample: {sorted(designs)}, {len(seqs)} designs")
+    check_sequences(seqs)
+    forwards = 16                        # one batch of 2 replicas a prompt
+    want = 3 * forwards
+    if counts["proteoscribe_sample"]["gather_head"] != want:
+        raise AssertionError(f"run_proteoscribe_sample: gather_head launched "
+                             f"{counts['proteoscribe_sample']['gather_head']} times, "
+                             f"expected {want}")
+    say("sample", f"run_facilitator_sample: 3 rows, {t1 - t0:.2f} s wall; "
+                  f"run_proteoscribe_sample --sampler maskgit: 3 prompts x 2 replicas, "
+                  f"{time.perf_counter() - t1:.2f} s wall; launches "
+                  f"{counts['proteoscribe_sample']}")
     return counts
 
 
@@ -1480,7 +1628,9 @@ def serve_requests(base: str) -> dict:
 
 def phase_serve(root: pathlib.Path, files: dict) -> dict:
     """The serving slice at full width on seeded weights → the ``serve``
-    path's launch counts (both in-process servers)."""
+    path's launch counts (the three in-process servers: continuous exact
+    mode, then ``--preset latency`` and ``--preset throughput`` on the
+    trajectory scheduler)."""
     import signal
 
     import torch
@@ -1490,8 +1640,9 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
 
     counts: dict = {}
     base_flags = [*files["flags"], "--device", "cuda", "--port", "0", "--rows_per_dispatch", "4"]
-    for label, extra in (("continuous, exact, int8", []), ("--preset latency", ["--preset",
-                                                                                 "latency"])):
+    for label, extra in (("continuous, exact, int8", []),
+                         ("--preset latency", ["--preset", "latency"]),
+                         ("--preset throughput", ["--preset", "throughput"])):
         server = run_server.build_server(run_server.parse_arguments(base_flags + extra))
         # --dtype auto on cuda: the published configs take the kernel paths
         s1, s3 = server.pipeline.s1, server.pipeline.s3
@@ -2213,6 +2364,7 @@ def main() -> None:
         files = write_stage_files(root / "e2e")
         counts.update(phase_e2e(root / "e2e", files))
         counts.update(phase_serve(root / "e2e", files))
+        counts.update(phase_sample_clis(root / "e2e", files))
         counts.update(phase_pencl(root, stage1, pencl))
         del pencl
     phase_train_grads()

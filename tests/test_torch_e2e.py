@@ -150,14 +150,36 @@ def _e2e_args(*flag):
         + ["--prompts", "p", "--output_path", "o", *flag])
 
 
-@pytest.mark.parametrize("flag", [["--sampler", "maskgit"], ["--decode_order", "confidence"],
-                                  ["--inpaint_sequence", "MK??"],
+@pytest.mark.parametrize("flag", [["--inpaint_sequence", "MK??"],
                                   ["--ff-quant", "int8", "--inpaint_sequence", "MK??"]])
 def test_run_e2e_refuses_unported_flags(flag):
     from biom3_tpu_torch.cli import run_e2e
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_e2e._refuse_unported(_e2e_args(*flag))
+
+
+@pytest.mark.parametrize("flag", [["--sampler", "maskgit", "--maskgit_steps", "4"],
+                                  ["--decode_order", "confidence", "--positions_per_step", "8"]])
+def test_run_e2e_runs_the_fast_modes(stage_files, tmp_path, capsys, flag):
+    """The fast modes run on the CPU (the PyTorch modules, f32): valid
+    sequences for both prompts and replicas; the seeded run repeats."""
+    from biom3_tpu_torch.cli import run_e2e
+
+    root, _, flags = stage_files
+    (tmp_path / "prompts.txt").write_text("\n".join(PROMPTS) + "\n")
+    outs = []
+    for i in range(2):
+        run_e2e.main([*(a for kv in flags.items() for a in kv), "--prompts",
+                      str(tmp_path / "prompts.txt"), "--output_path", str(tmp_path / f"{i}.pt"),
+                      "--device", "cpu", "--seed", "4", *flag])
+        outs.append(torch.load(tmp_path / f"{i}.pt", weights_only=False)["sequences"])
+    assert f"Saved {tmp_path / '1.pt'}" in capsys.readouterr().out
+    assert outs[0] == outs[1] and set(outs[0]) == {"replica_0", "replica_1"}
+    for seqs in outs[0].values():
+        assert len(seqs) == 2
+        for s in seqs:
+            assert isinstance(s, str) and "<START>" not in s and "<PAD>" not in s
 
 
 def test_run_e2e_takes_the_int8_flags():

@@ -336,7 +336,8 @@ def test_trajectory_close_fails_rows_of_a_hung_dispatch(stage_files):
 def test_run_server_preset_sentinels():
     """A fault of the JAX CLI, fixed here: a flag given explicitly at its
     default value beats the preset;
-    the presets and mesh serving the port lacks are refused."""
+    continuous inpaint and mesh serving, which the port lacks, are refused,
+    and the throughput preset and confidence order pass."""
     from biom3_tpu_torch.cli import run_server
 
     base = [f for n in (1, 2, 3) for f in (f"--stage{n}_json", "x", f"--stage{n}_model", "x")]
@@ -348,10 +349,37 @@ def test_run_server_preset_sentinels():
     args = run_server.parse_arguments(base)
     assert (args.temperature, args.rows_per_dispatch, args.continuous) == (1.0, 16, "auto")
     run_server.refuse_unported(args)
-    for extra in (["--preset", "throughput"], ["--continuous_inpaint"], ["--mesh_dp", "2"],
-                  ["--decode_order", "confidence"]):
+    for extra in (["--continuous_inpaint"], ["--mesh_dp", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_server.refuse_unported(run_server.parse_arguments(base + extra))
+    for extra, want in ((["--preset", "throughput"], ("maskgit", 16, "off")),
+                        (["--decode_order", "confidence"], ("ardm", 16, "auto"))):
+        args = run_server.parse_arguments(base + extra)
+        run_server.refuse_unported(args)
+        assert (args.sampler, args.maskgit_steps, args.continuous) == want
+
+
+def test_throughput_preset_server_answers(stage_files):
+    """``--preset throughput`` (MaskGIT, 16 steps, the trajectory scheduler)
+    in process on the CPU: /healthz shows no continuous batching, and one
+    request of two replicas answers with valid sequences."""
+    from biom3_tpu_torch.cli import run_server
+
+    root, _, flags = stage_files
+    args = run_server.parse_arguments(flags + ["--preset", "throughput", "--device", "cpu",
+                                               "--port", "0", "--rows_per_dispatch", "2"])
+    server = run_server.build_server(args)
+    assert server.pipeline.s3.sampler_mode == "maskgit"
+    server.start()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        health = _get(f"{base}/healthz")
+        assert health["continuous"] is False
+        res = _post(f"{base}/v1/generate", {"prompt": PROMPT, "num_replicas": 2, "seed": 3})
+    finally:
+        server.close()
+    seqs = res["results"][0]["sequences"]
+    assert len(seqs) == 2 and all(map(_valid, seqs))
 
 
 def test_embed_cache_counts_each_computed_prompt_once(stage_files):
