@@ -7,8 +7,11 @@ the port's kernels, in int8 by default (``--ff-quant`` and ``--proj-quant``
 reach Stage 3 only, as in the JAX CLI; the text tower's int8 is its
 engine's default); in f32 they run the PyTorch modules (erf GELU, no int8)
 on either device.  ``--sampler maskgit`` (``--maskgit_steps`` forwards) and
-``--decode_order confidence`` run the fast modes; ``--inpaint_sequence`` is
-refused (ROADMAP queue 1, item 4).
+``--decode_order confidence`` run the fast modes.  ``--inpaint_sequence``
+fills each ``--inpaint_unknown`` character of a partial design, keeping its
+residues and length, for every prompt (``ProteoScribeEngine.inpaint_batch``:
+the confidence-order inpainter, or MaskGIT resuming from it); prompt i's
+replicas draw from the seed ``--seed`` + i.
 
   python -m biom3_tpu_torch.cli.run_e2e --device cuda \\
       --stage1_json ... --stage1_model ... \\
@@ -20,6 +23,8 @@ refused (ROADMAP queue 1, item 4).
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from biom3_tpu_torch.cli.dtype import add_dtype_argument, resolve_dtype
 from biom3_tpu_torch.config import load_json_config
@@ -50,18 +55,34 @@ def parse_arguments(argv=None):
                         "instead of L)")
     p.add_argument("--maskgit_steps", type=int, default=16)
     p.add_argument("--inpaint_sequence", type=str, default=None,
-                   help="partial design to fill (not ported yet)")
-    p.add_argument("--inpaint_unknown", type=str, default="?")
+                   help="partial design: fill each --inpaint_unknown character conditioned "
+                        "on the prompt, keeping the committed residues and the length "
+                        "(instead of free generation)")
+    p.add_argument("--inpaint_unknown", type=str, default="?",
+                   help="single character marking unknowns in --inpaint_sequence")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels in bf16) or cpu")
     add_dtype_argument(p)
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """The JAX CLI's paths that the port does not have yet, and where they wait."""
-    if args.inpaint_sequence is not None:
-        raise NotImplementedError("--inpaint_sequence is not ported yet (ROADMAP queue 1, item 4)")
+def inpaint(s3, z_c: np.ndarray, sequence: str, unknown: str, num_replicas: int | None,
+            seed: int) -> dict:
+    """One ``encode_partial`` row, repeated once a replica, filled for each
+    prompt's z_c with a generator seeded ``seed + i`` → replica → one
+    cleaned sequence a prompt."""
+    import torch
+
+    L = s3.config.max_seq_len
+    n_rep = num_replicas or s3.stage_config.int("num_replicas", 5)
+    masked = np.stack([s3.vocab.encode_partial(sequence, L, unknown)] * n_rep)
+    sequences = {f"replica_{k}": [] for k in range(n_rep)}
+    for i, z in enumerate(np.atleast_2d(z_c)):
+        generator = torch.Generator(device=s3.device).manual_seed(seed + i)
+        ids = s3.inpaint_batch(masked, np.tile(z[None, :], (n_rep, 1)), generator)
+        for k in range(n_rep):
+            sequences[f"replica_{k}"].append(s3.vocab.clean_sequence(s3.vocab.decode_ids(ids[k])))
+    return sequences
 
 
 def main(argv=None) -> None:
@@ -70,7 +91,6 @@ def main(argv=None) -> None:
     from biom3_tpu_torch.pipeline.stage3 import ProteoScribeEngine
 
     args = parse_arguments(argv)
-    _refuse_unported(args)
     dtype = resolve_dtype(args.dtype, args.device)
     with open(args.prompts) as f:
         prompts = [line.strip() for line in f if line.strip()]
@@ -93,7 +113,11 @@ def main(argv=None) -> None:
                             proj_quant=None if args.proj_quant == "auto" else args.proj_quant,
                             decode_order=args.decode_order, sampler_mode=args.sampler,
                             maskgit_steps=args.maskgit_steps)
-    sequences = s3.generate_sequences(z_c, num_replicas=args.num_replicas, seed=args.seed)
+    if args.inpaint_sequence is not None:
+        sequences = inpaint(s3, z_c, args.inpaint_sequence, args.inpaint_unknown,
+                            args.num_replicas, args.seed)
+    else:
+        sequences = s3.generate_sequences(z_c, num_replicas=args.num_replicas, seed=args.seed)
 
     result = {"prompts": prompts, "z_t": z_t, "z_c": z_c, "sequences": sequences}
     save_torch_file(result, args.output_path)

@@ -20,10 +20,15 @@ before the server binds its port, so no client waits on the build.
   curl -s localhost:8000/healthz
   curl -s -X POST localhost:8000/v1/generate \\
       -d '{"prompt": "membrane transport protein", "num_replicas": 3}'
+  curl -s -X POST localhost:8000/v1/inpaint \\
+      -d '{"prompt": "membrane transport protein", "sequence": "MK??LLV?A"}'
 
-Refused (``NotImplementedError``, with the ROADMAP item that ports them):
-``--continuous_inpaint`` (queue 1, item 4), ``--mesh_dp``/``--mesh_fsdp``
-above 1 (item 8).
+``/v1/inpaint`` runs the packed confidence-order inpainter, or, with
+``--continuous_inpaint``, rows on the continuous generate scheduler (exact
+mode only); under ``--preset throughput`` (MaskGIT) its rows share the
+generate dispatches.  Refused (``NotImplementedError``, with the ROADMAP
+item that ports them): ``--mesh_dp``/``--mesh_fsdp`` above 1 (queue 1,
+item 8).
 """
 
 from __future__ import annotations
@@ -104,7 +109,9 @@ def parse_arguments(argv=None):
                    help="chunk-boundary continuous batching for generate (auto: on for exact "
                         "path-order ARDM, off for the maskgit/confidence fast modes)")
     p.add_argument("--continuous_inpaint", action="store_true",
-                   help="route inpaint through the continuous scheduler (not ported)")
+                   help="route inpaint through the continuous scheduler (random-order "
+                        "resume, sharing dispatches with generate; default: the packed "
+                        "confidence-order inpainter)")
     p.add_argument("--packed_scheduler", choices=["trajectory", "micro"],
                    default="trajectory",
                    help="scheduler for non-continuous generate: the row-granular "
@@ -123,9 +130,6 @@ def parse_arguments(argv=None):
 
 def refuse_unported(args) -> None:
     """The JAX CLI's options that the port does not have yet, and where they wait."""
-    if args.continuous_inpaint:
-        raise NotImplementedError("--continuous_inpaint is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
     if args.mesh_dp * args.mesh_fsdp > 1:
         raise NotImplementedError("mesh serving (--mesh_dp/--mesh_fsdp > 1) is not ported yet "
                                   "(ROADMAP queue 1, item 8)")
@@ -165,6 +169,7 @@ def build_server(args):
     return BioM3Server(pipeline, host=args.host, port=args.port,
                        max_wait_s=args.max_wait_ms / 1000.0,
                        continuous=None if args.continuous == "auto" else args.continuous == "on",
+                       continuous_inpaint=args.continuous_inpaint,
                        packed_scheduler=args.packed_scheduler)
 
 

@@ -29,7 +29,8 @@ sampler's, not its bits.
 
 ``make_chunk_stepper`` (JAX ``:284-423``) is the device half of continuous
 batching: each row advances from its own step offset, so rows at different
-trajectory phases share one dispatch.  Its randomness must be per row — a
+trajectory phases share one dispatch, and an inpaint row enters with its
+partial sequence (``x_new``) as generate rows enter with zeros.  Its randomness must be per row — a
 row's tokens may depend only on its own key, whatever shares the dispatch,
 so that a seeded request reproduces in any batch mix.  The JAX stepper
 keeps one ``jax.random`` key per row.  One ``torch.Generator`` cannot do
@@ -394,15 +395,18 @@ def make_chunk_stepper(apply_fn: Callable, num_steps: int, *, chunk_steps: int,
 
     Returns ``chunk_fn(z_c (B, C), inv (B, L) int, x (B, L) int32, t0 (B,)
     int, key_data (B, 2) int64, key_data_new (B, 2) int64, fresh (B,) bool
-    = t0 == 0) → (x', key_data')``, advancing every row ``chunk_steps``
-    outer steps (× ``positions_per_step`` positions each) from its own
-    offset ``t0``; every argument is a tensor on the device, and nothing in
-    a chunk waits on the device.  Row semantics, as in JAX:
+    = t0 == 0, x_new (B, L) int32 = zeros) → (x', key_data')``, advancing
+    every row ``chunk_steps`` outer steps (× ``positions_per_step``
+    positions each) from its own offset ``t0``; every argument is a tensor
+    on the device, and nothing in a chunk waits on the device.  Row
+    semantics, as in JAX:
 
     * ``inv[b, t]`` is the position row ``b`` decodes at step ``t``;
-    * a ``fresh`` row is reset on the device — ``x`` to the absorbing state
-      0, its key to ``key_data_new`` — so the scheduler keeps both carries on
-      the device across chunks;
+    * a ``fresh`` row is reset on the device — ``x`` to ``x_new`` (the
+      absorbing state 0 to generate; a partial sequence for an inpaint row,
+      which starts at ``t0 = num_steps − n_masked`` with its masked
+      positions on the ``inv`` tail), its key to ``key_data_new`` — so the
+      scheduler keeps both carries on the device across chunks;
     * rows with ``t0 >= num_steps`` are inert: they compute but never
       write; with k > 1 a step straddling ``num_steps`` writes only its
       positions before it;
@@ -419,12 +423,12 @@ def make_chunk_stepper(apply_fn: Callable, num_steps: int, *, chunk_steps: int,
         raise ValueError(f"temperature must be >= 0, got {temperature}")
 
     @torch.no_grad()
-    def chunk_fn(z_c, inv, x, t0, key_data, key_data_new, fresh=None):
+    def chunk_fn(z_c, inv, x, t0, key_data, key_data_new, fresh=None, x_new=None):
         B, L = x.shape
         dev = x.device
         if fresh is None:
             fresh = t0 == 0
-        x = torch.where(fresh[:, None], torch.zeros_like(x), x)
+        x = torch.where(fresh[:, None], torch.zeros_like(x) if x_new is None else x_new, x)
         key_data = torch.where(fresh[:, None], key_data_new, key_data)
         t0 = t0.long()
         offs = torch.arange(k, device=dev)

@@ -1,9 +1,10 @@
 """Stage-3 inference engine: conditional sequence generation.
 
-Port of ``biom3_tpu/pipeline/stage3.py:31-431,609-654``: for each
+Port of ``biom3_tpu/pipeline/stage3.py:31-431,491-654``: for each
 conditioning vector z_c, generate
 ``num_replicas`` sequences, ``batch_size_sample`` at a time, decode with
-the 29-token table and strip the markers; and the serving schedulers'
+the 29-token table and strip the markers; fill the masked positions of
+partial sequences (``inpaint_batch``); and the serving schedulers'
 device halves (``make_continuous_stepper``, ``make_trajectory_row_fn``).
 
 ``dtype`` has the JAX engine's meaning (stage3.py:36,79-83,109-134):
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from biom3_tpu_torch.config import Config, ProteoScribeConfig
+from biom3_tpu_torch.diffusion.inpainting import make_inpainter
 from biom3_tpu_torch.diffusion.sampler import (
     make_chunk_stepper,
     make_maskgit_sampler,
@@ -139,6 +141,10 @@ class ProteoScribeEngine:
                                  positions_per_step=positions_per_step, top_k=top_k, top_p=top_p)
         self.decode_order, self.sampler_mode = decode_order, sampler_mode
         self.maskgit_steps, self.legacy_batch_update = maskgit_steps, legacy_batch_update
+        # the inpainter's chunk is the constructor's value in positions (JAX
+        # ``_chunk_steps_arg``), not the sampler's folded outer steps
+        self._chunk_steps_arg = chunk_steps
+        self._inpainter = None
         if sampler_mode == "maskgit":
             self.sampler = make_maskgit_sampler(
                 self._apply_fn, self.config.max_seq_len, steps=maskgit_steps,
@@ -180,25 +186,37 @@ class ProteoScribeEngine:
     def make_trajectory_row_fn(self):
         """Whole-trajectory dispatch for the row-granular packed scheduler
         (``serving/trajectory.TrajectoryBatcher``) → ``row_fn(z_c (B, C),
-        inv (B, L), key_data (B, 2)) → (B, L) ids``, numpy in and a device
-        tensor out, not fetched, so the scheduler overlaps its fetch with
-        the next dispatch.  Each row draws its noise from its own Philox
-        stream (``diffusion.sampler.row_gumbel``), so a seeded row
+        inv (B, L), key_data (B, 2), masked=None) → (B, L) ids``, numpy in
+        and a device tensor out, not fetched, so the scheduler overlaps its
+        fetch with the next dispatch.  Each row draws its noise from its own
+        Philox stream (``diffusion.sampler.row_gumbel``), so a seeded row
         reproduces in any batch.  Path order decodes each row in its own
         order ``inv`` (the chunk stepper run over the whole trajectory from
         fresh rows); MaskGIT and confidence order ignore ``inv``.  Legacy
         replay writes the union of a batch's positions, so a row depends on
-        its batch: it has no row function."""
+        its batch: it has no row function.
+
+        ``row_fn.accepts_masked`` (JAX's second return value) is True under
+        MaskGIT: inpaint rows (``masked`` (B, L), 0 at the positions to
+        fill) then share generate dispatches, resuming the sampler from
+        ``x0 = masked`` (zeros for a generate row).  The other modes refuse
+        ``masked``."""
         if self.legacy_batch_update:
             raise ValueError("legacy_batch_update couples the rows of a batch (union "
                              "writes): no per-row trajectory dispatch")
         cfg = self._sampler_cfg
         k = cfg["positions_per_step"]
         dev, L = self.device, self.config.max_seq_len
-        if self.sampler_mode == "maskgit" or self.decode_order == "confidence":
+        accepts_masked = self.sampler_mode == "maskgit"
+        if accepts_masked:
             sampler = self.sampler
 
-            def run(zc, inv, kd):
+            def run(zc, inv, kd, masked):
+                return sampler(zc, inv, key_data=kd, x0=masked)
+        elif self.decode_order == "confidence":
+            sampler = self.sampler
+
+            def run(zc, inv, kd, masked):
                 return sampler(zc, inv, key_data=kd)
         else:
             step = make_chunk_stepper(
@@ -207,20 +225,72 @@ class ProteoScribeEngine:
                 temperature=cfg["temperature"], top_k=cfg["top_k"], top_p=cfg["top_p"],
                 apply_takes_positions=True)
 
-            def run(zc, inv, kd):
+            def run(zc, inv, kd, masked):
                 B = zc.shape[0]
                 zero = torch.zeros(B, dtype=torch.int64, device=dev)
                 x, _ = step(zc, inv, torch.zeros((B, L), dtype=torch.int32, device=dev), zero,
                             kd, kd)
                 return x
 
-        def row_fn(z_c, inv, key_data):
+        def row_fn(z_c, inv, key_data, masked=None):
             from biom3_tpu_torch.serving.continuous import to_device
 
+            if masked is not None and not accepts_masked:
+                raise ValueError("ardm trajectory dispatches cannot carry inpaint rows "
+                                 "(separate executable)")
             return run(to_device(z_c, torch.float32, dev), to_device(inv, torch.int64, dev),
-                       to_device(key_data, torch.int64, dev))
+                       to_device(key_data, torch.int64, dev),
+                       None if masked is None else to_device(masked, torch.int32, dev))
 
+        row_fn.accepts_masked = accepts_masked
         return row_fn
+
+    def _get_inpainter(self):
+        """The confidence-order inpainter over the engine's serving forward,
+        built on first use (JAX ``_get_inpainter``): every forward sees the
+        full grid (the stack forward at k = L, or the module), with the
+        engine's temperature, top-k and top-p.  Its chunk is the
+        constructor's ``chunk_steps`` in positions, kept only where it
+        divides L, and then ``early_exit`` ends the run at the first chunk
+        boundary with no masked position left."""
+        if self._inpainter is None:
+            L = self.config.max_seq_len
+            chunk = self._chunk_steps_arg
+            if chunk and (chunk > L or L % chunk != 0):
+                chunk = None
+            cfg = self._sampler_cfg
+            self._inpainter = make_inpainter(
+                self._apply_fn, L, temperature=cfg["temperature"], apply_takes_positions=True,
+                chunk_steps=chunk, order="confidence", early_exit=chunk is not None,
+                top_k=cfg["top_k"], top_p=cfg["top_p"])
+        return self._inpainter
+
+    def inpaint_batch(self, masked_ids, z_c, generator: torch.Generator | None = None, *,
+                      key_data=None) -> np.ndarray:
+        """Fill the absorbing-state (0) positions of ``masked_ids`` (B, L)
+        conditioned on ``z_c`` (B, cond_dim); committed ids never change
+        (JAX ``inpaint_batch``; the reference's resume-from-corruption,
+        ``Stage3_source/sampling_analysis.py:21-61,96-147``).  Encode a
+        user's sequence with ``Stage3Vocab.encode_partial``.  Under MaskGIT
+        the engine's sampler resumes from ``x0 = masked``; otherwise the
+        confidence-order inpainter fills one position a forward.  The noise
+        comes from ``generator``, or from each row's Philox stream
+        (``key_data`` (B, 2)), so that a row's fills depend on its key
+        alone."""
+        masked = torch.as_tensor(np.asarray(masked_ids), dtype=torch.int32, device=self.device)
+        zc = torch.as_tensor(np.asarray(z_c, np.float32), device=self.device)
+        if key_data is not None:
+            key_data = torch.as_tensor(np.asarray(key_data).astype(np.int64), device=self.device)
+        if self.sampler_mode == "maskgit":
+            ids = self.sampler(zc, None, generator, x0=masked, key_data=key_data)
+        else:
+            # confidence order ignores path and t0: the order comes off the
+            # absorbing state
+            B, L = masked.shape
+            zeros = torch.zeros((B, L), dtype=torch.int32, device=self.device)
+            ids = self._get_inpainter()(masked, zc, zeros, zeros[:, 0], generator,
+                                        key_data=key_data)
+        return ids.cpu().numpy()
 
     def sample_batch(self, z_c: np.ndarray, generator: torch.Generator, *,
                      paths: np.ndarray | None = None) -> np.ndarray:

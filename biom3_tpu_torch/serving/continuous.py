@@ -25,8 +25,14 @@ this scheduler's thread (and ``warmup``) touches the device, under the
 pipeline's ``_device_lock``; it runs in ``torch.inference_mode``, which is
 thread-local, so it is set inside the thread.
 
-Not ported: continuous inpaint rows (a request carrying ``masked_ids``
-raises; ROADMAP queue 1, item 4) and the mesh's sharded dispatch.
+Inpaint rows (a request carrying ``masked_ids``): each row enters with its
+partial sequence as the stepper's ``x_new`` and starts at ``t0 = num_steps −
+n_masked``, its masked positions on the ``inv`` slots it will visit in its
+own random order (``_prepare_row``) — the reference's resume-from-corruption
+semantics as rows that share chunk dispatches with generate traffic.  A
+request with nothing to fill resolves at once without taking a slot.
+
+Not ported: the mesh's sharded dispatch.
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ def host_rng(seed: int) -> np.random.Generator:
     return np.random.default_rng([seed, 0xC017])
 
 
-_NUMPY = {torch.float32: np.float32, torch.int64: np.int64, torch.bool: np.bool_}
+_NUMPY = {torch.float32: np.float32, torch.int64: np.int64, torch.int32: np.int32,
+          torch.bool: np.bool_}
 
 
 def to_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -127,6 +134,7 @@ class ContinuousGenerateBatcher:
         # per-slot admission state, read by the stepper only where
         # ``fresh`` is set — the live x/key state is the device carry
         self._kd_new = np.zeros((R, KEY_WORDS), np.uint32)
+        self._xnew = np.zeros((R, L), np.int32)   # inpaint rows' partial sequences
         self._fresh = np.zeros((R,), bool)
         self._x_dev = None    # device-resident decoding state
         self._kd_dev = None   # device-resident per-row key words
@@ -146,13 +154,22 @@ class ContinuousGenerateBatcher:
     # -- client surface ------------------------------------------------
 
     def submit(self, request: dict) -> Future:
-        """Queue one request.  A request carrying ``masked_ids`` (continuous
-        inpaint) is refused: not ported (ROADMAP queue 1, item 4)."""
-        if request.get("masked_ids") is not None:
-            raise NotImplementedError("continuous inpaint rows are not ported yet "
-                                      "(ROADMAP queue 1, item 4)")
+        """Queue one request.  A request carrying ``masked_ids`` (decode-table
+        ids, 0 at the positions to fill: the HTTP inpaint payload) becomes
+        exact-mode inpaint rows (``_prepare_row``)."""
         n_rep = int(request.get("num_replicas") or self.pipeline.default_replicas)
         fut: Future = Future()
+        mids = request.get("masked_ids")
+        if mids is not None and not (np.asarray(mids) == 0).any():
+            # nothing to fill: resolve without taking a slot
+            with self._cv:
+                if self._closed or self._closing:
+                    raise RuntimeError("batcher is closed")
+                with self.stats._lock:
+                    self.stats.requests += 1
+            seq = self._vocab.clean_sequence(self._vocab.decode_ids(np.asarray(mids, np.int32)))
+            fut.set_result({"prompt": request["prompt"], "sequences": [seq] * n_rep})
+            return fut
         group = {"request": request, "future": fut, "n_rep": n_rep, "next_rep": 0,
                  "remaining": n_rep, "z_c": None, "sequences": {}}
         with self._cv:
@@ -256,16 +273,39 @@ class ContinuousGenerateBatcher:
                 if g["z_c"] is None:
                     break  # > R groups arrived at once; embed next round
                 rep = g["next_rep"]
-                inv, kd = self._row_streams(g["request"].get("seed"), rep)
+                inv, kd, t_start, x_new = self._prepare_row(g, rep)
                 self._slots[s] = (g, rep)
                 self._zc[s] = g["z_c"]
                 self._inv[s] = inv
                 self._kd_new[s] = kd
+                self._xnew[s] = x_new
                 self._fresh[s] = True
-                self._t0[s] = 0
+                self._t0[s] = t_start
                 g["next_rep"] += 1
                 if g["next_rep"] >= g["n_rep"]:
                     self._pending.popleft()
+
+    def _prepare_row(self, g: dict, rep: int):
+        """Row streams and, for an inpaint row, the ``inv`` layout and start
+        offset (JAX ``_prepare_row``): the masked positions take the slots
+        the row will visit, [t_start, t_start + m), in the row's own random
+        order; the committed positions fill the rest."""
+        inv, kd = self._row_streams(g["request"].get("seed"), rep)
+        mids = g["request"].get("masked_ids")
+        t_start, x_new = 0, 0
+        if mids is not None:
+            x_new = np.asarray(mids, np.int32)
+            masked_pos = np.flatnonzero(x_new == 0).astype(np.int32)
+            committed = np.flatnonzero(x_new != 0).astype(np.int32)
+            t_start = max(0, self._num_steps - len(masked_pos))
+            order = np.argsort(inv[masked_pos], kind="stable")
+            fill = np.concatenate([masked_pos[order], committed])
+            inv = np.empty_like(inv)
+            k = len(masked_pos)
+            inv[t_start:t_start + k] = fill[:k]
+            inv[:t_start] = fill[k:k + t_start]
+            inv[t_start + k:] = fill[k + t_start:]
+        return inv, kd, t_start, x_new
 
     def _wait_previous(self) -> None:
         ev, self._prev_event = self._prev_event, None
@@ -284,7 +324,8 @@ class ContinuousGenerateBatcher:
             kd_in = torch.zeros((self.R, KEY_WORDS), dtype=torch.int64, device=dev)
         args = (to_device(self._zc, torch.float32, dev), to_device(self._inv, torch.int64, dev),
                 x_in, to_device(self._t0, torch.int64, dev), kd_in,
-                to_device(self._kd_new, torch.int64, dev), to_device(self._fresh, torch.bool, dev))
+                to_device(self._kd_new, torch.int64, dev), to_device(self._fresh, torch.bool, dev),
+                to_device(self._xnew, torch.int32, dev))
         t_start = time.monotonic()
         with self.pipeline._device_lock:
             self._x_dev, self._kd_dev = self._chunk_fn(*args)

@@ -20,8 +20,10 @@ Endpoints (stdlib ``http.server``; JSON in/out):
   * ``POST /v1/profile`` ``{"seconds": float?, "log_dir": str?}`` →
     a ``torch.profiler`` window over the daemon's work, written as a
     Chrome trace;
-  * ``POST /v1/inpaint`` → HTTP 501: inpainting is not ported yet (ROADMAP
-    queue 1, item 4);
+  * ``POST /v1/inpaint`` ``{"prompt": str, "sequence": str,
+    "num_replicas": int?, "seed": int?, "unknown": str?}`` → the sequence
+    with every ``unknown`` character (default ``"?"``) filled, conditioned
+    on the prompt; the committed residues and the length are kept;
   * ``GET /healthz`` → liveness and the device platform (``gpu`` on the
     card);
   * ``GET /v1/metrics`` → scheduler counters (occupancy, latency, errors),
@@ -42,8 +44,6 @@ import torch
 
 from biom3_tpu_torch.serving.batcher import MicroBatcher
 from biom3_tpu_torch.serving.continuous import host_rng, row_streams
-
-INPAINT_REFUSAL = "inpainting is not ported yet (ROADMAP queue 1, item 4)"
 
 
 class ServingPipeline:
@@ -132,14 +132,14 @@ class ServingPipeline:
             return {"capacity": self._embed_cache_cap, "size": len(self._embed_cache),
                     "hits": self._cache_hits, "misses": self._cache_misses}
 
-    def _run_rows_packed(self, requests: list[dict], z_c: np.ndarray) -> list[dict]:
+    def _run_rows_packed(self, requests: list[dict], row_fn, *,
+                         record: bool = True) -> list[dict]:
         """Pack (request, replica) rows into fixed ``rows_per_dispatch``
-        dispatches of the engine's whole-trajectory row function; returns
-        one ``{"prompt", "sequences"}`` per request.  Each row carries its
-        own decode order and noise stream (``row_streams``), so a seeded
-        request reproduces in any batch."""
-        if self._row_fn is None:
-            self._row_fn = self.s3.make_trajectory_row_fn()
+        dispatches of ``row_fn(request indices, inv (R, L), key_data (R, 2))
+        → (R, L) ids``; returns one ``{"prompt", "sequences"}`` per request.
+        Each row carries its own decode order and noise stream
+        (``row_streams``), so a seeded request reproduces in any batch.
+        ``record=False`` (warmup) leaves the packing counters alone."""
         rows = [(i, k) for i, r in enumerate(requests)
                 for k in range(int(r.get("num_replicas") or self.default_replicas))]
         with self._rng_lock:
@@ -150,11 +150,12 @@ class ServingPipeline:
         for start in range(0, len(rows), R):
             chunk = list(range(start, min(start + R, len(rows))))
             pad = chunk + [chunk[-1]] * (R - len(chunk))
-            self._record_dispatch(len(chunk))
+            if record:
+                self._record_dispatch(len(chunk))
             with self._device_lock:
-                ids = self._row_fn(z_c[[rows[j][0] for j in pad]],
-                                   np.stack([streams[j][0] for j in pad]),
-                                   np.stack([streams[j][1] for j in pad])).cpu().numpy()
+                ids = row_fn([rows[j][0] for j in pad], np.stack([streams[j][0] for j in pad]),
+                             np.stack([streams[j][1] for j in pad]))
+            ids = ids.cpu().numpy() if isinstance(ids, torch.Tensor) else np.asarray(ids)
             for n, j in enumerate(chunk):
                 sequences[rows[j]] = self.s3.vocab.clean_sequence(
                     self.s3.vocab.decode_ids(ids[n]))
@@ -163,27 +164,63 @@ class ServingPipeline:
                                range(int(r.get("num_replicas") or self.default_replicas))]}
                 for i, r in enumerate(requests)]
 
+    def _generate_rows(self, z_c: np.ndarray):
+        """The packed generate path's row function over ``z_c`` rows."""
+        if self._row_fn is None:
+            self._row_fn = self.s3.make_trajectory_row_fn()
+        return lambda idx, inv, kd: self._row_fn(z_c[idx], inv, kd)
+
+    def _inpaint_rows(self, masked: np.ndarray, z_c: np.ndarray):
+        """The packed inpaint path's row function: the engine's inpainter
+        (``inpaint_batch``) on each row's own noise stream."""
+        return lambda idx, inv, kd: self.s3.inpaint_batch(masked[idx], z_c[idx], key_data=kd)
+
     def generate(self, requests: list[dict]) -> list[dict]:
         """Batch entry point: each request is ``{"prompt": str,
         "num_replicas": int, "seed": int?}``; returns one dict per request."""
         with torch.inference_mode():
             _, z_c = self.embed([r["prompt"] for r in requests])
-            return self._run_rows_packed(requests, z_c)
+            return self._run_rows_packed(requests, self._generate_rows(z_c))
 
-    def warmup(self, *, include_generate: bool = True) -> dict:
-        """One padded dummy dispatch per device path before traffic: the
-        first client then waits on no kernel build or load.  Returns
-        wall-clock seconds per path.  ``include_generate=False`` skips the
-        packed path (a server whose scheduler warms its own dispatch)."""
+    def inpaint(self, requests: list[dict]) -> list[dict]:
+        """Fill user-masked residues conditioned on the text prompt (JAX
+        ``ServingPipeline.inpaint``).  Each request is ``{"prompt": str,
+        "sequence": str, "num_replicas": int?, "seed": int?, "unknown":
+        str?}``: the sequence fixes the design's length and committed
+        residues, and every ``unknown`` character (default ``"?"``) is
+        generated; the HTTP handler passes the encoded row as
+        ``"masked_ids"``.  Rows pack as ``generate``'s do."""
+        L = self.s3.config.max_seq_len
+        with torch.inference_mode():
+            _, z_c = self.embed([r["prompt"] for r in requests])
+            masked = np.stack([
+                np.asarray(r["masked_ids"], np.int32) if r.get("masked_ids") is not None
+                else self.s3.vocab.encode_partial(r["sequence"], L, r.get("unknown") or "?")
+                for r in requests])
+            return self._run_rows_packed(requests, self._inpaint_rows(masked, z_c))
+
+    def warmup(self, *, include_inpaint: bool = True, include_generate: bool = True) -> dict:
+        """One padded dummy dispatch per device path before traffic (packing
+        counters untouched): the first client then waits on no kernel build
+        or load.  Returns wall-clock seconds per path.
+        ``include_generate=False`` / ``include_inpaint=False`` skip the
+        packed generate / inpaint path (a server whose scheduler warms its
+        own dispatch, or carries the inpaint rows)."""
         times = {}
+        warm = [{"prompt": "warmup prompt", "num_replicas": 1}]
         with torch.inference_mode():
             t0 = time.time()
             _, z_c = self.embed(["warmup prompt"])
             times["embed_s"] = round(time.time() - t0, 1)
             if include_generate:
                 t0 = time.time()
-                self._run_rows_packed([{"prompt": "warmup prompt", "num_replicas": 1}], z_c)
+                self._run_rows_packed(warm, self._generate_rows(z_c), record=False)
                 times["generate_s"] = round(time.time() - t0, 1)
+            if include_inpaint:
+                masked = self.s3.vocab.encode_partial("?", self.s3.config.max_seq_len)[None]
+                t0 = time.time()
+                self._run_rows_packed(warm, self._inpaint_rows(masked, z_c), record=False)
+                times["inpaint_s"] = round(time.time() - t0, 1)
         return times
 
     def device_stats(self) -> dict:
@@ -216,12 +253,19 @@ class BioM3Server:
     confidence order), which the engine's ``supports_continuous_stepping``
     refuses, on the packed scheduler; ``False`` takes ``packed_scheduler``: the row-granular
     ``TrajectoryBatcher`` (``"trajectory"``, default) or the
-    request-granular ``MicroBatcher`` (``"micro"``).  Inpainting is refused
-    (HTTP 501)."""
+    request-granular ``MicroBatcher`` (``"micro"``).
+
+    Inpainting (JAX ``BioM3Server``): by default a ``MicroBatcher`` over
+    ``pipeline.inpaint``, the packed confidence-order inpainter;
+    ``continuous_inpaint=True`` routes inpaint rows through the continuous
+    generate scheduler (path-order resume, sharing its chunk dispatches)
+    and raises without it; under MaskGIT the trajectory scheduler carries
+    them beside generate rows."""
 
     def __init__(self, pipeline: ServingPipeline, *, host: str = "127.0.0.1", port: int = 8000,
                  max_wait_s: float = 0.05, request_timeout_s: float = 600.0,
-                 continuous: bool | None = None, packed_scheduler: str = "trajectory"):
+                 continuous: bool | None = None, continuous_inpaint: bool = False,
+                 packed_scheduler: str = "trajectory"):
         if packed_scheduler not in ("trajectory", "micro"):
             raise ValueError(f"packed_scheduler must be 'trajectory' or 'micro', "
                              f"got {packed_scheduler!r}")
@@ -246,6 +290,20 @@ class BioM3Server:
         self._embed_batcher = MicroBatcher(self._run_embed_batch,
                                            max_batch=pipeline.rows_per_dispatch,
                                            max_wait_s=max_wait_s, name="embed-batcher")
+        if continuous_inpaint and not self.continuous:
+            self._close_batchers()
+            raise ValueError("continuous_inpaint requires the continuous generate scheduler "
+                             "(exact path-order ARDM engine + continuous not disabled); this "
+                             "engine/server combination would silently fall back to the "
+                             "packed inpainter")
+        self.continuous_inpaint = bool(continuous_inpaint)
+        if self.continuous_inpaint or getattr(self._gen_batcher, "accepts_masked", False):
+            # continuous rows, or MaskGIT trajectory rows resuming from x0
+            self._inpaint_batcher = self._gen_batcher
+        else:
+            self._inpaint_batcher = MicroBatcher(pipeline.inpaint,
+                                                 max_batch=pipeline.rows_per_dispatch,
+                                                 max_wait_s=max_wait_s, name="inpaint-batcher")
         # torch.profiler is process-global: one window at a time
         self._profile_lock = threading.Lock()
         self.httpd = ThreadingHTTPServer((host, port), self._make_handler())
@@ -256,6 +314,12 @@ class BioM3Server:
     def generate_mode(self) -> str:
         return "continuous" if self.continuous else self.packed_scheduler
 
+    @property
+    def inpaint_mode(self) -> str:
+        if self._inpaint_batcher is self._gen_batcher:
+            return self.generate_mode
+        return "packed"
+
     def _run_embed_batch(self, prompts: list[str]) -> list[dict]:
         with torch.inference_mode():
             z_t, z_c = self.pipeline.embed(prompts)
@@ -263,11 +327,14 @@ class BioM3Server:
 
     # -- lifecycle -----------------------------------------------------
 
-    def warmup(self) -> dict:
+    def warmup(self, *, include_inpaint: bool = True) -> dict:
         """One dummy dispatch of every device path this server will run (the
-        embed, then the scheduler's own dispatch where it has one)."""
+        embed, the scheduler's own dispatch where it has one, and the packed
+        inpainter unless inpaint rows ride the generate scheduler)."""
         own = hasattr(self._gen_batcher, "warmup")
-        times = self.pipeline.warmup(include_generate=not own)
+        merged = self._inpaint_batcher is self._gen_batcher
+        times = self.pipeline.warmup(include_inpaint=include_inpaint and not merged,
+                                     include_generate=not own)
         if own:
             times[f"generate_{self.generate_mode}_s"] = self._gen_batcher.warmup()
         return times
@@ -280,19 +347,29 @@ class BioM3Server:
     def serve_forever(self) -> None:
         self.httpd.serve_forever()
 
+    def _close_batchers(self) -> None:
+        self._gen_batcher.close()
+        self._embed_batcher.close()
+        inpaint = getattr(self, "_inpaint_batcher", None)
+        if inpaint is not None and inpaint is not self._gen_batcher:
+            inpaint.close()
+
     def close(self) -> None:
         self.httpd.shutdown()
         self.httpd.server_close()
-        self._gen_batcher.close()
-        self._embed_batcher.close()
+        self._close_batchers()
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=10)
 
     def metrics(self) -> dict:
+        merged = self._inpaint_batcher is self._gen_batcher
         return {
             "generate_mode": self.generate_mode,
-            "inpaint_mode": "not ported",
+            "inpaint_mode": self.inpaint_mode,
             "generate": self._gen_batcher.stats.as_dict(),
+            # a merged batcher's one stats object counts both endpoints
+            "inpaint": ({"merged_into_generate": True} if merged
+                        else self._inpaint_batcher.stats.as_dict()),
             "embed": self._embed_batcher.stats.as_dict(),
             "embed_cache": self.pipeline.embed_cache_stats(),
             "device": self.pipeline.device_stats(),
@@ -342,6 +419,7 @@ class BioM3Server:
                         "platform": "gpu" if server.pipeline.device.type == "cuda" else "cpu",
                         "rows_per_dispatch": server.pipeline.rows_per_dispatch,
                         "continuous": server.continuous,
+                        "continuous_inpaint": server.continuous_inpaint,
                     })
                 elif self.path == "/v1/metrics":
                     self._reply(200, server.metrics())
@@ -365,7 +443,7 @@ class BioM3Server:
                     if self.path == "/v1/generate":
                         self._generate(req)
                     elif self.path == "/v1/inpaint":
-                        self._reply(501, {"error": INPAINT_REFUSAL})
+                        self._inpaint(req)
                     elif self.path == "/v1/embed":
                         self._embed(req)
                     elif self.path == "/v1/profile":
@@ -387,25 +465,63 @@ class BioM3Server:
                     return None
                 return prompts
 
-            def _generate(self, req: dict) -> None:
-                prompts = self._prompts(req)
-                if prompts is None:
-                    return
+            def _rep_seed(self, req: dict):
+                """Validate num_replicas and seed → (ok, n_rep, seed); on
+                failure the 400 is sent."""
                 n_rep, cap = req.get("num_replicas"), server.pipeline.max_replicas
                 if n_rep is not None and (not isinstance(n_rep, int) or isinstance(n_rep, bool)
                                           or not 1 <= n_rep <= cap):
                     self._reply(400, {"error": f"num_replicas must be an int in [1, {cap}], "
                                                f"got {n_rep!r}"})
-                    return
+                    return False, None, None
                 seed = req.get("seed")
                 if seed is not None and (not isinstance(seed, int) or isinstance(seed, bool)
                                          or not 0 <= seed < 2**32):
                     self._reply(400, {"error": f"seed must be an int in [0, 2^32), got {seed!r}"})
+                    return False, None, None
+                return True, n_rep, seed
+
+            def _generate(self, req: dict) -> None:
+                prompts = self._prompts(req)
+                if prompts is None:
+                    return
+                ok, n_rep, seed = self._rep_seed(req)
+                if not ok:
                     return
                 futures = [server._gen_batcher.submit(
                     {"prompt": p, "num_replicas": n_rep, "seed": seed}) for p in prompts]
                 self._reply(200, {"results": [f.result(timeout=server.request_timeout_s)
                                               for f in futures]})
+
+            def _inpaint(self, req: dict) -> None:
+                prompt, sequence, unknown = req.get("prompt"), req.get("sequence"), req.get(
+                    "unknown")
+                if not isinstance(prompt, str) or not prompt.strip():
+                    self._reply(400, {"error": "prompt must be a non-empty string"})
+                    return
+                if not isinstance(sequence, str) or not sequence:
+                    self._reply(400, {"error": "sequence must be a non-empty string"})
+                    return
+                if unknown is not None and (not isinstance(unknown, str) or len(unknown) != 1):
+                    self._reply(400, {"error": "unknown must be a single character"})
+                    return
+                ok, n_rep, seed = self._rep_seed(req)
+                if not ok:
+                    return
+                # encode on the handler thread: a bad sequence answers 400 here
+                # and never reaches a co-batched dispatch; the encoded row
+                # rides the request
+                s3 = server.pipeline.s3
+                try:
+                    masked_ids = s3.vocab.encode_partial(sequence, s3.config.max_seq_len,
+                                                         unknown or "?")
+                except ValueError as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                fut = server._inpaint_batcher.submit({
+                    "prompt": prompt, "sequence": sequence, "num_replicas": n_rep,
+                    "seed": seed, "unknown": unknown or "?", "masked_ids": masked_ids})
+                self._reply(200, {"results": [fut.result(timeout=server.request_timeout_s)]})
 
             def _embed(self, req: dict) -> None:
                 prompts = self._prompts(req)

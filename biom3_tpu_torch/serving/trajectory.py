@@ -24,6 +24,11 @@ a seeded request reproduces bit for bit in any dispatch and needs no solo
 padded dispatch, which the JAX scheduler gives it (its RNG is per
 dispatch).
 
+Under MaskGIT the engine's row function takes inpaint rows
+(``accepts_masked``): a request carrying ``masked_ids`` becomes rows that
+resume the sampler from the partial sequence and share dispatches with
+generate rows (which resume from zeros).  The other modes refuse them.
+
 Two faults of the JAX scheduler are fixed here: the in-flight dispatch is
 swapped only under ``_cv``, and the rows of a dispatch being enqueued stay
 reachable (``_dispatching``) until they are in flight, so ``close()``'s
@@ -54,6 +59,7 @@ class TrajectoryBatcher:
                  name: str = "generate-trajectory"):
         self.pipeline = pipeline
         self._row_fn = pipeline.s3.make_trajectory_row_fn()
+        self.accepts_masked = self._row_fn.accepts_masked
         self._vocab = pipeline.s3.vocab
         self._device = pipeline.s3.device
         self.R = pipeline.rows_per_dispatch
@@ -81,11 +87,26 @@ class TrajectoryBatcher:
     # -- client surface ------------------------------------------------
 
     def submit(self, request: dict) -> Future:
-        if request.get("masked_ids") is not None:
-            raise ValueError("this engine's trajectory scheduler cannot carry inpaint rows "
-                             "(inpaint is not ported yet: ROADMAP queue 1, item 4)")
+        """Queue one request; one carrying ``masked_ids`` (decode-table ids,
+        0 at the positions to fill) becomes inpaint rows, under MaskGIT only."""
         fut: Future = Future()
         n_rep = int(request.get("num_replicas") or self.pipeline.default_replicas)
+        mids = request.get("masked_ids")
+        if mids is not None:
+            if not self.accepts_masked:
+                raise ValueError("this engine's trajectory scheduler cannot carry inpaint "
+                                 "rows (ardm fast modes use a separate inpaint executable)")
+            if not (np.asarray(mids) == 0).any():
+                # nothing to fill: resolve without taking a row
+                with self._cv:
+                    if self._closed or self._closing:
+                        raise RuntimeError("batcher is closed")
+                    with self.stats._lock:
+                        self.stats.requests += 1
+                seq = self._vocab.clean_sequence(self._vocab.decode_ids(
+                    np.asarray(mids, np.int32)))
+                fut.set_result({"prompt": request["prompt"], "sequences": [seq] * n_rep})
+                return fut
         group = {"request": request, "future": fut, "n_rep": n_rep, "next_rep": 0,
                  "remaining": n_rep, "z_c": None, "sequences": {}}
         with self._cv:
@@ -220,10 +241,16 @@ class TrajectoryBatcher:
         kd = np.empty((self.R, KEY_WORDS), np.uint32)
         streams = [row_streams(self._host_rng, g["request"].get("seed"), rep, self.L)
                    for g, rep in rows]
+        # inpaint rows' partial sequences; generate rows resume from zeros
+        inpaint = any(g["request"].get("masked_ids") is not None for g, _ in rows)
+        masked = np.zeros((self.R, self.L), np.int32) if inpaint else None
         for i in range(self.R):
             j = min(i, len(rows) - 1)
             zc[i] = rows[j][0]["z_c"]
             inv[i], kd[i] = streams[j]
+            mids = rows[j][0]["request"].get("masked_ids")
+            if mids is not None:
+                masked[i] = mids
         with self._cv:
             for g, rep in rows:
                 g["next_rep"] = max(g["next_rep"], rep + 1)
@@ -233,7 +260,7 @@ class TrajectoryBatcher:
         t0 = time.monotonic()
         try:
             with self.pipeline._device_lock:
-                ids_dev = self._row_fn(zc, inv, kd)
+                ids_dev = self._row_fn(zc, inv, kd, masked)
                 host, event = self._to_host(ids_dev)
         except Exception as exc:  # noqa: BLE001 — this dispatch's rows
             with self._cv:

@@ -89,10 +89,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    --proj-quant none`` (Stage 3 in bf16, the ``e2e_bf16`` path), then the
    fast modes at the default, ``--sampler maskgit --maskgit_steps 16`` and
    ``--decode_order confidence --positions_per_step 8`` (the stack forward
-   on the full grid: ``gather_head`` at k = L); checks the sequences, that
-   the replicas differ, and that ``stage3_attention_core`` ran depth times
-   and ``gather_head`` once a forward (1024, 16 and 128 forwards), and
-   prints each run's wall time;
+   on the full grid: ``gather_head`` at k = L), then ``--inpaint_sequence``
+   (a seeded 200-residue design with 40 '?': the confidence-order
+   inpainter on the full grid, 128 forwards — the engine's chunk of 128
+   positions, early exit after the first); checks the sequences (an
+   inpainted design keeps every committed residue in place and has no '?'
+   left), that the replicas differ, and that ``stage3_attention_core`` ran
+   depth times and ``gather_head`` once a forward (1024, 16, 128 and 128
+   forwards), and prints each run's wall time;
 6. the PenCL CLI (``biom3_tpu_torch.cli.run_pencl_inference``) at full
    width on seeded random weights in the published ``.bin`` layout (LM,
    contact and MLM heads and buffers included): the 5 demo pairs at its
@@ -104,18 +108,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
    is bf16 on cuda); the published configs must take the kernel paths
    (``use_stack``, ``use_fused_stack``), here and in the serving phase;
    serving, at full width on phase 5's files: an in-process ``BioM3Server``
-   (``rows_per_dispatch=4``, default flags: continuous, exact mode, int8)
+   (``rows_per_dispatch=4``, default flags: continuous, exact mode, int8,
+   with ``--continuous_inpaint``)
    answers 3 concurrent requests x 2 replicas (one prompt twice, one seeded
    request twice: identical sequences), then ``--preset latency`` and
    ``--preset throughput`` (MaskGIT, 16 steps) through the trajectory
    scheduler (``/healthz``: ``continuous: false``; all three the ``serve``
    path), then the ``run_server`` CLI as a subprocess: one request,
    SIGTERM, exit code 0; seqs/s, p50 request latency and row occupancy on
-   a line of their own; then the sample CLIs on phase 5's files:
+   a line of their own; after each server's timed window one /v1/inpaint
+   request (2 replicas, 40 unknowns; path ``serve_inpaint``) on its route —
+   continuous inpaint rows (64 forwards), the packed confidence inpainter
+   (chunk 16, early exit: 48), MaskGIT rows in generate dispatches (16) —
+   and a bad sequence that must answer 400, with its wall time and
+   ``inpaint_mode``; then the sample CLIs on phase 5's files:
    ``run_facilitator_sample`` (3 seeded z_t / z_p rows; no kernel, path
    ``facilitator_sample``) and ``run_proteoscribe_sample --sampler
    maskgit`` on its z_c (3 prompts x 2 replicas, path
-   ``proteoscribe_sample``);
+   ``proteoscribe_sample``); then Stage-2 training: ``run_train_stage2`` on
+   4096 seeded (z_t, z_p) pairs of width 512 (MMD, batch 64, 2 epochs,
+   ``--export_bin``; the validation loss must fall), the exported .bin
+   through ``run_facilitator_sample`` (path ``train_stage2``, no kernel),
+   and ms a step of the train step at B=64;
 7. Stage-3 training at full width on seeded weights: the loss and every
    parameter gradient of ``ProteoScribe(attn_impl="layer-block")``, then
    ``"block"``, in bf16 on the kernels against the plain f32 module (fixed
@@ -146,8 +160,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    routes) against the plain f32 layer, forward and backward, at phase
    8a's gates.
 
-Each path (phase 4's graph-path ProteoScribe, the four runs of phase 5,
-the three PenCL runs of phase 6, the serving runs, the sample CLIs, the two training CLI modes
+Each path (phase 4's graph-path ProteoScribe, the five runs of phase 5,
+the three PenCL runs of phase 6, the serving runs and their inpaint
+requests, the sample CLIs, Stage-2 training, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
 ``.bin`` in phase 8) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
@@ -254,12 +269,18 @@ PATH_KERNELS = {
     # the fast modes: the stack forward on the full grid
     "e2e_maskgit": E2E_INT8,
     "e2e_confidence": E2E_INT8,
+    # the confidence-order inpainter: the stack forward on the full grid
+    "e2e_inpaint": E2E_INT8,
     # the sample CLIs: the Facilitator has no kernel; Stage 3 alone
     "facilitator_sample": set(),
     "proteoscribe_sample": STAGE3_INT8,
     # Stage 3 in bf16; the text tower stays at its engine's int8 default
     "e2e_bf16": E2E_INT8 | {"gemm_bias_act"},
     "serve": E2E_INT8,
+    # one /v1/inpaint request on each route (a prompt not yet cached)
+    "serve_inpaint": E2E_INT8,
+    # the Facilitator's training: two F.linear products, no kernel
+    "train_stage2": set(),
     "stage3_graph": {"local_window_attention"},
     "pencl": INT8 | {"dense_attention", "layernorm", "esm2_embed", "esm2_attention"},
     "pencl_bf16": {"gemm_bias_act", "dense_attention", "layernorm", "esm2_embed",
@@ -1457,14 +1478,44 @@ def write_stage_files(root: pathlib.Path) -> dict:
             "steps": stage[3]["diffusion_steps"]}
 
 
+INPAINT_UNKNOWNS = 40   # '?' in the 200-residue partial design
+
+
+def partial_design(seed: int, n: int = 200) -> str:
+    """A seeded n-residue design with ``INPAINT_UNKNOWNS`` residues as '?'."""
+    rng = np.random.default_rng(seed)
+    seq = rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)
+    seq[rng.choice(n, INPAINT_UNKNOWNS, replace=False)] = "?"
+    return "".join(seq)
+
+
+def check_inpainted(template: str, seqs) -> int:
+    """Every committed residue of ``template`` in place and every '?'
+    replaced by a decode-table token (a marker token is stripped by the
+    decode, so a fill may be empty) → the number of fills that are
+    residues."""
+    fill = "([" + re.escape("".join(sorted(VALID))) + "]?)"
+    pattern = re.compile("^" + "".join(fill if c == "?" else re.escape(c) for c in template)
+                         + "$")
+    residues = 0
+    for s in seqs:
+        m = pattern.match(s)
+        if "?" in s or m is None:
+            raise AssertionError(f"inpainted design does not keep its template: {s[:80]!r}")
+        residues += sum(1 for g in m.groups() if g and g != "-")
+    return residues
+
+
 def phase_e2e(root: pathlib.Path, files: dict) -> dict:
     """``run_e2e`` at its default (Stage 3 and the text tower in int8), then
     with Stage 3 in bf16 (``--ff-quant none --proj-quant none``), then the
     fast modes at the default: MaskGIT in 16 steps and confidence order at
-    k = 8 (the stack forward on the full grid) → each path's launch counts.
-    Every run: 1 prompt x 2 replicas at temperature 1, distinct replicas,
-    ``stage3_attention_core`` depth times a forward and ``gather_head``
-    once a forward."""
+    k = 8 (the stack forward on the full grid), then ``--inpaint_sequence``
+    (a 200-residue design with 40 '?': the confidence-order inpainter at
+    the engine's chunk of 128 positions, early exit after the first chunk)
+    → each path's launch counts.  Every run: 1 prompt x 2 replicas at
+    temperature 1, distinct replicas, ``stage3_attention_core`` depth times
+    a forward and ``gather_head`` once a forward."""
     import torch
 
     from biom3_tpu_torch.cli import run_e2e
@@ -1477,7 +1528,10 @@ def phase_e2e(root: pathlib.Path, files: dict) -> dict:
             ("e2e_bf16", ["--ff-quant", "none", "--proj-quant", "none"], steps),
             ("e2e_maskgit", ["--sampler", "maskgit", "--maskgit_steps", "16"], 16),
             ("e2e_confidence", ["--decode_order", "confidence", "--positions_per_step", "8"],
-             steps // 8))
+             steps // 8),
+            # chunk_steps 128 (the engine's default, in positions) divides L:
+            # one chunk fills the 40 unknowns, the exit check ends the run
+            ("e2e_inpaint", ["--inpaint_sequence", partial_design(SEED)], 128))
     counts, walls = {}, {}
     for path, extra, forwards in runs:
         out = root / f"{path}.pt"
@@ -1499,6 +1553,10 @@ def phase_e2e(root: pathlib.Path, files: dict) -> dict:
         if len(seqs) != 2:
             raise AssertionError(f"expected 2 sequences, got {len(seqs)}")
         check_sequences(seqs)
+        note = ""
+        if path == "e2e_inpaint":
+            residues = check_inpainted(extra[1], seqs)
+            note = f" ({residues} of {2 * INPAINT_UNKNOWNS} fills are residues)"
         if seqs[0] == seqs[1]:
             raise AssertionError(f"{path}: the two replicas are identical")
         check_path(path, counts[path])
@@ -1509,8 +1567,9 @@ def phase_e2e(root: pathlib.Path, files: dict) -> dict:
             if counts[path][name] != want:
                 raise AssertionError(f"{path}: {name} launched {counts[path][name]} times, "
                                      f"expected {want} ({forwards} forwards)")
-        say("e2e", f"{path}: 1 prompt x 2 replicas, {forwards} forwards {' '.join(extra)}: "
-                   f"{walls[path]:.2f} s wall; lengths {[len(s) for s in seqs]}; "
+        flags = " ".join(extra) if path != "e2e_inpaint" else "--inpaint_sequence (200, 40 ?)"
+        say("e2e", f"{path}: 1 prompt x 2 replicas, {forwards} forwards {flags}: "
+                   f"{walls[path]:.2f} s wall; lengths {[len(s) for s in seqs]}{note}; "
                    f"launches {counts[path]}")
     say("e2e", "wall s, set-up included: " + " ".join(f"{p} {w:.2f}" for p, w in walls.items()))
     return counts
@@ -1571,6 +1630,102 @@ def phase_sample_clis(root: pathlib.Path, files: dict) -> dict:
     return counts
 
 
+STAGE2_PAIRS, STAGE2_B, STAGE2_EPOCHS = 4096, 64, 2
+
+
+def phase_train_stage2(root: pathlib.Path) -> dict:
+    """Stage-2 training on the card: ``run_train_stage2`` on 4096 seeded
+    synthetic (z_t, z_p) pairs of width 512 (z_p a fixed seeded map of
+    z_t, so that the loss can fall), the published Facilitator widths
+    (512 → 1024 → 512), MMD, batch 64, 2 epochs, ``--export_bin``, then
+    ``run_facilitator_sample`` on the exported .bin; the validation loss
+    must be finite and fall.  Then ms a step of the same train step
+    (``training/stage2_task``) at B=64 by CUDA events → the path's launch
+    counts (none: the Facilitator runs no kernel of the port's)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from biom3_tpu_torch.cli import run_facilitator_sample, run_train_stage2
+    from biom3_tpu_torch.config import Config, FacilitatorConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.facilitator import Facilitator
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.training.optim import make_optimizer
+    from biom3_tpu_torch.training.stage2_task import make_stage2_train_step
+    from biom3_tpu_torch.training.state import TrainState
+
+    rng = np.random.default_rng(SEED)
+    z_t = rng.standard_normal((STAGE2_PAIRS, 512)).astype(np.float32)
+    mix = (rng.standard_normal((512, 512)) / np.sqrt(512)).astype(np.float32)
+    torch.save({"text_embedding": torch.from_numpy(z_t),
+                "protein_embedding": torch.from_numpy(np.tanh(z_t @ mix))}, root / "pairs.pt")
+    cfg = {"emb_dim": 512, "hid_dim": 1024, "dropout": 0.0, "batch_size": STAGE2_B,
+           "valid_size": 0.2, "seed": SEED, "loss_type": "MMD"}
+    (root / "stage2_train.json").write_text(json.dumps(cfg))
+    buf = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_train_stage2.main(["--json_path", str(root / "stage2_train.json"),
+                               "--output_dir", str(root / "stage2_out"),
+                               "--swissprot_data_path", str(root / "pairs.pt"),
+                               "--epochs", str(STAGE2_EPOCHS), "--lr", "1e-3",
+                               "--export_bin", str(root / "facilitator.bin"),
+                               "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.save({"z_t": torch.from_numpy(z_t[:8]), "z_p": torch.from_numpy(np.tanh(
+            z_t[:8] @ mix))}, root / "stage2_in.pt")
+        run_facilitator_sample.main(["--input_data_path", str(root / "stage2_in.pt"),
+                                     "--output_data_path", str(root / "stage2_out.pt"),
+                                     "--model_path", str(root / "facilitator.bin"),
+                                     "--json_path", str(root / "stage2_train.json"),
+                                     "--device", "cuda"])
+    counts = K.launch_counts()
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check_path("train_stage2", counts)
+    val = [float(line.split("val_loss=")[1]) for line in out.splitlines()
+           if line.startswith("epoch ")]
+    steps = STAGE2_EPOCHS * (STAGE2_PAIRS - round(STAGE2_PAIRS * 0.2)) // STAGE2_B
+    if len(val) != STAGE2_EPOCHS or not np.isfinite(val).all() or not val[-1] < val[0]:
+        raise AssertionError(f"run_train_stage2: validation losses {val} (finite, falling)")
+    if f"saved final checkpoint at step {steps}" not in out:
+        raise AssertionError(f"run_train_stage2: expected {steps} steps")
+    z_c = np.asarray(torch.load(root / "stage2_out.pt", weights_only=False)["z_c"])
+    if z_c.shape != (8, 512) or not np.isfinite(z_c).all():
+        raise AssertionError(f"run_facilitator_sample on the trained .bin: z_c {z_c.shape}")
+
+    # ms a step of the same step function, at the CLI's batch
+    dev = torch.device("cuda")
+    model = seeded_init_(Facilitator(FacilitatorConfig.from_stage_config(Config(cfg))),
+                         SEED).to(dev)
+    step = make_stage2_train_step(TrainState(model, make_optimizer(
+        "AdamW", model.parameters(), 1e-3)), loss_type="MMD")
+    batch = {"z_t": torch.from_numpy(z_t[:STAGE2_B]).to(dev),
+             "z_p": torch.from_numpy(np.tanh(z_t[:STAGE2_B] @ mix)).to(dev)}
+    for _ in range(5):
+        step(batch)
+    n = 50
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        step(batch)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    say("train2", f"run_train_stage2: {STAGE2_PAIRS} pairs x 512, MMD, batch {STAGE2_B}, "
+                  f"{STAGE2_EPOCHS} epochs = {steps} steps: {wall:.2f} s wall (set-up "
+                  f"included); val_loss {val[0]:.6f} → {val[-1]:.6f}; the exported .bin "
+                  f"serves run_facilitator_sample; launches {counts}")
+    say("train2", f"Stage-2 train step at B={STAGE2_B} (512→1024→512, MMD, AdamW): "
+                  f"{ms:.4f} ms/step (CUDA events, {n} steps)")
+    return {"train_stage2": counts}
+
+
 def check_sequences(seqs) -> None:
     for s in seqs:
         if not 0 < len(s) <= 1024 or set(s) - VALID:
@@ -1626,11 +1781,55 @@ def serve_requests(base: str) -> dict:
     return {"seqs_per_s": 6 / wall, "p50_s": float(np.median(lat)), "wall_s": wall}
 
 
+INPAINT_PROMPT = "zinc finger domain protein that binds dna"
+
+
+def serve_inpaint(base: str, forwards: int, depth: int) -> dict:
+    """One /v1/inpaint request (2 replicas of a 200-residue design with 40
+    '?', a prompt not cached yet) and one bad request (a 'J' → 400), with
+    the launch counts set to 0 just before → wall s, launch counts."""
+    import urllib.error
+
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    template = partial_design(SEED + 1)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = http_json(f"{base}/v1/inpaint", {"prompt": INPAINT_PROMPT, "sequence": template,
+                                           "num_replicas": 2, "seed": 3})["results"][0]
+    wall = time.perf_counter() - t0
+    try:
+        http_json(f"{base}/v1/inpaint", {"prompt": INPAINT_PROMPT, "sequence": "MKJ??"})
+        raise AssertionError("/v1/inpaint took a sequence with 'J'")
+    except urllib.error.HTTPError as exc:
+        if exc.code != 400:
+            raise AssertionError(f"/v1/inpaint answered {exc.code} to a bad sequence") from exc
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_path("serve_inpaint", counts)
+    seqs = res["sequences"]
+    if len(seqs) != 2:
+        raise AssertionError(f"/v1/inpaint: {len(seqs)} sequences, expected 2")
+    residues = check_inpainted(template, seqs)
+    for name, want in (("stage3_attention_core", depth * forwards), ("gather_head", forwards)):
+        if counts[name] != want:
+            raise AssertionError(f"/v1/inpaint: {name} launched {counts[name]} times, "
+                                 f"expected {want} ({forwards} forwards)")
+    return {"wall_s": wall, "counts": counts, "residues": residues}
+
+
 def phase_serve(root: pathlib.Path, files: dict) -> dict:
     """The serving slice at full width on seeded weights → the ``serve``
     path's launch counts (the three in-process servers: continuous exact
-    mode, then ``--preset latency`` and ``--preset throughput`` on the
-    trajectory scheduler)."""
+    mode with ``--continuous_inpaint``, then ``--preset latency`` and
+    ``--preset throughput`` on the trajectory scheduler), and after each
+    server's timed window one /v1/inpaint request on its route (the
+    ``serve_inpaint`` path): continuous inpaint rows (one 64-step chunk
+    from t0 = 1024 − 40), the packed confidence inpainter (chunk 16, early
+    exit after 3 chunks) and MaskGIT rows in generate dispatches (16
+    forwards)."""
     import signal
 
     import torch
@@ -1639,10 +1838,13 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
     from biom3_tpu_torch.ops import kernels as K
 
     counts: dict = {}
+    inpaint_counts: dict = {}
     base_flags = [*files["flags"], "--device", "cuda", "--port", "0", "--rows_per_dispatch", "4"]
-    for label, extra in (("continuous, exact, int8", []),
-                         ("--preset latency", ["--preset", "latency"]),
-                         ("--preset throughput", ["--preset", "throughput"])):
+    # (label, flags, the inpaint route's Stage-3 forwards, its inpaint_mode)
+    for label, extra, forwards, mode in (
+            ("continuous, exact, int8", ["--continuous_inpaint"], 64, "continuous"),
+            ("--preset latency", ["--preset", "latency"], 48, "packed"),
+            ("--preset throughput", ["--preset", "throughput"], 16, "trajectory")):
         server = run_server.build_server(run_server.parse_arguments(base_flags + extra))
         # --dtype auto on cuda: the published configs take the kernel paths
         s1, s3 = server.pipeline.s1, server.pipeline.s3
@@ -1653,15 +1855,21 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
         base = f"http://{server.host}:{server.port}"
         try:
             health = http_json(f"{base}/healthz")
-            if health["platform"] != "gpu" or health["continuous"] != (not extra):
+            if health["platform"] != "gpu" or health["continuous"] != (mode == "continuous"):
                 raise AssertionError(f"healthz: {health}")
             K.reset_launches()
             res = serve_requests(base)
             torch.cuda.synchronize()
             run_counts = K.launch_counts()
             m = http_json(f"{base}/v1/metrics")
+            inp = serve_inpaint(base, forwards, files["depth"])
+            m_inp = http_json(f"{base}/v1/metrics")
         finally:
             server.close()
+        if m_inp["inpaint_mode"] != mode:
+            raise AssertionError(f"inpaint_mode {m_inp['inpaint_mode']!r}, expected {mode!r}")
+        for name, c in inp["counts"].items():
+            inpaint_counts[name] = inpaint_counts.get(name, 0) + c
         check_path("serve", run_counts)
         for name, c in run_counts.items():
             counts[name] = counts.get(name, 0) + c
@@ -1673,6 +1881,10 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
                      f"{m['device']}; device memory {m['memory'].get('device_mb')}")
         say("serve", f"{label}: seqs/s {res['seqs_per_s']:.4f} p50 request latency "
                      f"{res['p50_s']:.3f} s row occupancy {occ}")
+        say("serve", f"{label}: /v1/inpaint (inpaint_mode {m_inp['inpaint_mode']}, 2 replicas, "
+                     f"40 unknowns, {forwards} forwards, the prompt's embed included): "
+                     f"{inp['wall_s']:.3f} s wall; {inp['residues']} of 80 fills are residues; "
+                     f"bad sequence → 400")
 
     # the CLI as a subprocess: one request, SIGTERM, exit code 0
     t0 = time.perf_counter()
@@ -1700,7 +1912,7 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
         raise AssertionError(f"run_server exited {rc} on SIGTERM: {proc.stderr.read()[-3000:]}")
     say("serve", f"run_server CLI: up in {up:.2f} s, 1 request answered, SIGTERM → exit 0 "
                  f"({time.perf_counter() - t0:.2f} s in all)")
-    return {"serve": counts}
+    return {"serve": counts, "serve_inpaint": inpaint_counts}
 
 
 # --------------------------------------------------------------------------
@@ -2365,6 +2577,7 @@ def main() -> None:
         counts.update(phase_e2e(root / "e2e", files))
         counts.update(phase_serve(root / "e2e", files))
         counts.update(phase_sample_clis(root / "e2e", files))
+        counts.update(phase_train_stage2(root / "e2e"))
         counts.update(phase_pencl(root, stage1, pencl))
         del pencl
     phase_train_grads()

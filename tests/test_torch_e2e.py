@@ -153,10 +153,39 @@ def _e2e_args(*flag):
 @pytest.mark.parametrize("flag", [["--inpaint_sequence", "MK??"],
                                   ["--ff-quant", "int8", "--inpaint_sequence", "MK??"]])
 def test_run_e2e_refuses_unported_flags(flag):
+    """Nothing of the JAX CLI is left to refuse: the inpaint flags parse and
+    reach the inpaint path."""
     from biom3_tpu_torch.cli import run_e2e
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_e2e._refuse_unported(_e2e_args(*flag))
+    args = _e2e_args(*flag)
+    assert (args.inpaint_sequence, args.inpaint_unknown) == ("MK??", "?")
+    assert not hasattr(run_e2e, "_refuse_unported")
+
+
+def test_run_e2e_inpaint_sequence_equals_jax_cli(stage_files, tmp_path, monkeypatch):
+    """``run_e2e --device cpu --inpaint_sequence`` at temperature 0 (f32: the
+    Flax graph, the port's modules): the same filled designs as the JAX
+    CLI for both prompts and replicas, the committed residues kept."""
+    from biom3_tpu.cli import run_e2e as jax_cli
+    from biom3_tpu_torch.cli import run_e2e
+
+    root, _, flags = stage_files
+    (tmp_path / "prompts.txt").write_text("\n".join(PROMPTS) + "\n")
+    args = [*(a for kv in flags.items() for a in kv), "--prompts", str(tmp_path / "prompts.txt"),
+            "--temperature", "0", "--inpaint_sequence", "MK??ACDE??LL?", "--seed", "2"]
+    monkeypatch.setattr(sys, "argv", ["run_e2e", *args, "--output_path",
+                                      str(tmp_path / "jax.pt")])
+    jax_cli.main()
+    run_e2e.main([*args, "--output_path", str(tmp_path / "port.pt"), "--device", "cpu"])
+    want, got = (torch.load(tmp_path / f, weights_only=False)["sequences"]
+                 for f in ("jax.pt", "port.pt"))
+    assert got == want and set(got) == {"replica_0", "replica_1"}
+    for seqs in got.values():
+        assert len(seqs) == 2
+        for s in seqs:
+            assert "?" not in s and "<START>" not in s
+            it = iter(s)
+            assert all(c in it for c in "MKACDELL"), s
 
 
 @pytest.mark.parametrize("flag", [["--sampler", "maskgit", "--maskgit_steps", "4"],
@@ -187,5 +216,4 @@ def test_run_e2e_takes_the_int8_flags():
     from biom3_tpu_torch.cli import run_e2e
 
     args = _e2e_args("--ff-quant", "int8", "--proj-quant", "none")
-    run_e2e._refuse_unported(args)
     assert (args.ff_quant, args.proj_quant) == ("int8", "none")

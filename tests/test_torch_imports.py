@@ -77,6 +77,10 @@ SLICE_MODULES = [
     "biom3_tpu_torch.serving.trajectory",
     "biom3_tpu_torch.serving.server",
     "biom3_tpu_torch.cli.run_server",
+    "biom3_tpu_torch.diffusion.inpainting",
+    "biom3_tpu_torch.data.stage2_data",
+    "biom3_tpu_torch.training.stage2_task",
+    "biom3_tpu_torch.cli.run_train_stage2",
 ]
 
 

@@ -118,7 +118,7 @@ def test_http_server_end_to_end(stage_files, tmp_path):
     try:
         health = _get(f"{base}/healthz")
         assert health == {"status": "ok", "platform": "cpu", "rows_per_dispatch": 4,
-                          "continuous": True}
+                          "continuous": True, "continuous_inpaint": False}
         results = {}
 
         def client(name, payload):
@@ -139,9 +139,9 @@ def test_http_server_end_to_end(stage_files, tmp_path):
                    for s in r["sequences"])
         emb = _post(f"{base}/v1/embed", {"prompts": ["protein binding"]})["results"][0]
         assert len(emb["z_t"]) == 16 and len(emb["z_c"]) == 16
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _post(f"{base}/v1/inpaint", {"prompt": PROMPT, "sequence": "MK??"})
-        assert err.value.code == 501 and "ROADMAP" in json.loads(err.value.read())["error"]
+        inp = _post(f"{base}/v1/inpaint", {"prompt": PROMPT, "sequence": "MK??"})["results"]
+        assert len(inp) == 1 and len(inp[0]["sequences"]) == 2
+        assert all(_valid(s) and "?" not in s for s in inp[0]["sequences"])
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(f"{base}/v1/generate", {"prompts": "not a list"})
         assert err.value.code == 400
@@ -149,6 +149,8 @@ def test_http_server_end_to_end(stage_files, tmp_path):
         assert pathlib.Path(prof["trace"]).is_file()
         m = _get(f"{base}/v1/metrics")
         assert m["generate_mode"] == "continuous" and m["generate"]["requests"] == 4
+        assert m["inpaint_mode"] == "packed" and m["inpaint"]["requests"] == 1
+        assert m["inpaint"]["errors"] == 0
         assert m["generate"]["errors"] == 0 and m["embed"]["requests"] == 1
         assert m["device"]["rows_live"] > 0 and 0 < m["device"]["row_occupancy"] <= 1
         # PROMPT came twice in the first wave, so at least one hit
@@ -336,8 +338,8 @@ def test_trajectory_close_fails_rows_of_a_hung_dispatch(stage_files):
 def test_run_server_preset_sentinels():
     """A fault of the JAX CLI, fixed here: a flag given explicitly at its
     default value beats the preset;
-    continuous inpaint and mesh serving, which the port lacks, are refused,
-    and the throughput preset and confidence order pass."""
+    mesh serving, which the port lacks, is refused, and continuous inpaint,
+    the throughput preset and confidence order pass."""
     from biom3_tpu_torch.cli import run_server
 
     base = [f for n in (1, 2, 3) for f in (f"--stage{n}_json", "x", f"--stage{n}_model", "x")]
@@ -349,9 +351,12 @@ def test_run_server_preset_sentinels():
     args = run_server.parse_arguments(base)
     assert (args.temperature, args.rows_per_dispatch, args.continuous) == (1.0, 16, "auto")
     run_server.refuse_unported(args)
-    for extra in (["--continuous_inpaint"], ["--mesh_dp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for extra in (["--mesh_dp", "2"], ["--mesh_fsdp", "2", "--continuous_inpaint"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
             run_server.refuse_unported(run_server.parse_arguments(base + extra))
+    args = run_server.parse_arguments(base + ["--continuous_inpaint"])
+    run_server.refuse_unported(args)
+    assert args.continuous_inpaint
     for extra, want in ((["--preset", "throughput"], ("maskgit", 16, "off")),
                         (["--decode_order", "confidence"], ("ardm", 16, "auto"))):
         args = run_server.parse_arguments(base + extra)
@@ -417,8 +422,143 @@ def test_dispatch_error_fails_its_requests_and_is_counted(stage_files):
     t0 = time.monotonic()
     batcher.close(timeout=5, drain_s=1)
     assert time.monotonic() - t0 < 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousGenerateBatcher.submit(batcher, {"prompt": "x", "masked_ids": [0, 1]})
+    for mids in ([0, 1], [2, 1]):   # an inpaint row, and one with nothing to fill
+        with pytest.raises(RuntimeError, match="closed"):
+            batcher.submit({"prompt": "x", "masked_ids": mids})
+
+
+# --- inpainting ------------------------------------------------------------------
+
+def _is_subsequence(sub: str, seq: str) -> bool:
+    it = iter(seq)
+    return all(c in it for c in sub)
+
+
+@pytest.mark.parametrize("route", ["continuous", "packed", "maskgit"])
+def test_inpaint_routes_answer_and_keep_residues(stage_files, route):
+    """/v1/inpaint on its three routes — rows on the continuous scheduler
+    (``continuous_inpaint``), the packed confidence inpainter beside the
+    trajectory scheduler (k=8, early exit at chunk 16), MaskGIT rows merged
+    into generate dispatches — answers 200: every ``?`` filled, the committed
+    residues kept in order; /v1/metrics names the route and counts it."""
+    from biom3_tpu_torch.serving import BioM3Server
+
+    root, _, _ = stage_files
+    kw = {"continuous": dict(temperature=1.0),
+          "packed": dict(temperature=0.0, positions_per_step=8, chunk_steps=16),
+          "maskgit": dict(temperature=1.0, sampler_mode="maskgit", maskgit_steps=4)}[route]
+    server = BioM3Server(_port_pipeline(root, **kw), port=0, max_wait_s=0.02,
+                         continuous_inpaint=route == "continuous")
+    server.start()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        res = _post(f"{base}/v1/inpaint", {"prompt": PROMPT, "sequence": "MK??ACDE??",
+                                           "num_replicas": 2, "seed": 4})["results"][0]
+        full = _post(f"{base}/v1/inpaint", {"prompt": PROMPT, "sequence": "MKACDE"})
+        gen = _post(f"{base}/v1/generate", {"prompt": PROMPT, "num_replicas": 1})
+        m = _get(f"{base}/v1/metrics")
+        health = _get(f"{base}/healthz")
+    finally:
+        server.close()
+    assert res["prompt"] == PROMPT and len(res["sequences"]) == 2
+    for seq in res["sequences"]:
+        assert _valid(seq) and "?" not in seq and _is_subsequence("MKACDE", seq), seq
+    assert full["results"][0]["sequences"] == ["MKACDE", "MKACDE"]
+    assert len(gen["results"][0]["sequences"]) == 1
+    assert health["continuous_inpaint"] == (route == "continuous")
+    assert m["inpaint_mode"] == {"continuous": "continuous", "packed": "packed",
+                                 "maskgit": "trajectory"}[route]
+    if route == "packed":
+        assert m["inpaint"]["requests"] == 2 and m["inpaint"]["errors"] == 0
+        assert m["generate"]["requests"] == 1
+    else:
+        assert m["inpaint"] == {"merged_into_generate": True}
+        assert m["generate"]["requests"] == 3 and m["generate"]["errors"] == 0
+
+
+def test_inpaint_bad_requests_answer_400(stage_files):
+    """JAX ``tests/test_serving.py:293-300``: validated and encoded on the
+    handler thread, so a bad request answers 400 and never reaches a
+    dispatch."""
+    from biom3_tpu_torch.serving import BioM3Server
+
+    root, _, _ = stage_files
+    server = BioM3Server(_port_pipeline(root, temperature=0.0), port=0)
+    server.start()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        for payload in ({"sequence": "MK??"}, {"prompt": "x"}, {"prompt": "x", "sequence": ""},
+                        {"prompt": "x", "sequence": "MJ??"},
+                        {"prompt": "x", "sequence": "A" * 63},
+                        {"prompt": "x", "sequence": "M??", "unknown": "??"},
+                        {"prompt": "x", "sequence": "M??", "num_replicas": 0},
+                        {"prompt": "x", "sequence": "M??", "seed": -1}):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(f"{base}/v1/inpaint", payload)
+            assert err.value.code == 400, payload
+        m = _get(f"{base}/v1/metrics")
+    finally:
+        server.close()
+    assert m["inpaint"]["requests"] == 0 and m["device"]["dispatches"] == 0
+
+
+def test_seeded_inpaint_reproduces_and_warmup_reports_inpaint_s(stage_files):
+    """The packed inpainter at temperature 1: a seeded request's rows fill
+    the same alone and beside other traffic, and another seed fills
+    otherwise; ``warmup`` reports ``inpaint_s`` and leaves the packing
+    counters alone."""
+    root, _, _ = stage_files
+    pipeline = _port_pipeline(root, temperature=1.0, chunk_steps=16)
+    times = pipeline.warmup()
+    assert set(times) == {"embed_s", "generate_s", "inpaint_s"}
+    assert pipeline.device_stats()["dispatches"] == 0
+    req = {"prompt": PROMPT, "sequence": "MK??ACDE??", "seed": 11, "num_replicas": 2}
+    a = pipeline.inpaint([dict(req)])
+    b = pipeline.inpaint([{"prompt": "co-traffic", "sequence": "????"}, dict(req)])
+    assert a[0]["sequences"] == b[1]["sequences"]
+    c = pipeline.inpaint([dict(req, seed=12)])
+    assert c[0]["sequences"] != a[0]["sequences"]
+    assert all("?" not in s for r in a + b + c for s in r["sequences"])
+
+
+def test_continuous_inpaint_needs_the_continuous_scheduler(stage_files):
+    from biom3_tpu_torch.serving import BioM3Server
+
+    root, _, _ = stage_files
+    with pytest.raises(ValueError, match="continuous_inpaint requires the continuous"):
+        BioM3Server(_port_pipeline(root, temperature=0.0), port=0, continuous=False,
+                    continuous_inpaint=True)
+    server = BioM3Server(_port_pipeline(root, temperature=0.0), port=0,
+                         continuous_inpaint=True)
+    server.start()
+    try:
+        assert server._inpaint_batcher is server._gen_batcher
+        assert "inpaint_s" not in server.warmup()
+    finally:
+        server.close()
+
+
+def test_continuous_inpaint_temp0_matches_jax_scheduler(stage_files):
+    """A seeded inpaint request on both continuous schedulers at temperature
+    0: the same row layouts (``_prepare_row``) from the same numpy streams,
+    so the same sequences."""
+    from biom3_tpu.serving import ContinuousGenerateBatcher as JaxContinuous
+    from biom3_tpu.serving import ServingPipeline as JaxPipeline
+    from biom3_tpu_torch.serving import ContinuousGenerateBatcher
+
+    root, (j1, j2, j3), _ = stage_files
+    mids = j3.vocab.encode_partial("MK??ACDE??LL?", 64)
+    req = {"prompt": PROMPT, "num_replicas": 2, "seed": 5, "masked_ids": mids}
+    jax_batcher = JaxContinuous(JaxPipeline(j1, j2, j3, rows_per_dispatch=4,
+                                            default_replicas=2, seed=0))
+    port_batcher = ContinuousGenerateBatcher(_port_pipeline(root, temperature=0.0))
+    try:
+        want = jax_batcher.submit(dict(req)).result(timeout=300)["sequences"]
+        got = port_batcher.submit(dict(req)).result(timeout=120)["sequences"]
+    finally:
+        jax_batcher.close()
+        port_batcher.close()
+    assert got == want and all("?" not in s and _is_subsequence("MKACDELL", s) for s in got)
 
 
 # --- the CLI --------------------------------------------------------------------
