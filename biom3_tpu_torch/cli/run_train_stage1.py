@@ -35,6 +35,7 @@ from biom3_tpu_torch.io.state_dict import seeded_init_, to_tensors
 from biom3_tpu_torch.io.torch_io import load_torch_file, strip_prefix, unwrap_checkpoint
 from biom3_tpu_torch.models.esm2 import esm2_train_state_dict
 from biom3_tpu_torch.models.pencl import PenCL, published_state_dict
+from biom3_tpu_torch.training.optim import describe
 from biom3_tpu_torch.training.stage1_task import make_stage1_optimizer, make_stage1_train_step
 from biom3_tpu_torch.training.state import TrainState
 from biom3_tpu_torch.utils.logging import MetricLogger
@@ -59,9 +60,10 @@ def parse_arguments(argv=None):
                    help="override the config's batch_size (pairs per step)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("--optimizer", choices=["adamw", "adafactor"], default=None,
-                   help="override the config's optimizer (adafactor is not ported)")
+                   help="override the config's optimizer; adafactor keeps factored second "
+                        "moments and no first moment")
     p.add_argument("--moment_dtype", choices=["float32", "bfloat16"], default=None,
-                   help="AdamW moment dtype (bfloat16 is not ported)")
+                   help="adamw first-moment dtype; bfloat16 halves it")
     p.add_argument("--remat", action="store_true",
                    help="rematerialise each tower layer in the backward (xla mode only: "
                         "layer_block already saves only each layer's input)")
@@ -154,8 +156,9 @@ def main(argv=None) -> None:
         cfg.moment_dtype = args.moment_dtype
     try:
         tx = make_stage1_optimizer(cfg, model)
-    except NotImplementedError as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from e
+    print(f"optimizer: {describe(tx)}")
     state = TrainState(model, tx)
     step_fn = make_stage1_train_step(
         state, temperature=model_cfg.temperature, dataset_type=dataset_type,

@@ -378,24 +378,26 @@ __device__ __forceinline__ void linear_rows(uint8_t *smem, const bf16 *__restric
 // Grid (ceil(L / BQ) · local + ceil(L / lrows) · (H − local), B): in each
 // batch row first the band heads' blocks, 128 queries of one local head
 // each; then the linear heads' output rows, lrows rows (a multiple of BQ)
-// of one linear head a block (linear_rows).
+// of one linear head a block (linear_rows).  Block x stands for block x +
+// first of that grid: first = ceil(L / BQ) · local runs the linear heads'
+// blocks alone.
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 2)
 stage3_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
                           const bf16 *__restrict__ qkv, const float *__restrict__ ctx,
                           bf16 *__restrict__ out, int H, int L, int d, int local, int window,
-                          int lrows, float scale) {
+                          int lrows, int first, float scale) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t *smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const int qtiles = (L + BQ - 1) / BQ, b = blockIdx.y;
-  if ((int)blockIdx.x >= qtiles * local) {
-    const int j = blockIdx.x - qtiles * local, ltiles = (L + lrows - 1) / lrows;
+  const int qtiles = (L + BQ - 1) / BQ, b = blockIdx.y, bx = blockIdx.x + first;
+  if (bx >= qtiles * local) {
+    const int j = bx - qtiles * local, ltiles = (L + lrows - 1) / lrows;
     const int ng = H - local, head = local + j / ltiles, r0 = (j % ltiles) * lrows;
     linear_rows<DH>(smem, qkv, ctx + ((size_t)b * ng + head - local) * DH * DH, out, b, head, r0,
                     min(L, r0 + lrows), L, d);
     return;
   }
-  const int q0 = (blockIdx.x % qtiles) * BQ, head = blockIdx.x / qtiles;
+  const int q0 = (bx % qtiles) * BQ, head = bx / qtiles;
   uint8_t *sq = smem, *ring = smem + NWG * TILE_BYTES;
   uint64_t *full = reinterpret_cast<uint64_t *>(ring + STAGES * STAGE_BYTES);
   uint64_t *empty = full + STAGES, *qbar = empty + STAGES;
@@ -455,8 +457,10 @@ stage3_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
 
 template <int DH>
 int launch(const bf16 *qkv, bf16 *out, float *ws, int B, int L, int d, int heads, int local,
-           int window, int chunks, int per, int srows, int lrows, cudaStream_t stream) {
+           int window, int chunks, int per, int srows, int lrows, bool band,
+           cudaStream_t stream) {
   const int ng = heads - local;
+  if (!band && ng == 0) return static_cast<int>(cudaSuccess);
   if (ng > 0) {
     const int pairs = B * ng;
     if (chunks < 1 || per < 1 || (chunks - 1) * per >= L || (long long)chunks * per < L ||
@@ -488,13 +492,36 @@ int launch(const bf16 *qkv, bf16 *out, float *ws, int B, int L, int d, int heads
     sized = true;
   }
   const float *ctx = ng > 0 ? LinWs(ws, B * ng, L, DH).ctx : nullptr;
-  const dim3 grid((L + BQ - 1) / BQ * local + (ng > 0 ? (L + lrows - 1) / lrows * ng : 0), B);
+  const int band_blocks = (L + BQ - 1) / BQ * local;
+  const dim3 grid((band ? band_blocks : 0) + (ng > 0 ? (L + lrows - 1) / lrows * ng : 0), B);
   stage3_local_wgmma_kernel<DH><<<grid, THREADS, SMEM, stream>>>(
-      map, qkv, ctx, out, heads, L, d, local, window, lrows, 1.f / sqrtf((float)DH));
+      map, qkv, ctx, out, heads, L, d, local, window, lrows, band ? 0 : band_blocks,
+      1.f / sqrtf((float)DH));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+static int dispatch(const void *qkv, void *out, void *ws, int B, int L, int d, int heads,
+                    int local_heads, int window, int chunks, int per, int srows, int lrows,
+                    bool band, void *stream) {
+  const bf16 *q = static_cast<const bf16 *>(qkv);
+  bf16 *o = static_cast<bf16 *>(out);
+  float *w = static_cast<float *>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (heads < 1 || local_heads < 0 || local_heads > heads || d % heads ||
+      (local_heads > 0 && (window < 1 || L % window)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (d / heads) {
+    case 32:
+      return launch<32>(q, o, w, B, L, d, heads, local_heads, window, chunks, per, srows, lrows,
+                        band, s);
+    case 64:
+      return launch<64>(q, o, w, B, L, d, heads, local_heads, window, chunks, per, srows, lrows,
+                        band, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // qkv: (B, L, 3d) bf16 [q | k | v]; out: (B, L, d) bf16; both 16-byte
 // aligned.  Head dim d / heads 32 or 64; L % window == 0 when local > 0.
@@ -506,18 +533,17 @@ int launch(const bf16 *qkv, bf16 *out, float *ws, int B, int L, int d, int heads
 B3_EXPORT int b3_stage3_attention_core(const void *qkv, void *out, void *ws, int B, int L, int d,
                                        int heads, int local_heads, int window, int chunks,
                                        int per, int srows, int lrows, void *stream) {
-  const bf16 *q = static_cast<const bf16 *>(qkv);
-  bf16 *o = static_cast<bf16 *>(out);
-  float *w = static_cast<float *>(ws);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (heads < 1 || local_heads < 0 || local_heads > heads || d % heads ||
-      (local_heads > 0 && (window < 1 || L % window)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (d / heads) {
-    case 32:
-      return launch<32>(q, o, w, B, L, d, heads, local_heads, window, chunks, per, srows, lrows, s);
-    case 64:
-      return launch<64>(q, o, w, B, L, d, heads, local_heads, window, chunks, per, srows, lrows, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(qkv, out, ws, B, L, d, heads, local_heads, window, chunks, per, srows, lrows,
+                  true, stream);
+}
+
+// The linear heads alone (heads local_heads..heads-1), as above: the band
+// heads' columns of out are left as they are (stage3_attn_i8.cu writes
+// them).  Launches: 0 with local_heads == heads, else 3.
+B3_EXPORT int b3_stage3_attention_linear(const void *qkv, void *out, void *ws, int B, int L,
+                                         int d, int heads, int local_heads, int window,
+                                         int chunks, int per, int srows, int lrows,
+                                         void *stream) {
+  return dispatch(qkv, out, ws, B, L, d, heads, local_heads, window, chunks, per, srows, lrows,
+                  false, stream);
 }

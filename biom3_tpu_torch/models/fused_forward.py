@@ -31,9 +31,8 @@ from biom3_tpu_torch.models.proteoscribe import (
 )
 from biom3_tpu_torch.ops.kernels import HEAD_CLASSES
 from biom3_tpu_torch.ops.quant import quantize_weight_int8
-from biom3_tpu_torch.ops.stack import pack_stack_weights, stack_logits
+from biom3_tpu_torch.ops.stack import QUANT_MODES, pack_stack_weights, stack_logits
 
-QUANT_MODES = ("none", "int8")
 HEAD_DIMS = (32, 64)        # the attention kernels' head dims (ops/kernels.py)
 _LOGGED: set[str] = set()   # fallback reasons already logged in this process
 
@@ -90,13 +89,17 @@ def time_bias_table(model: ProteoScribe) -> torch.Tensor:
 
 @torch.no_grad()
 def make_stack_apply(model: ProteoScribe, *, dtype: torch.dtype = torch.bfloat16,
-                     gelu: str = "erf", ff_quant: str = "none", proj_quant: str = "none"):
+                     gelu: str = "erf", ff_quant: str = "none", proj_quant: str = "none",
+                     attn_quant: str = "none"):
     """Pack ``model`` for ``ops.stack.stack_logits``; returns
     ``apply(x (B, L) int, t (B,) int, z_c (B, cond_dim) | None, pos (B, k)
     int) → (B, k, C) f32``, k from 1 to L: confidence order and MaskGIT
     pass every position, ``pos`` (B, L), and get the full logit grid (the
     engine's ``gather_k``).  The module stays the owner of the condition
-    MLP, which runs per call in f32."""
+    MLP, which runs per call in f32.  ``attn_quant="int8"`` runs the
+    band-local heads' products in int8 (``ops.stack.stack_logits``, which
+    checks the mode at each call, as the TPU kernel does); no engine selects
+    it, as in the JAX package."""
     cfg = model.config
     if cfg.n_blocks != 1:
         raise ValueError(f"the stack forward serves one block, got n_blocks={cfg.n_blocks}")
@@ -150,6 +153,6 @@ def make_stack_apply(model: ProteoScribe, *, dtype: torch.dtype = torch.bfloat16
             bias = bias + yb.reshape(z_c.shape[0], d, depth).transpose(1, 2)
         return stack_logits(x.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
                             bias.to(dtype), w, local_heads=cfg.local_heads, heads=cfg.heads,
-                            window=cfg.local_window, gelu=gelu)
+                            window=cfg.local_window, gelu=gelu, attn_quant=attn_quant)
 
     return apply

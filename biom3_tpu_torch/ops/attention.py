@@ -5,7 +5,7 @@ keys at -1e9, probabilities rounded to v's dtype before the value product.
 ``impl="plain"`` is the JAX package's ``impl="xla"``; ``impl="kernel"`` is
 its ``impl="pallas:…"``, the ``flash_attention`` kernel (on a CPU tensor
 its wrapper runs the same plain math).  ``impl="ring"`` is not ported
-(ROADMAP queue 1, item 12).
+(ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations

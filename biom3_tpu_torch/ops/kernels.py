@@ -25,6 +25,7 @@ from biom3_tpu_torch.ops import _build
 from biom3_tpu_torch.ops import local_attention as _local
 from biom3_tpu_torch.ops.linear_attention import linear_attention
 from biom3_tpu_torch.ops.local_attention import _band_mask, _look_around
+from biom3_tpu_torch.ops.quant import _div as _quant_div
 from biom3_tpu_torch.ops.quant import quant_rows as _quant_rows_f32
 from biom3_tpu_torch.ops.rotary import apply_rotary
 
@@ -265,15 +266,8 @@ def stage3_attention_core(qkv: torch.Tensor, *, heads: int, local_heads: int,
                           window: int) -> torch.Tensor:
     """(B, L, 3d) fused [q | k | v] → (B, L, d) head outputs, local heads
     first: band-local heads (±1 window, joint softmax) then linear heads."""
-    _check("qkv", qkv, dtypes=_compute_dtypes(qkv), ndim=3, vectors=True)
-    B, L, d3 = qkv.shape
-    if d3 % 3 or (d3 // 3) % heads:
-        raise ValueError(f"qkv last dim {d3} is not 3·d with d divisible by heads={heads}")
-    d = d3 // 3
-    if not 0 <= local_heads <= heads:
-        raise ValueError(f"local_heads {local_heads} outside [0, {heads}]")
-    if local_heads and L % window:
-        raise ValueError(f"L={L} not divisible by window={window}")
+    d = _check_stage3_qkv(qkv, heads, local_heads, window)
+    B, L, _ = qkv.shape
     if not qkv.is_cuda:
         return stage3_attention_core_plain(qkv, heads=heads, local_heads=local_heads,
                                            window=window)
@@ -283,6 +277,30 @@ def stage3_attention_core(qkv: torch.Tensor, *, heads: int, local_heads: int,
         raise ValueError(f"stage3_attention_core kernel needs head dim 32 or 64 and a "
                          f"window that tiles by {tile}; got Dh={dh} window={window}")
     out = torch.empty((B, L, d), dtype=qkv.dtype, device=qkv.device)
+    _launch_stage3("b3_stage3_attention_core", qkv, out, heads, local_heads, window)
+    stage3_attention_core.launches += 1
+    return out
+
+
+def _check_stage3_qkv(qkv: torch.Tensor, heads: int, local_heads: int, window: int) -> int:
+    """The checks of the Stage-3 attention cores → d."""
+    _check("qkv", qkv, dtypes=_compute_dtypes(qkv), ndim=3, vectors=True)
+    B, L, d3 = qkv.shape
+    if d3 % 3 or (d3 // 3) % heads:
+        raise ValueError(f"qkv last dim {d3} is not 3·d with d divisible by heads={heads}")
+    if not 0 <= local_heads <= heads:
+        raise ValueError(f"local_heads {local_heads} outside [0, {heads}]")
+    if local_heads and L % window:
+        raise ValueError(f"L={L} not divisible by window={window}")
+    return d3 // 3
+
+
+def _launch_stage3(entry: str, qkv, out, heads: int, local_heads: int, window: int) -> None:
+    """``csrc/stage3_attn.cu``'s launches: ``b3_stage3_attention_core``
+    (every head) or ``b3_stage3_attention_linear`` (the linear heads)."""
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
     pairs = B * (heads - local_heads)
     chunks, per, srows, lrows = stage3_linear_plan(L, pairs, _sm_count(qkv.device.index))
     # f32 scratch as csrc/stage3_attn.cu's LinWs reads it: per pair the
@@ -290,10 +308,8 @@ def stage3_attention_core(qkv: torch.Tensor, *, heads: int, local_heads: int,
     # more than one chunk the chunks' parts of ctx
     floats = pairs * (-(-L // LIN_MIN_ROWS) * 2 * dh + dh * dh + (chunks > 1) * chunks * dh * dh)
     ws = torch.empty(floats, dtype=torch.float32, device=qkv.device) if pairs else None
-    _build.launch("b3_stage3_attention_core", _ptr(qkv), _ptr(out), _ptr(ws), B, L, d, heads,
-                  local_heads, window, chunks, per, srows, lrows, _stream(qkv))
-    stage3_attention_core.launches += 1
-    return out
+    _build.launch(entry, _ptr(qkv), _ptr(out), _ptr(ws), B, L, d, heads, local_heads, window,
+                  chunks, per, srows, lrows, _stream(qkv))
 
 
 LIN_MIN_ROWS = 64    # stage3_attention_core: least sequence rows a linear-heads chunk
@@ -337,6 +353,93 @@ def stage3_attention_core_plain(qkv, *, heads, local_heads, window):
         outs.append(linear_attention(q[:, local_heads:], k[:, local_heads:],
                                      v[:, local_heads:]))
     return torch.cat(outs, dim=1).transpose(1, 2).reshape(B, L, d)
+
+
+# --------------------------------------------------------------------------
+# stage3_attention_core_i8  (csrc/stage3_attn_i8.cu + stage3_attn.cu's linear heads)
+# --------------------------------------------------------------------------
+
+def stage3_attention_core_i8(qkv: torch.Tensor, *, heads: int, local_heads: int, window: int,
+                             codes: bool = False):
+    """``stage3_attention_core`` with the band-local heads' QKᵀ and PV in
+    int8 (``fused_stack_logits(attn_quant="int8")``, stack_kernel_tpu.py:
+    112-180); the linear heads as there, in the compute dtype.  q and k are
+    quantized per (head, token) over Dh, v per (head, channel) over L, p
+    per (head, query) after the f32 softmax.  ``codes=True`` also returns
+    ``(q8, sq, k8, sk, v8, sv)``: q8, k8 (B, local, L, Dh) int8, sq, sk (B,
+    local, L) f32, v8 (B, local, Dh, L) int8 and sv (B, local, Dh) f32."""
+    d = _check_stage3_qkv(qkv, heads, local_heads, window)
+    B, L, _ = qkv.shape
+    if not qkv.is_cuda:
+        return stage3_attention_core_i8_plain(qkv, heads=heads, local_heads=local_heads,
+                                              window=window, codes=codes)
+    dh = d // heads
+    if dh not in (32, 64) or (local_heads and window % 4):
+        raise ValueError(f"stage3_attention_core_i8 kernel needs head dim 32 or 64 and a window "
+                         f"that is a multiple of 4; got Dh={dh} window={window}")
+    dev, nl = qkv.device, local_heads
+    out = torch.empty((B, L, d), dtype=qkv.dtype, device=dev)
+    q8, k8 = (torch.empty((B, nl, L, dh), dtype=torch.int8, device=dev) for _ in range(2))
+    sq, sk = (torch.empty((B, nl, L), dtype=torch.float32, device=dev) for _ in range(2))
+    v8 = torch.empty((B, nl, dh, L), dtype=torch.int8, device=dev)
+    sv = torch.empty((B, nl, dh), dtype=torch.float32, device=dev)
+    if nl:
+        _build.launch("b3_stage3_attention_i8", _ptr(qkv), _ptr(out), _ptr(q8), _ptr(sq),
+                      _ptr(k8), _ptr(sk), _ptr(v8), _ptr(sv), B, L, d, heads, nl, window,
+                      _stream(qkv))
+    if heads > nl:
+        _launch_stage3("b3_stage3_attention_linear", qkv, out, heads, nl, window)
+    stage3_attention_core_i8.launches += 1
+    return (out, (q8, sq, k8, sk, v8, sv)) if codes else out
+
+
+def _i8_codes(x: torch.Tensor, dim: int):
+    """Symmetric int8 over ``dim`` (stack_kernel_tpu.py:129-134): amax =
+    max(max|x|, 1e-6), codes rint(x · (127 / amax)) clipped to ±127, scale
+    amax · (1/127) → (codes, scale without ``dim``)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim, keepdim=True).clamp(min=1e-6)
+    q = torch.round(xf * _quant_div(127.0, amax)).clamp(-127.0, 127.0).to(torch.int8)
+    return q, (amax * (1.0 / 127.0)).squeeze(dim)
+
+
+def stage3_attention_core_i8_plain(qkv, *, heads, local_heads, window, codes=False):
+    """The TPU kernel's int8 band product on (B, L, 3d) rows: each window's
+    queries against the keys of windows w-1..w+1 that exist (the edge
+    windows' 2W), here as a masked 3W band.  The sums of code products are
+    exact, as the kernel's int32 ones: QKᵀ as f32 matrix products (Dh·127²
+    < 2^24), PV, up to 3W·127², as f64 ones, rounded to f32 as the kernel
+    converts its int32 sums."""
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh, nl = d // heads, local_heads
+    q, k, v = (t.reshape(B, L, heads, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
+    outs = []
+    q8, sq = _i8_codes(q[:, :nl], -1)
+    k8, sk = _i8_codes(k[:, :nl], -1)
+    v8, sv = _i8_codes(v[:, :nl].transpose(-1, -2), -1)          # (B, nl, Dh, L) over L
+    if nl:
+        nw, W = L // window, window
+        qw = q8.float().reshape(B, nl, nw, W, dh)
+        kw = _look_around(k8.float().reshape(B, nl, nw, W, dh))   # (B, nl, nw, 3W, Dh)
+        skw = _look_around(sk.reshape(B, nl, nw, W, 1))[..., 0]  # (B, nl, nw, 3W)
+        dots = qw @ kw.transpose(-1, -2)                          # int32 sums, exact
+        dots = dots * sq.reshape(B, nl, nw, W, 1) * skw[..., None, :]
+        dots = (dots * dh ** -0.5).masked_fill(_band_mask(nw, W, qkv.device)[:, None, :],
+                                               float("-inf"))
+        e = torch.exp(dots - dots.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+        pamax = p.amax(-1, keepdim=True).clamp(min=1e-6)
+        pq = torch.round(p * _quant_div(127.0, pamax))            # 0..127
+        vw = _look_around(v8.float().transpose(-1, -2).reshape(B, nl, nw, W, dh))
+        acc = (pq.double() @ vw.double()).float()                # int32 sums, exact
+        o = acc * sv[:, :, None, None, :] * (pamax * (1.0 / 127.0))
+        outs.append(o.reshape(B, nl, L, dh).to(qkv.dtype))
+    if heads > nl:
+        outs.append(linear_attention(q[:, nl:], k[:, nl:], v[:, nl:]))
+    out = torch.cat(outs, dim=1).transpose(1, 2).reshape(B, L, d)
+    return (out, (q8.contiguous(), sq.contiguous(), k8.contiguous(), sk.contiguous(),
+                  v8.contiguous(), sv.contiguous())) if codes else out
 
 
 # --------------------------------------------------------------------------
@@ -1112,7 +1215,8 @@ def local_window_attention_plain(q, k, v, *, window):
     return out.reshape(*lead, L, D).to(v.dtype)
 
 
-KERNELS = (gemm_bias_act, stage3_attention_core, dense_attention, bias_layernorm,
+KERNELS = (gemm_bias_act, stage3_attention_core, stage3_attention_core_i8, dense_attention,
+           bias_layernorm,
            layernorm, embed_tokens, gather_head, esm2_embed, esm2_attention, flash_attention,
            gemm_dx, gemm_dw, layernorm_bwd, col_sum, stage3_attention_bwd, esm2_attention_bwd,
            gemm_i8, quant_rows, local_window_attention)

@@ -14,8 +14,13 @@ one (``pos`` (B, L): the full grid) — with the residual in bf16
 between layers and in f32 inside a layer, the TPU kernel's rounding points
 (stack_kernel_tpu.py:540-560).
 
-The TPU kernel's int8 options (``ff_quant``/``proj_quant``) are the
-weights' type here: int8 w1/w2 (FF) or wq/wk/wv/wo (projections), each
+The TPU kernel's ``attn_quant="int8"`` (stack_kernel_tpu.py:112-180, the
+band-local heads' QKᵀ and PV in int8) selects
+``stage3_attention_core_i8`` for each layer's attention.  The TPU kernel
+takes it only on its resident ``stream="dl"`` layout (:842-847), a rule of
+the TPU's layouts; here it works on the (L, d) rows of every call.  Its
+int8 options ``ff_quant``/``proj_quant`` are the weights' type here: int8
+w1/w2 (FF) or wq/wk/wv/wo (projections), each
 (depth, d_out, d_in) — ``gemm_i8``'s layout — with its (depth, d_out) f32
 scales ``s1, s2`` or ``sq, sk, sv, so`` from ``ops/quant.py``.
 """
@@ -50,10 +55,18 @@ def _layer(t, l):
     return None if t is None else t[l]
 
 
+QUANT_MODES = ("none", "int8")   # ff_quant, proj_quant and attn_quant
+
+
 def stack_logits(ids: torch.Tensor, pos: torch.Tensor, bias: torch.Tensor, w: dict, *,
-                 local_heads: int, heads: int, window: int, gelu: str) -> torch.Tensor:
+                 local_heads: int, heads: int, window: int, gelu: str,
+                 attn_quant: str = "none") -> torch.Tensor:
     """ids (B, L) int32, pos (B, k) int32, bias (B, depth, d) in the weights'
-    dtype, ``w`` from ``pack_stack_weights`` → (B, k, C) f32."""
+    dtype, ``w`` from ``pack_stack_weights`` → (B, k, C) f32.
+    ``attn_quant="int8"``: the band-local heads' QKᵀ and PV in int8
+    (``ops.kernels.stage3_attention_core_i8``)."""
+    if attn_quant not in QUANT_MODES:
+        raise ValueError(f"attn_quant must be 'none' or 'int8', got {attn_quant!r}")
     cdtype = w["tok"].dtype
     depth = w["wqkv"].shape[0]
     if bias.dim() != 3 or bias.shape[1] != depth:
@@ -64,7 +77,7 @@ def stack_logits(ids: torch.Tensor, pos: torch.Tensor, bias: torch.Tensor, w: di
         x1 = attn_half(h, bias_l[l], w["ln1_scale"][l], w["ln1_bias"][l], w["wqkv"][l],
                        w["wo"][l], w["bo"][l], local_heads=local_heads, heads=heads,
                        window=window, out_dtype=torch.float32, sqkv=_layer(w["sqkv"], l),
-                       so=_layer(w["so"], l))
+                       so=_layer(w["so"], l), attn_quant=attn_quant)
         h = ff_half(x1, w["ln2_scale"][l], w["ln2_bias"][l], w["w1"][l], w["b1"][l],
                     w["w2"][l], w["b2"][l], gelu=gelu, cdtype=cdtype, out_dtype=cdtype,
                     s1=_layer(w["s1"], l), s2=_layer(w["s2"], l))
@@ -76,10 +89,10 @@ def fused_stack_logits(ids, pos, bias, tok_table, pos_emb, ln1_scale, ln1_bias, 
                        wo, bo, ln2_scale, ln2_bias, w1, b1, w2, b2, fn_scale, fn_bias,
                        head_w, head_b, s1=None, s2=None, sq=None, sk=None, sv=None, so=None,
                        *, local_heads: int, heads: int, window: int = 128,
-                       gelu: str = "erf") -> torch.Tensor:
+                       gelu: str = "erf", attn_quant: str = "none") -> torch.Tensor:
     """Full serving forward → (B, k, C) f32 logits at the decode positions."""
     w = pack_stack_weights(tok_table, pos_emb, ln1_scale, ln1_bias, wq, wk, wv, wo, bo,
                            ln2_scale, ln2_bias, w1, b1, w2, b2, fn_scale, fn_bias, head_w,
                            head_b, s1, s2, sq, sk, sv, so)
     return stack_logits(ids, pos, bias, w, local_heads=local_heads, heads=heads,
-                        window=window, gelu=gelu)
+                        window=window, gelu=gelu, attn_quant=attn_quant)

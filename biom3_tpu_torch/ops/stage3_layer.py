@@ -6,7 +6,8 @@ arguments and semantics as ``fused_attn_half`` (:186-246) and
 layout.  Each half is a short chain of kernels (``ops.kernels``):
 
 * attention half: ``bias_layernorm`` → q/k/v ``gemm_bias_act`` (one
-  d x 3d product) → ``stage3_attention_core`` → out-projection
+  d x 3d product) → ``stage3_attention_core`` (``stage3_attention_core_i8``
+  under ``attn_quant="int8"``) → out-projection
   ``gemm_bias_act`` with +bo and the residual xb;
 * FF half: ``layernorm`` → W1 ``gemm_bias_act`` with +b1 and GELU → W2
   ``gemm_bias_act`` with +b2 and the residual.
@@ -38,6 +39,7 @@ from biom3_tpu_torch.ops.kernels import (
     layernorm,
     linear_i8,
     stage3_attention_core,
+    stage3_attention_core_i8,
 )
 
 __all__ = ["attn_half", "ff_half", "fused_attn_half", "fused_ff_half", "gelu", "layernorm"]
@@ -46,10 +48,12 @@ LN_EPS = 1e-6
 
 
 def attn_half(h, bias, ln_scale, ln_bias, wqkv, wo, bo, *, local_heads: int, heads: int,
-              window: int, out_dtype: torch.dtype, sqkv=None, so=None) -> torch.Tensor:
+              window: int, out_dtype: torch.dtype, sqkv=None, so=None,
+              attn_quant: str = "none") -> torch.Tensor:
     """h (B, L, d), bias (B, d) in h's dtype, wqkv (d, 3d) → (B, L, d).
     With ``sqkv``/``so``: int8 wqkv (3d, d) and wo (d, d) with their
-    scales."""
+    scales.  ``attn_quant="int8"``: the band-local heads' products in int8
+    (``stage3_attention_core_i8``)."""
     B, L, d = h.shape
     xb, xn = bias_layernorm(h, bias, ln_scale, ln_bias, eps=LN_EPS)
     xn, xb = xn.view(B * L, d), xb.view(B * L, d)
@@ -57,8 +61,9 @@ def attn_half(h, bias, ln_scale, ln_bias, wqkv, wo, bo, *, local_heads: int, hea
         qkv = gemm_bias_act(xn, wqkv)
     else:
         qkv = linear_i8(xn, wqkv, sqkv, out_dtype=h.dtype)
-    att = stage3_attention_core(qkv.view(B, L, 3 * d), heads=heads, local_heads=local_heads,
-                                window=window).view(B * L, d)
+    core = stage3_attention_core_i8 if attn_quant == "int8" else stage3_attention_core
+    att = core(qkv.view(B, L, 3 * d), heads=heads, local_heads=local_heads,
+               window=window).view(B * L, d)
     if so is None:
         out = gemm_bias_act(att, wo, bo, residual=xb, out_dtype=out_dtype)
     else:

@@ -28,6 +28,8 @@ refuses runs the graph path with plain attention, and the reason is logged
 once.  ``use_stack=True`` forces the fused-stack path (on ``cpu`` the
 kernels' plain versions in f32 with erf GELU and quant auto ``"none"``);
 ``tower_impl`` names a path outright.  The graph path never quantizes.
+``gelu`` (``"erf"``/``"tanh"``) overrides the GELU the mode picks, for
+both paths.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ class PenCLEngine:
                  use_stack: bool | None = None, text_tokenizer=None, text_only: bool = False,
                  tower_impl: str | None = None, attn_impl: str | None = None,
                  ff_quant: str | None = None, proj_quant: str | None = None,
-                 bert_ff_quant: str | None = None, bert_proj_quant: str | None = None):
+                 bert_ff_quant: str | None = None, bert_proj_quant: str | None = None,
+                 gelu: str | None = None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if tower_impl not in TOWER_IMPLS + (None,):
@@ -125,7 +128,9 @@ class PenCLEngine:
         # plain versions on the CPU); the module's otherwise
         self.dtype = ((torch.bfloat16 if on_cuda else torch.float32) if self.use_fused_stack
                       else dtype)
-        self.gelu = "tanh" if perf else "erf"
+        if gelu not in ("erf", "tanh", None):
+            raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+        self.gelu = gelu or ("tanh" if perf else "erf")
         if attn_impl is None:
             attn_impl = "kernel" if perf and supported else "plain"
         self.attn_impl = attn_impl

@@ -17,12 +17,21 @@ Port of ``biom3_tpu/training/optim.py:22-75`` from optax to ``torch.optim``:
   (``optax.clip_by_global_norm``).
 * ``make_grouped_optimizer`` (``biom3_tpu/training/optim.py:78-132``,
   Stage-1's per-tower learning rates): optax's ``multi_transform`` of one
-  AdamW per label becomes one ``torch.optim.AdamW`` with a parameter group
-  per label, each with its own rate and weight decay.
-* Adafactor is not ported: ``optax.adafactor`` and ``torch.optim.Adafactor``
-  are different algorithms.  Nor are bf16 Adam first moments (optax
-  ``mu_dtype``): ``torch.optim.AdamW`` keeps its moments in the
-  parameters' dtype.
+  AdamW (or Adafactor) per label becomes one optimizer with a parameter
+  group per label, each with its own rate and weight decay.
+* ``Adafactor`` is ``optax.adafactor``'s algorithm written out in torch
+  (``torch.optim.Adafactor`` is a different one), with its defaults: the
+  second moment factored over the two largest dims when the smaller is at
+  least 128, decay 1 − (step + 1)^−0.8, eps 1e-30 added to g², updates
+  clipped to block RMS 1, scaled by the rate and by the parameter's RMS
+  (at least 1e-3), no first moment, then ``weight_decay_rate · p`` added
+  (not scaled by the rate, as optax adds it after the rate).  JAX runs
+  optax here, not a kernel.
+* ``AdamWMoments`` is ``optax.adamw`` with ``mu_dtype``: the first moment
+  kept in bf16 (``b1 · mu`` in bf16 with b1 itself rounded to bf16, as
+  jnp's weak typing does, then summed in f32), the second in the
+  parameters' dtype (``moment_dtype="bfloat16"``, Stage 1's
+  optimizer-state compression).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable, Mapping
 
+import numpy as np
 import torch
 
 
@@ -79,6 +89,125 @@ class Optimizer:
         self.sched.load_state_dict(sd["sched"])
 
 
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+# optax.adafactor's defaults
+AF_DECAY_RATE, AF_MIN_DIM, AF_CLIP, AF_EPS, AF_MIN_SCALE = 0.8, 128, 1.0, 1e-30, 1e-3
+
+
+def _factored_dims(shape):
+    """optax ``_factored_dims``: (d1, d0), the second largest and the
+    largest dim (numpy's argsort order), or None."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < AF_MIN_DIM:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr, weight_decay_rate=weight_decay or None)``."""
+
+    def __init__(self, params, lr: float, *, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, p.grad, self.state[p], group)
+
+    def _update(self, p, g, state, group) -> None:
+        dims = _factored_dims(tuple(p.shape))
+        if not state:
+            state["step"] = 0
+            if dims is None:
+                state["v"] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                state["v_row"] = p.new_zeros(np.delete(p.shape, d0).tolist())
+                state["v_col"] = p.new_zeros(np.delete(p.shape, d1).tolist())
+        decay = 1.0 - _f32(state["step"] + 1, p) ** -AF_DECAY_RATE
+        grad_sqr = g * g + AF_EPS
+        if dims is None:
+            state["v"] = (decay * state["v"] + (1.0 - decay) * grad_sqr).to(p.dtype)
+            u = g * state["v"] ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = (decay * state["v_row"] + (1.0 - decay) * grad_sqr.mean(d0)).to(p.dtype)
+            v_col = (decay * state["v_col"] + (1.0 - decay) * grad_sqr.mean(d1)).to(p.dtype)
+            state["v_row"], state["v_col"] = v_row, v_col
+            row_col_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            u = g * ((v_row / row_col_mean) ** -0.5).unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        state["step"] += 1
+        u = u / torch.clamp(torch.sqrt((u * u).mean()) / AF_CLIP, min=1.0)
+        u = u * group["lr"]
+        rms = torch.sqrt((p * p).mean())
+        u = u * torch.where(rms <= AF_MIN_SCALE, _f32(AF_MIN_SCALE, p), rms)
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        p.sub_(u)
+
+
+class AdamWMoments(torch.optim.Optimizer):
+    """``optax.adamw(lr, weight_decay=wd, mu_dtype=jnp.bfloat16)``: betas
+    (0.9, 0.999), eps 1e-8 outside the root, the update lr · (m̂ / (√v̂ +
+    eps) + wd · p)."""
+
+    def __init__(self, params, lr: float, *, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      moment_dtype=torch.bfloat16))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, state = p.grad, self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p, dtype=group["moment_dtype"])
+                    state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+                # jnp takes the Python b1 in mu's dtype (weak typing): bf16(b1) · mu
+                mu = (1 - b1) * g + torch.tensor(b1, dtype=state["mu"].dtype) * state["mu"]
+                nu = (1 - b2) * (g * g) + b2 * state["nu"]
+                n = _f32(state["step"], p)
+                mu_hat = mu / (1 - _f32(b1, p) ** n)
+                nu_hat = nu / (1 - _f32(b2, p) ** n)
+                u = mu_hat / (torch.sqrt(nu_hat) + eps)
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(u * -group["lr"])
+                state["mu"], state["nu"] = mu.to(group["moment_dtype"]), nu
+
+
+def describe(tx: "Optimizer") -> str:
+    """The optimizer's name, with a first moment kept in another dtype."""
+    return "AdamW, moment_dtype bfloat16" if isinstance(tx.opt, AdamWMoments) else \
+        type(tx.opt).__name__
+
+
+def state_bytes(tx: "Optimizer") -> int:
+    """Bytes of the optimizer's state tensors (moments, factored rows)."""
+    return sum(v.numel() * v.element_size() for st in tx.opt.state.values()
+               for v in st.values() if isinstance(v, torch.Tensor))
+
+
+def _bf16_moments(moment_dtype) -> bool:
+    if moment_dtype in (None, "None", "float32", torch.float32):
+        return False
+    if moment_dtype in ("bfloat16", torch.bfloat16):
+        return True
+    raise ValueError(f"moment_dtype must be float32/bfloat16, got {moment_dtype!r}")
+
+
 def make_optimizer(name: str, params: Iterable[torch.Tensor], lr: float,
                    schedule: Callable[[int], float] | None = None, weight_decay: float = 0.0,
                    *, grad_clip: float | None = None) -> Optimizer:
@@ -91,10 +220,10 @@ def make_optimizer(name: str, params: Iterable[torch.Tensor], lr: float,
     elif name_l == "adam":
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
     elif name_l == "adafactor":
-        raise NotImplementedError("Adafactor is not ported: optax.adafactor and "
-                                  "torch.optim.Adafactor are different algorithms")
+        opt = Adafactor(params, lr=lr, weight_decay=weight_decay)
     else:
-        raise ValueError(f"unknown optimizer {name!r}; choose AdamW/Adam/DeepSpeedCPUAdam")
+        raise ValueError(
+            f"unknown optimizer {name!r}; choose AdamW/Adam/AdaFactor/DeepSpeedCPUAdam")
     return Optimizer(opt, schedule, grad_clip)
 
 
@@ -102,27 +231,33 @@ def make_grouped_optimizer(named_params: Iterable[tuple[str, torch.Tensor]],
                            group_fn: Callable[[str], str], group_lrs: Mapping[str, float],
                            weight_decay: float = 0.0, decay_groups: tuple = (),
                            optimizer: str = "adamw", moment_dtype: str | None = None) -> Optimizer:
-    """AdamW with one parameter group per label: ``group_fn`` maps a
-    parameter's name to its label, ``group_lrs`` a label to its rate, and
-    the labels in ``decay_groups`` get ``weight_decay`` (the others 0)."""
+    """One parameter group per label: ``group_fn`` maps a parameter's name
+    to its label, ``group_lrs`` a label to its rate, and the labels in
+    ``decay_groups`` get ``weight_decay`` (the others 0).  ``optimizer``:
+    ``"adamw"`` (``torch.optim.AdamW``; with ``moment_dtype="bfloat16"``
+    ``AdamWMoments``) or ``"adafactor"`` (``Adafactor``, which keeps no
+    first moment)."""
     name = optimizer.lower()
+    bf16_moments = _bf16_moments(moment_dtype)
     if name == "adafactor":
-        raise NotImplementedError("Adafactor is not ported: optax.adafactor and "
-                                  "torch.optim.Adafactor are different algorithms")
-    if name not in ("adamw", "deepspeedcpuadam"):
-        raise ValueError(f"unknown grouped optimizer {optimizer!r}; choose adamw")
-    if moment_dtype not in (None, "None", "float32"):
-        raise NotImplementedError(f"moment_dtype={moment_dtype!r} is not ported: "
-                                  "torch.optim.AdamW keeps its moments in the parameters' dtype")
+        if bf16_moments:
+            raise ValueError("moment_dtype applies to adamw only "
+                             "(adafactor keeps no first moment)")
+    elif name not in ("adamw", "deepspeedcpuadam"):
+        raise ValueError(f"unknown grouped optimizer {optimizer!r}; choose adamw/adafactor")
     groups: dict[str, list] = {}
     for pname, p in named_params:
         groups.setdefault(group_fn(pname), []).append(p)
     unknown = sorted(set(groups) - set(group_lrs))
     if unknown:
         raise ValueError(f"parameter groups {unknown} have no learning rate")
-    opt = torch.optim.AdamW(
-        [{"params": ps, "lr": group_lrs[label], "name": label,
-          "weight_decay": weight_decay if label in decay_groups else 0.0}
-         for label, ps in groups.items()],
-        betas=(0.9, 0.999), eps=1e-8)
+    param_groups = [{"params": ps, "lr": group_lrs[label], "name": label,
+                     "weight_decay": weight_decay if label in decay_groups else 0.0}
+                    for label, ps in groups.items()]
+    if name == "adafactor":
+        opt = Adafactor(param_groups, lr=0.0)
+    elif bf16_moments:
+        opt = AdamWMoments(param_groups, lr=0.0)
+    else:
+        opt = torch.optim.AdamW(param_groups, betas=(0.9, 0.999), eps=1e-8)
     return Optimizer(opt, None, None)

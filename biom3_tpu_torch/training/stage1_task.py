@@ -102,10 +102,12 @@ def _group_of(name: str) -> str:
 
 
 def make_stage1_optimizer(cfg, model: torch.nn.Module) -> Optimizer:
-    """Per-group AdamW: protein tower, text tower and projection heads, each
-    at its own rate (ref configure_optimizers, PL_wrapper.py:1309-1326), all
-    three with the config's weight decay.  ``"optimizer": "adafactor"`` and
-    ``"moment_dtype": "bfloat16"`` are not ported and raise."""
+    """Per-group optimizer: protein tower, text tower and projection heads,
+    each at its own rate (ref configure_optimizers, PL_wrapper.py:1309-1326),
+    all three with the config's weight decay.  Beyond the reference's AdamW
+    (JAX stage1_task.py:165-187): ``"optimizer": "adafactor"`` (factored
+    second moments) and ``"moment_dtype": "bfloat16"`` (a bf16 Adam first
+    moment) compress the optimizer state."""
     return make_grouped_optimizer(
         model.named_parameters(), _group_of,
         {"protein": cfg.float("protein_encoder_lr", 5e-4),

@@ -70,7 +70,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    bits on a second call, its time beside the bound), ``gather_head`` on
    the full grid there (k = L: 32768 rows, the same bits on a second call,
    its time beside the plain version's and the bound; edge shapes in
-   phase 3 off its 64-row tiles, d = 96 to 4096 and 5 to 32 classes), then
+   phase 3 off its 64-row tiles, d = 96 to 4096 and 5 to 32 classes),
+   ``stage3_attention_core_i8`` there (the band heads' QKᵀ
+   and PV in int8; its q, k, v codes and scales bit-equal to the plain
+   version's, at Stage-3 B=4 and B=32 and on ``stage3_attention_core``'s
+   edge shapes, the output per head group, the same bits on a second call,
+   timed beside its bound and the bf16 core), then
    the host µs of one wrapper call.  ``stage3_attention_core``
    is also checked at head dim 64, W = 32 and 8, no and all heads
    band-local, and L = 1000 and 200, and must give the same bits on a
@@ -103,7 +108,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    default (int8); checks the latents and scores; then a ``PenCLEngine``
    with its four quant knobs at ``"none"`` (the bf16 tower chain,
    ``pencl_bf16``) and ``PenCLEngine(tower_impl="graph")`` on the same file,
-   both built with ``dtype=torch.bfloat16`` (the engines' f32 default runs
+   both built with ``dtype=torch.bfloat16``; on the bf16 engine also
+   ``Stage1SweepRunner`` over 32 demo pairs in slabs of 16 (path
+   ``sweep_stage1``, cosine 0.999 against ``embed``) (the engines' f32 default runs
    the PyTorch modules, as in the JAX package; the CLIs' ``--dtype auto``
    is bf16 on cuda); the published configs must take the kernel paths
    (``use_stack``, ``use_fused_stack``), here and in the serving phase;
@@ -125,7 +132,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``run_facilitator_sample`` (3 seeded z_t / z_p rows; no kernel, path
    ``facilitator_sample``) and ``run_proteoscribe_sample --sampler
    maskgit`` on its z_c (3 prompts x 2 replicas, path
-   ``proteoscribe_sample``); then Stage-2 training: ``run_train_stage2`` on
+   ``proteoscribe_sample``); then the generation sweep:
+   ``pipeline/sweep.SweepRunner`` on the bf16 stack forward, 4 seeded z_c
+   prompts x 8 replicas in one slab of 32, k = 8 (128 forwards, path
+   ``sweep``), then with ``attn_quant="int8"`` (path ``sweep_i8``; one
+   forward's logits within 0.999 cosine of the bf16 attention's), rows/s
+   of each, then ``cli/run_eval.py`` as a subprocess on the int8 sweep's
+   designs; then Stage-2 training: ``run_train_stage2`` on
    4096 seeded (z_t, z_p) pairs of width 512 (MMD, batch 64, 2 epochs,
    ``--export_bin``; the validation loss must fall), the exported .bin
    through ``run_facilitator_sample`` (path ``train_stage2``, no kernel),
@@ -148,7 +161,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    bf16 moves on torch ops too, is a small part of the whole); (b)
    ``STAGE1_STEPS`` train steps on one fixed batch of 4 full-length pairs
    must cut the loss and its MLM terms to 0.8x, with ms per step, peak memory and a profile for
-   ``layer_block``, and ms per step for ``xla`` with ``--remat`` at B=4 and
+   ``layer_block``, then 3 more ``layer_block`` steps each with Adafactor
+   and with a bf16 AdamW first moment (finite losses, the optimizer
+   state's size beside AdamW's), and ms per step for ``xla`` with ``--remat`` at B=4 and
    without it at B=1 (where its attention maps fit with room), beside
    ``layer_block`` at B=1; (c) the training CLI
    (``biom3_tpu_torch.cli.run_train_stage1``) on a seeded synthetic CSV:
@@ -161,8 +176,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    8a's gates.
 
 Each path (phase 4's graph-path ProteoScribe, the five runs of phase 5,
-the three PenCL runs of phase 6, the serving runs and their inpaint
-requests, the sample CLIs, Stage-2 training, the two training CLI modes
+the three PenCL runs of phase 6 and the bulk embedding, the serving runs
+and their inpaint requests, the sample CLIs, the two sweeps, Stage-2
+training, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
 ``.bin`` in phase 8) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
@@ -223,6 +239,8 @@ KERNEL_SOURCES = {
                       "biom3_tpu/ops/pallas/stack_kernel_tpu.py:765"),
     "stage3_attention_core": ("biom3_tpu_torch/csrc/stage3_attn.cu",
                               "biom3_tpu/ops/pallas/fused_layer_tpu.py:186"),
+    "stage3_attention_core_i8": ("biom3_tpu_torch/csrc/stage3_attn_i8.cu",
+                                 "biom3_tpu/ops/pallas/stack_kernel_tpu.py:112"),
     "dense_attention": ("biom3_tpu_torch/csrc/dense_attn.cu",
                         "biom3_tpu/ops/pallas/bert_stack_tpu.py:198"),
     "bias_layernorm": ("biom3_tpu_torch/csrc/rowwise.cu",
@@ -257,13 +275,18 @@ KERNEL_SOURCES = {
     "local_window_attention": ("biom3_tpu_torch/csrc/local_attn.cu",
                                "biom3_tpu/ops/pallas/local_attention_tpu.py:73"),
 }
-BIT_EQUAL = {"quant_rows"}   # codes and scales equal to the plain version's
+# kernel → its first output that must equal the plain version's bit for bit:
+# quant_rows' codes and scales; the int8 attention's q, k, v codes and scales
+BIT_EQUAL = {"quant_rows": 0, "stage3_attention_core_i8": 1}
 
 # path → the kernels it launches, and no other
 INT8 = {"gemm_i8", "quant_rows"}
 STAGE3_INT8 = INT8 | {"stage3_attention_core", "bias_layernorm", "layernorm", "embed_tokens",
                       "gather_head"}
 E2E_INT8 = STAGE3_INT8 | {"dense_attention"}
+STAGE3_BF16 = {"gemm_bias_act", "stage3_attention_core", "bias_layernorm", "layernorm",
+               "embed_tokens", "gather_head"}
+PENCL_BF16 = {"gemm_bias_act", "dense_attention", "layernorm", "esm2_embed", "esm2_attention"}
 PATH_KERNELS = {
     "e2e": E2E_INT8,
     # the fast modes: the stack forward on the full grid
@@ -283,8 +306,12 @@ PATH_KERNELS = {
     "train_stage2": set(),
     "stage3_graph": {"local_window_attention"},
     "pencl": INT8 | {"dense_attention", "layernorm", "esm2_embed", "esm2_attention"},
-    "pencl_bf16": {"gemm_bias_act", "dense_attention", "layernorm", "esm2_embed",
-                   "esm2_attention"},
+    "pencl_bf16": PENCL_BF16,
+    # the generation sweep on the bf16 stack forward, then with the band
+    # heads' products in int8; the bulk embedding on the bf16 towers
+    "sweep": STAGE3_BF16,
+    "sweep_i8": STAGE3_BF16 - {"stage3_attention_core"} | {"stage3_attention_core_i8"},
+    "sweep_stage1": PENCL_BF16,
     "pencl_graph": {"flash_attention"},
     "train_layer_block": {"layernorm", "gemm_bias_act", "stage3_attention_core",
                           "stage3_attention_bwd", "gemm_dx", "gemm_dw", "col_sum",
@@ -355,16 +382,20 @@ def live_keys(pad) -> int:
 # phase 1-2
 # --------------------------------------------------------------------------
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke test needs the card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card(), flush=True)
     say("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
                   f"python {sys.version.split()[0]} count {torch.cuda.device_count()}")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -390,12 +421,13 @@ PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_w
               "esm2_attn_stage_kernel", "esm2_bwd_dq_wgmma_kernel", "esm2_bwd_dkv_wgmma_kernel",
               "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel",
               "stage3_local_wgmma_kernel", "stage3_linear_stats_kernel", "stage3_linear_ctx_kernel",
-              "stage3_bwd_dq_wgmma_kernel", "stage3_bwd_dkv_wgmma_kernel")
+              "stage3_bwd_dq_wgmma_kernel", "stage3_bwd_dkv_wgmma_kernel",
+              "stage3_i8_quant_kernel", "stage3_i8_band_kernel")
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
 DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum",
-                 "stage3_attention_core", "stage3_attention_bwd", "bias_layernorm",
-                 "gather_head"}
+                 "stage3_attention_core", "stage3_attention_core_i8", "stage3_attention_bwd",
+                 "bias_layernorm", "gather_head"}
 # kernel → how many of its last outputs are f32 column sums (SUM_TOL)
 COLUMN_SUMS = {"col_sum": 1, "layernorm_bwd": 2}
 
@@ -652,6 +684,13 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
         "stage3_attention_core": [
             case("stage3_attention_core", qkv3, heads=H, local_heads=NL, window=W,
                  flops=4 * (d // H) * band + 4 * lin, out=M * d * 2)],
+        # the band heads' products in int8 (their ops at the int8 peak, the
+        # linear heads' at bf16's, as int8-peak equivalents); bytes: qkv in,
+        # the head outputs out
+        "stage3_attention_core_i8": [
+            case("stage3_attention_core_i8", qkv3, heads=H, local_heads=NL, window=W, codes=True,
+                 flops=4 * (d // H) * band + 4 * lin * PEAK_INT8 / PEAK_FLOPS, out=M * d * 2,
+                 peak=PEAK_INT8)],
         "dense_attention": [
             case("dense_attention", qkvb, heads=Hb, flops=4 * Bb * Hb * Lb * Lb * (E // Hb),
                  out=Bb * Lb * E * 2,
@@ -925,6 +964,12 @@ def edge_cases(g) -> dict[str, list]:
             *(pair("stage3_attention_core", rnd(b, n, 1536), heads=h, local_heads=nl, window=w)
               for b, n, h, nl, w in s3_edge),
             pair("stage3_attention_core", rnd(3, 200, 768), heads=4, local_heads=2, window=40)],
+        # the same shapes in int8 (every window a multiple of 4)
+        "stage3_attention_core_i8": [
+            *(pair("stage3_attention_core_i8", rnd(b, n, 1536), heads=h, local_heads=nl,
+                   window=w, codes=True) for b, n, h, nl, w in s3_edge),
+            pair("stage3_attention_core_i8", rnd(3, 200, 768), heads=4, local_heads=2, window=40,
+                 codes=True)],
         "dense_attention": [pair("dense_attention", qd, heads=12),
                             *(pair("dense_attention", x, heads=h) for x, h in dense)],
         "layernorm": [(lambda: K.layernorm(xl, *ln, eps=1e-5, out_dtype=bf, want_f32=True),
@@ -1054,7 +1099,7 @@ def phase_kernels() -> dict:
     # heads' dk is ~1/L of the local heads' dv)
     grouped = {"stage3_attention_bwd": 32, "esm2_attention_bwd": 64,
                # the linear heads' outputs against their own scale, too
-               "stage3_attention_core": 32}
+               "stage3_attention_core": 32, "stage3_attention_core_i8": 32}
 
     results = {}
     for name, cases in timed.items():
@@ -1065,9 +1110,11 @@ def phase_kernels() -> dict:
             if name in DETERMINISTIC and not all(map(torch.equal, got, flat(run()))):
                 raise AssertionError(f"{name}: a second call on the same inputs gave other bits")
             for i, (a, b) in enumerate(zip(got, want)):
-                if name in BIT_EQUAL and not torch.equal(a, b):
-                    raise AssertionError(f"{name}: {int((a != b).sum())} of {a.numel()} "
-                                         f"values differ from the plain version's")
+                if i >= BIT_EQUAL.get(name, len(got)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name}: {int((a != b).sum())} of {a.numel()} "
+                                             f"values differ from the plain version's")
+                    continue
                 err_abs, err_rel = rel_err(a, b, group=grouped.get(name, 0))
                 worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
                 if i >= len(got) - COLUMN_SUMS.get(name, 0) and err_rel > SUM_TOL:
@@ -1113,6 +1160,7 @@ def phase_gemms_b32(results: dict, g) -> None:
                        f"{unit}) bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     del cases
     stage3_core_b32(results, g)
+    stage3_core_i8_b32(results, g)
     stage3_bwd_b32(results, g)
     bias_layernorm_b32(results, g)
     gather_head_full_grid(results, g)
@@ -1148,6 +1196,46 @@ def stage3_core_b32(results: dict, g) -> None:
     entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
     say("kernels", f"stage3_attention_core, Stage-3 B=32: max|Δ| {err_abs:.3e} rel {err_rel:.3e} "
                    f"kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_ms / ms:.0%})")
+
+
+def stage3_core_i8_b32(results: dict, g) -> None:
+    """``stage3_attention_core_i8`` at Stage-3 B=32 (L 1024, d 512, 8 + 8
+    heads, W 128): its q, k, v codes and scales bit-equal to the plain
+    version's, the output per 32-column head group, the same bits on a
+    second call; timed beside its bound and beside ``stage3_attention_core``
+    (bf16) on the same qkv."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import kernels as K
+
+    B, L, d, H, NL, W = 32, 1024, 512, 16, 8, 128
+    qkv = torch.randn(B, L, 3 * d, generator=g, device=g.device).bfloat16()
+    kw = dict(heads=H, local_heads=NL, window=W)
+    got, codes = K.stage3_attention_core_i8(qkv, **kw, codes=True)
+    want, want_codes = K.stage3_attention_core_i8_plain(qkv, **kw, codes=True)
+    for a, b in zip(codes, want_codes):
+        if not torch.equal(a, b):
+            raise AssertionError(f"stage3_attention_core_i8 B=32: {int((a != b).sum())} of "
+                                 f"{a.numel()} codes or scales differ from the plain version's")
+    err_abs, err_rel = rel_err(got, want, group=d // H)
+    if err_rel > REL_TOL:
+        raise AssertionError(f"stage3_attention_core_i8 B=32: max|Δ|/max|ref| = {err_rel:.3e}")
+    if not torch.equal(got, K.stage3_attention_core_i8(qkv, **kw)):
+        raise AssertionError("stage3_attention_core_i8 B=32: a second call gave other bits")
+    del want, want_codes, codes
+    ms = event_ms(lambda: K.stage3_attention_core_i8(qkv, **kw), TIMED_ITERS)
+    bf16_ms = event_ms(lambda: K.stage3_attention_core(qkv, **kw), TIMED_ITERS)
+    ops = (4 * (d // H) * band_pairs(B, L, W, NL) / PEAK_INT8
+           + 4 * B * (H - NL) * L * (d // H) ** 2 / PEAK_FLOPS)
+    bound_ms = max(ops, (nbytes(qkv) + B * L * d * 2) / PEAK_BYTES) * 1e3
+    entry = results["stage3_attention_core_i8"]
+    entry.update(ms_b32=ms, bound_ms_b32=bound_ms, bf16_core_ms_b32=bf16_ms)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
+    say("kernels", f"stage3_attention_core_i8, Stage-3 B=32: codes and scales bit-equal, max|Δ| "
+                   f"{err_abs:.3e} rel {err_rel:.3e} kernel {ms:.4f} ms bound {bound_ms:.4f} ms "
+                   f"({bound_ms / ms:.0%}); stage3_attention_core (bf16) on the same qkv "
+                   f"{bf16_ms:.4f} ms")
 
 
 def stage3_bwd_b32(results: dict, g) -> None:
@@ -1630,6 +1718,110 @@ def phase_sample_clis(root: pathlib.Path, files: dict) -> dict:
     return counts
 
 
+SWEEP_PROMPTS, SWEEP_REPLICAS, SWEEP_BATCH, SWEEP_K = 4, 8, 32, 8
+
+
+def phase_sweep(root: pathlib.Path, files: dict) -> dict:
+    """The generation sweep (``pipeline/sweep.SweepRunner``) on phase 5's
+    Stage-3 ``.bin``: 4 seeded z_c prompts x 8 replicas in one slab of 32
+    rows, k = 8 (128 forwards on the bf16 stack forward), then the same
+    with the band heads' products in int8 (``attn_quant="int8"``: one
+    forward's logits within COS_MIN of the bf16-attention forward's), then
+    ``cli/run_eval.py`` as a subprocess on the int8 sweep's designs against
+    seeded references → each path's launch counts."""
+    import torch
+
+    from biom3_tpu_torch.config import load_json_config
+    from biom3_tpu_torch.models.fused_forward import make_stack_apply
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.pipeline.stage3 import ProteoScribeEngine
+    from biom3_tpu_torch.pipeline.sweep import SweepRunner
+
+    t_phase = time.perf_counter()
+    flag = dict(zip(files["flags"][::2], files["flags"][1::2]))
+    engine = ProteoScribeEngine(load_json_config(flag["--stage3_json"]), flag["--stage3_model"],
+                                device="cuda", dtype=torch.bfloat16, ff_quant="none",
+                                proj_quant="none")
+    model, L, depth = engine.model, files["steps"], files["depth"]
+    del engine
+    g = torch.Generator().manual_seed(SEED + 20)
+    z_c = torch.randn(SWEEP_PROMPTS, 512, generator=g).numpy()
+    applies = {"sweep": make_stack_apply(model, dtype=torch.bfloat16, gelu="tanh"),
+               "sweep_i8": make_stack_apply(model, dtype=torch.bfloat16, gelu="tanh",
+                                            attn_quant="int8")}
+    # the int8 attention's drift: one forward on a half-revealed grid
+    dev = torch.device("cuda")
+    x = torch.randint(1, 29, (SWEEP_PROMPTS, L), generator=g).int()
+    x[torch.rand(SWEEP_PROMPTS, L, generator=g) < 0.5] = 0
+    pos = torch.arange(L, dtype=torch.int32).expand(SWEEP_PROMPTS, L).contiguous()
+    args = (x.to(dev), torch.full((SWEEP_PROMPTS,), L // 2, device=dev),
+            torch.as_tensor(z_c, device=dev), pos.to(dev))
+    cos = min_cosine(applies["sweep_i8"](*args).reshape(-1, 29),
+                     applies["sweep"](*args).reshape(-1, 29))
+    say("sweep", f"int8 band attention against bf16, one stack forward at B={SWEEP_PROMPTS} on "
+                 f"the full grid: min logit cosine {cos:.6f}")
+    if cos < COS_MIN:
+        raise AssertionError(f"int8 vs bf16 attention logit cosine {cos} < {COS_MIN}")
+    counts, walls, designs = {}, {}, {}
+    rows, forwards = SWEEP_PROMPTS * SWEEP_REPLICAS, L // SWEEP_K
+    smi = card()
+    for path, apply in applies.items():
+        runner = SweepRunner(apply, L, device="cuda", temperature=1.0, chunk_steps=128,
+                             positions_per_step=SWEEP_K, apply_takes_positions=True)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        seqs = runner.run(z_c, num_replicas=SWEEP_REPLICAS, seed=SEED, device_batch=SWEEP_BATCH)
+        torch.cuda.synchronize()
+        walls[path] = time.perf_counter() - t0
+        counts[path] = K.launch_counts()
+        check_path(path, counts[path])
+        core = "stage3_attention_core_i8" if path == "sweep_i8" else "stage3_attention_core"
+        for name, want in ((core, depth * forwards), ("gather_head", forwards)):
+            if counts[path][name] != want:
+                raise AssertionError(f"{path}: {name} launched {counts[path][name]} times, "
+                                     f"expected {want} ({forwards} forwards)")
+        flat_seqs = [s for rep in seqs for s in rep]
+        if [len(rep) for rep in seqs] != [SWEEP_REPLICAS] * SWEEP_PROMPTS:
+            raise AssertionError(f"{path}: {[len(rep) for rep in seqs]} replicas a prompt")
+        check_sequences(flat_seqs)
+        if len(set(flat_seqs)) < 2:
+            raise AssertionError(f"{path}: every design is the same")
+        designs[path] = seqs
+        say("sweep", f"{path}: {SWEEP_PROMPTS} prompts x {SWEEP_REPLICAS} replicas, one slab of "
+                     f"{SWEEP_BATCH}, k = {SWEEP_K} ({forwards} forwards): {walls[path]:.2f} s "
+                     f"wall, {rows / walls[path]:.2f} rows/s ({smi}); launches {counts[path]}")
+    del applies, model
+    torch.cuda.empty_cache()
+
+    refs = ["".join(np.random.default_rng(SEED + 21).choice(list("ACDEFGHIKLMNPQRSTVWY"), 200))
+            for _ in range(SWEEP_PROMPTS)]
+    torch.save({f"replica_{r}": [designs["sweep_i8"][p][r] for p in range(SWEEP_PROMPTS)]
+                for r in range(SWEEP_REPLICAS)}, root / "sweep_designs.pt")
+    torch.save({"sequence": refs}, root / "sweep_refs.pt")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "biom3_tpu_torch.cli.run_eval", "--designs_path",
+                        str(root / "sweep_designs.pt"), "--reference_path",
+                        str(root / "sweep_refs.pt"), "--output_path", str(root / "eval.pt")],
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"run_eval exited {r.returncode}: {r.stderr[-2000:]}")
+    report = json.loads(r.stdout)
+    scores = report.get("vs_reference", {})
+    if report["stats"]["n"] != rows or sorted(scores) != sorted(
+            f"replica_{i}" for i in range(SWEEP_REPLICAS)):
+        raise AssertionError(f"run_eval report: n {report['stats']['n']}, {sorted(scores)}")
+    soft = [v["blosum_soft_acc"] for v in scores.values() if "blosum_soft_acc" in v]
+    if not soft or not all(0.0 <= a <= 1.0 for a in soft):
+        raise AssertionError(f"run_eval scores: {scores}")
+    say("sweep", f"run_eval on the int8 sweep's {rows} designs against {SWEEP_PROMPTS} seeded "
+                 f"references: {wall:.2f} s wall (a subprocess); BLOSUM soft accuracy "
+                 f"{min(soft):.4f}-{max(soft):.4f} over {len(soft)} replicas, unique fraction "
+                 f"{report['stats']['unique_fraction']:.3f}")
+    say("sweep", f"the sweep phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 STAGE2_PAIRS, STAGE2_B, STAGE2_EPOCHS = 4096, 64, 2
 
 
@@ -1960,6 +2152,51 @@ def reference_only_keys(sd: dict, cfg) -> dict:
     return out
 
 
+SWEEP_PAIRS, SWEEP_PAIR_BATCH = 32, 16
+
+
+def stage1_sweep(engine, captions, sequences) -> dict:
+    """``Stage1SweepRunner`` on a fused-stack engine: 32 pairs (the demo
+    pairs over and over) in slabs of 16, against ``engine.embed`` on the
+    same pairs → the sweep's launch counts."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.pipeline.sweep import Stage1SweepRunner
+
+    t_phase = time.perf_counter()
+    caps = [captions[i % len(captions)] for i in range(SWEEP_PAIRS)]
+    seqs = [sequences[i % len(sequences)] for i in range(SWEEP_PAIRS)]
+    want_t, want_p = engine.embed(caps, seqs, batch_size=SWEEP_PAIR_BATCH)
+    x_t, x_p = engine.tokenize(caps, seqs)
+    runner = Stage1SweepRunner(engine, device_batch=SWEEP_PAIR_BATCH)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    z_t, z_p = runner.run(x_t, x_p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check_path("sweep_stage1", counts)
+    slabs = -(-SWEEP_PAIRS // SWEEP_PAIR_BATCH)
+    for name, want in (("esm2_attention", ESM_LAYERS * slabs),
+                       ("dense_attention", BERT_LAYERS * slabs)):
+        if counts[name] != want:
+            raise AssertionError(f"sweep_stage1: {name} launched {counts[name]} times, "
+                                 f"expected {want}")
+    if z_t.shape != (SWEEP_PAIRS, 512) or z_p.shape != (SWEEP_PAIRS, 512):
+        raise AssertionError(f"Stage1SweepRunner: z_t {z_t.shape}, z_p {z_p.shape}")
+    cos = min(min_cosine(torch.as_tensor(z_t), torch.as_tensor(want_t)),
+              min_cosine(torch.as_tensor(z_p), torch.as_tensor(want_p)))
+    say("sweep", f"sweep_stage1: Stage1SweepRunner, {SWEEP_PAIRS} pairs in slabs of "
+                 f"{SWEEP_PAIR_BATCH}: {wall:.2f} s wall, {SWEEP_PAIRS / wall:.1f} pairs/s "
+                 f"({card()}); min "
+                 f"cosine vs PenCLEngine.embed {cos:.6f}; launches {counts}; with the "
+                 f"embed beside it {time.perf_counter() - t_phase:.1f} s")
+    if cos < COS_MIN:
+        raise AssertionError(f"Stage1SweepRunner vs PenCLEngine.embed cosine {cos} < {COS_MIN}")
+    return counts
+
+
 def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
     """The 5 demo pairs through ``run_pencl_inference`` (fused-stack path),
     then through ``PenCLEngine(tower_impl="graph")``, on one seeded
@@ -2018,9 +2255,10 @@ def phase_pencl(root: pathlib.Path, stage1: dict, pencl) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts["pencl_bf16"] = K.launch_counts()
+    check_path("pencl_bf16", counts["pencl_bf16"])
+    counts["sweep_stage1"] = stage1_sweep(engine, cli.DEMO_CAPTIONS, cli.DEMO_SEQUENCES)
     del engine
     torch.cuda.empty_cache()
-    check_path("pencl_bf16", counts["pencl_bf16"])
     cos_t, cos = min_cosine(torch.as_tensor(b_t), z_t), min_cosine(torch.as_tensor(b_p), z_p)
     say("pencl", f"bf16 towers (PenCLEngine, the four quant knobs none), {n} demo pairs: "
                  f"{wall:.2f} s wall; min cosine vs the CLI's int8 latents: z_p {cos:.6f}, z_t "
@@ -2358,6 +2596,7 @@ def phase_stage1_steps(stage1: dict) -> None:
     )
     from biom3_tpu_torch.config import Config, PenCLConfig
     from biom3_tpu_torch.models.pencl import PenCL
+    from biom3_tpu_torch.training.optim import state_bytes
     from biom3_tpu_torch.training.stage1_task import make_stage1_optimizer, make_stage1_train_step
     from biom3_tpu_torch.training.state import TrainState
 
@@ -2409,8 +2648,56 @@ def phase_stage1_steps(stage1: dict) -> None:
             prof = profile_ms(lambda: step(batches[B]), calls=2)
             say("stage1", f"{mode} profile at B={B}, device ms per step: " + json.dumps(
                 {k: round(v, 3) for k, v in prof.items()}))
+            stage1_optimizer_steps(model, init, cfg, lrs, batches[B], losses,
+                                   state_bytes(state.tx))
         del model, state, step
         torch.cuda.empty_cache()
+
+
+STAGE1_OPT_STEPS = 3
+
+
+def stage1_optimizer_steps(model, init: dict, cfg, lrs, batch, adamw_losses,
+                           adamw_bytes: int) -> None:
+    """``STAGE1_OPT_STEPS`` ``layer_block`` steps from the seeded weights
+    with each compressed optimizer (the config keys ``"optimizer":
+    "adafactor"``, ``"moment_dtype": "bfloat16"``), as the AdamW run
+    started: finite losses beside AdamW's first ones, ms per step and the
+    state's bytes beside AdamW's."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_stage1 import PROTEIN_MASK_ID, TEXT_MASK_ID
+    from biom3_tpu_torch.config import Config
+    from biom3_tpu_torch.training.optim import describe, state_bytes
+    from biom3_tpu_torch.training.stage1_task import make_stage1_optimizer, make_stage1_train_step
+    from biom3_tpu_torch.training.state import TrainState
+
+    t_phase = time.perf_counter()
+    for extra in ({"optimizer": "adafactor"}, {"moment_dtype": "bfloat16"}):
+        model.load_state_dict(init)
+        torch.manual_seed(SEED)   # dropout, as in the AdamW run
+        state = TrainState(model, make_stage1_optimizer(Config({**lrs.to_dict(), **extra}),
+                                                        model))
+        step = make_stage1_train_step(state, temperature=cfg.temperature, dataset_type="pfam",
+                                      text_mask_id=TEXT_MASK_ID, protein_mask_id=PROTEIN_MASK_ID)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(step(batch)["loss"]) for _ in range(STAGE1_OPT_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / STAGE1_OPT_STEPS * 1e3
+        size = state_bytes(state.tx)
+        say("stage1", f"layer_block with {describe(state.tx)} ({json.dumps(extra)}): "
+                      f"{STAGE1_OPT_STEPS} steps at B={batch['protein_tokens'].shape[0]}, "
+                      f"losses {[round(x, 4) for x in losses]} (AdamW's first "
+                      f"{[round(float(x), 4) for x in adamw_losses[:STAGE1_OPT_STEPS]]}), "
+                      f"{ms:.1f} ms/step wall (the "
+                      f"first step allocates the state); optimizer state {size / 2**20:.1f} MiB "
+                      f"against AdamW's {adamw_bytes / 2**20:.1f} MiB")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{describe(state.tx)}: non-finite losses {losses}")
+        del state, step
+        torch.cuda.empty_cache()
+    say("stage1", f"the compressed optimizers' steps took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_esm2_3b_layer() -> None:
@@ -2577,6 +2864,7 @@ def main() -> None:
         counts.update(phase_e2e(root / "e2e", files))
         counts.update(phase_serve(root / "e2e", files))
         counts.update(phase_sample_clis(root / "e2e", files))
+        counts.update(phase_sweep(root / "e2e", files))
         counts.update(phase_train_stage2(root / "e2e"))
         counts.update(phase_pencl(root, stage1, pencl))
         del pencl

@@ -81,6 +81,9 @@ SLICE_MODULES = [
     "biom3_tpu_torch.data.stage2_data",
     "biom3_tpu_torch.training.stage2_task",
     "biom3_tpu_torch.cli.run_train_stage2",
+    "biom3_tpu_torch.pipeline.sweep",
+    "biom3_tpu_torch.cli.run_eval",
+    "biom3_tpu_torch.cli.run_supervised",
 ]
 
 
@@ -180,6 +183,14 @@ def _attn3(**over):
     a = dict(qkv=_t(2, 32, 48))
     a.update(over)
     return stage3_attention_core(a["qkv"], heads=2, local_heads=1, window=8)
+
+
+def _attn3_i8(**over):
+    from biom3_tpu_torch.ops.kernels import stage3_attention_core_i8
+
+    a = dict(qkv=_t(2, 32, 48))
+    a.update(over)
+    return stage3_attention_core_i8(a["qkv"], heads=2, local_heads=1, window=8)
 
 
 def _dense(**over):
@@ -331,6 +342,8 @@ BAD_INPUTS = {
                       dict(a=_t(16, 8).t())),
     "stage3_attention_core": (_attn3, dict(qkv=_t(2, 32, 48).int()), dict(qkv=_t(2, 32, 47)),
                               dict(qkv=_t(32, 2, 48).transpose(0, 1))),
+    "stage3_attention_core_i8": (_attn3_i8, dict(qkv=_t(2, 32, 48).half()),
+                                 dict(qkv=_t(2, 32, 50)), dict(qkv=_t(32, 2, 48).transpose(0, 1))),
     "dense_attention": (_dense, dict(qkv=_t(2, 16, 48).half()), dict(qkv=_t(2, 16, 50)),
                         dict(qkv=_t(16, 2, 48).transpose(0, 1))),
     "bias_layernorm": (_bias_ln, dict(bias=_t(2, 16, dtype=torch.float64)),
@@ -402,6 +415,21 @@ def test_batcher_copy_equals_the_jax_package():
     for name in ("BatcherStats", "MicroBatcher"):
         assert inspect.getsource(getattr(batcher, name)) == \
             inspect.getsource(getattr(jax_batcher, name)), name
+
+
+def test_supervisor_copy_equals_the_jax_package():
+    """``cli/run_supervised.py`` is pure Python: the port's file is the JAX
+    package's, its package name aside."""
+    jax_src = (REPO / "biom3_tpu" / "cli" / "run_supervised.py").read_text()
+    port_src = (REPO / "biom3_tpu_torch" / "cli" / "run_supervised.py").read_text()
+    assert port_src == jax_src.replace("biom3_tpu.", "biom3_tpu_torch.")
+    r = subprocess.run([sys.executable, "-m", "biom3_tpu_torch.cli.run_supervised",
+                        "--max_restarts", "1", "--backoff_s", "0", "--", sys.executable, "-c",
+                        "import sys; sys.exit(0 if '--resume' in sys.argv else 3)"],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "attempt 1" in r.stdout and "--resume" in r.stdout
+    assert "training finished cleanly" in r.stdout
 
 
 def test_quant_copy_equals_the_jax_package():

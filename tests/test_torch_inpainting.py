@@ -278,7 +278,10 @@ def test_chunk_fn_x_new_equal_jax(models, k, chunk):
     for _ in range(n_chunks):
         jx, _ = jstep(variables, jnp.asarray(z[:B]), jnp.asarray(inv), jx, jnp.asarray(jt0),
                       jnp.asarray(kd), jnp.asarray(kd), jnp.asarray(fresh), jnp.asarray(x_new))
-        fresh[:] = False
+        # a new array, never the old one written in place: the dispatched
+        # chunk may still read the host buffer it was given (the diagnosis
+        # and its counts are in CHANGES.md)
+        fresh = np.zeros(B, bool)
         jt0 = np.minimum(jt0 + chunk * k, L)
     want = np.asarray(jx)
 
