@@ -40,7 +40,13 @@ beside SDPA with the band mask on the 8 band heads alone (the linear
 heads have no library call), its FLOPs 4·Dh per band pair plus 4·L·Dh²
 a linear head, held per 32-column head group; its profile shows its
 three launches (the linear heads' statistics, their ctx, and the band
-heads with the linear output rows).  Then the ``stage3_graph`` path's
+heads with the linear output rows).  ``stage3_attention_core_i8`` (the
+band heads' QKᵀ and PV in int8) at the same two batches on the same
+kind of qkv, beside ``stage3_attention_core`` (bf16) on the same qkv, as
+no library call computes it: its ops 4·Dh a band pair at the int8 peak
+(the linear heads' at bf16's), its bytes qkv in and the head outputs
+out; the profile shows its quantize pre-pass, the linear heads' two
+launches and the band kernel with the linear output rows.  Then the ``stage3_graph`` path's
 forward, ``ProteoScribe(attn_impl="kernel")`` in bf16 at full width on
 seeded weights, at B=2 and B=32: ms per forward by CUDA events and a
 device profile by kernel.  Prints one JSON object with the card's name and
@@ -65,7 +71,7 @@ import sys
 from biom3_tpu_torch.cli.measure_gemm import nbytes
 
 REL_TOL = 2e-2
-PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
+PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM data sheet
 B, H, L, DH = 2, 20, 1024, 64
 LENGTHS = (1024, 400)
 BERT_L, BERT_H, BERT_BATCHES = 512, 12, (2, 16)
@@ -79,6 +85,7 @@ LAUNCHES = (("esm2_bwd_stage", "stage"), ("esm2_bwd_dq", "pass1_dq"),
             ("dense_attn", "dense"), ("local_attn", "local"),
             ("stage3_linear_stats", "linear_stats"), ("stage3_linear_ctx", "linear_ctx"),
             ("stage3_local_wgmma", "band_and_linear_rows"),
+            ("stage3_i8_quant", "i8_quant"), ("stage3_i8_band", "i8_band_and_linear_rows"),
             ("stage3_bwd_dq", "band_pass1_dq"), ("stage3_bwd_dkv", "band_pass2_dkv"),
             ("lin_bwd1", "linear_bwd1"), ("lin_bwd2", "linear_bwd2"), ("lin_bwd3", "linear_bwd3"))
 LIN_CHUNKS = (64, 128, 256, 512, 1024)   # --lin-chunk-sweep: rows a linear-heads backward block
@@ -161,6 +168,7 @@ def cases(g) -> dict[str, dict]:
         **{f"local_window_attention_B{b}": local(b, g) for b in LOCAL_BATCHES},
         **{f"stage3_attention_core_B{b}": stage3(b, g) for b in LOCAL_BATCHES},
         **{f"stage3_attention_bwd_B{b}": stage3_bwd(b, g) for b in LOCAL_BATCHES},
+        **{f"stage3_attention_core_i8_B{b}": stage3_i8(b, g) for b in LOCAL_BATCHES},
     }
 
 
@@ -213,6 +221,29 @@ def stage3(b: int, g) -> dict:
             "plain": lambda: K.stage3_attention_core_plain(qkv, **kw),
             "lib": lambda: F.scaled_dot_product_attention(*band_heads, attn_mask=band),
             "flops": flops, "work_flops": flops, "bytes": nbytes(qkv) + b * L * d * 2,
+            "group": LOCAL_DH}
+
+
+def stage3_i8(b: int, g) -> dict:
+    """``stage3_attention_core_i8`` at Stage-3 batch b (the shapes of
+    ``stage3``) beside ``stage3_attention_core`` (bf16) on the same qkv.
+    Ops: 4·Dh a band pair at the int8 peak and the linear heads' 4·L·Dh²
+    at bf16's, counted as int8-peak equivalents; bytes: qkv in, the head
+    outputs out."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    d = STAGE3_HEADS * LOCAL_DH
+    qkv = torch.randn(b, L, 3 * d, generator=g, device=g.device).bfloat16()
+    lin_flops = 4 * b * (STAGE3_HEADS - LOCAL_H) * L * LOCAL_DH ** 2
+    ops = 4 * LOCAL_DH * band_pairs(b, L, LOCAL_W, LOCAL_H) + lin_flops * PEAK_INT8 / PEAK_BF16
+    kw = dict(heads=STAGE3_HEADS, local_heads=LOCAL_H, window=LOCAL_W)
+    return {"run": lambda: K.stage3_attention_core_i8(qkv, **kw),
+            "plain": lambda: K.stage3_attention_core_i8_plain(qkv, **kw),
+            "lib": lambda: K.stage3_attention_core(qkv, **kw),
+            "lib_name": "stage3_attention_core (bf16)", "peak": PEAK_INT8,
+            "flops": ops, "work_flops": ops, "bytes": nbytes(qkv) + b * L * d * 2,
             "group": LOCAL_DH}
 
 
@@ -372,10 +403,12 @@ def measure(case: dict, iters: int) -> dict:
         raise AssertionError(f"max|Δ|/max|ref| = {err:.3e} > {REL_TOL}")
     ms = event_ms(case["run"], iters)
     library_ms = event_ms(case["lib"], iters)
-    bound_ms = max(case["flops"] / PEAK_BF16, case["bytes"] / PEAK_BYTES) * 1e3
+    bound_ms = max(case["flops"] / case.get("peak", PEAK_BF16),
+                   case["bytes"] / PEAK_BYTES) * 1e3
     launches = launch_ms(case["run"])
     device_ms = sum(launches.values())
-    return {"max_rel_err": err, "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+    return {"max_rel_err": err, "ms": ms, "library_ms": library_ms,
+            "library": case.get("lib_name", "PyTorch"), "bound_ms": bound_ms,
             "tflops": case["flops"] / ms * 1e-9, "work_tflops": case["work_flops"] / ms * 1e-9,
             "bound_share": bound_ms / ms, "over_library": ms / library_ms,
             "launch_ms": launches, "device_ms": device_ms,

@@ -49,8 +49,7 @@ SIGNATURES = {
     "b3_stage3_bwd_lin_max_pairs": [],
     "b3_stage3_bwd_ws_floats": [_I, _I],
     "b3_stage3_attention_core": [_P, _P, _P] + [_I] * 10 + [_P],
-    "b3_stage3_attention_linear": [_P, _P, _P] + [_I] * 10 + [_P],
-    "b3_stage3_attention_i8": [_P] * 8 + [_I] * 6 + [_P],
+    "b3_stage3_attention_i8": [_P] * 10 + [_I] * 11 + [_P],
     "b3_dense_attention": [_P, _P, _I, _I, _I, _I, _P],
     "b3_bias_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "b3_layernorm": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],

@@ -277,7 +277,10 @@ def stage3_attention_core(qkv: torch.Tensor, *, heads: int, local_heads: int,
         raise ValueError(f"stage3_attention_core kernel needs head dim 32 or 64 and a "
                          f"window that tiles by {tile}; got Dh={dh} window={window}")
     out = torch.empty((B, L, d), dtype=qkv.dtype, device=qkv.device)
-    _launch_stage3("b3_stage3_attention_core", qkv, out, heads, local_heads, window)
+    floats, plan = _stage3_linear_scratch(qkv, heads, local_heads)
+    ws = torch.empty(floats, dtype=torch.float32, device=qkv.device) if floats else None
+    _build.launch("b3_stage3_attention_core", _ptr(qkv), _ptr(out), _ptr(ws), B, L, d, heads,
+                  local_heads, window, *plan, _stream(qkv))
     stage3_attention_core.launches += 1
     return out
 
@@ -295,21 +298,18 @@ def _check_stage3_qkv(qkv: torch.Tensor, heads: int, local_heads: int, window: i
     return d3 // 3
 
 
-def _launch_stage3(entry: str, qkv, out, heads: int, local_heads: int, window: int) -> None:
-    """``csrc/stage3_attn.cu``'s launches: ``b3_stage3_attention_core``
-    (every head) or ``b3_stage3_attention_linear`` (the linear heads)."""
+def _stage3_linear_scratch(qkv, heads: int, local_heads: int):
+    """The linear heads' split (``stage3_linear_plan``) and the f32 scratch
+    it takes, as ``csrc/stage3_linear.cuh``'s LinWs reads it: per pair the
+    statistics of each 64 rows (max and Σexp a channel), ctx, and with more
+    than one chunk the chunks' parts of ctx → (floats, (chunks, per, srows,
+    lrows))."""
     B, L, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // heads
+    dh = d3 // 3 // heads
     pairs = B * (heads - local_heads)
     chunks, per, srows, lrows = stage3_linear_plan(L, pairs, _sm_count(qkv.device.index))
-    # f32 scratch as csrc/stage3_attn.cu's LinWs reads it: per pair the
-    # statistics of each 64 rows (max and Σexp a channel), ctx, and with
-    # more than one chunk the chunks' parts of ctx
     floats = pairs * (-(-L // LIN_MIN_ROWS) * 2 * dh + dh * dh + (chunks > 1) * chunks * dh * dh)
-    ws = torch.empty(floats, dtype=torch.float32, device=qkv.device) if pairs else None
-    _build.launch(entry, _ptr(qkv), _ptr(out), _ptr(ws), B, L, d, heads, local_heads, window,
-                  chunks, per, srows, lrows, _stream(qkv))
+    return floats, (chunks, per, srows, lrows)
 
 
 LIN_MIN_ROWS = 64    # stage3_attention_core: least sequence rows a linear-heads chunk
@@ -360,37 +360,142 @@ def stage3_attention_core_plain(qkv, *, heads, local_heads, window):
 # --------------------------------------------------------------------------
 
 def stage3_attention_core_i8(qkv: torch.Tensor, *, heads: int, local_heads: int, window: int,
-                             codes: bool = False):
+                             codes: bool = False, pq: bool = False):
     """``stage3_attention_core`` with the band-local heads' QKᵀ and PV in
     int8 (``fused_stack_logits(attn_quant="int8")``, stack_kernel_tpu.py:
     112-180); the linear heads as there, in the compute dtype.  q and k are
     quantized per (head, token) over Dh, v per (head, channel) over L, p
     per (head, query) after the f32 softmax.  ``codes=True`` also returns
     ``(q8, sq, k8, sk, v8, sv)``: q8, k8 (B, local, L, Dh) int8, sq, sk (B,
-    local, L) f32, v8 (B, local, Dh, L) int8 and sv (B, local, Dh) f32."""
+    local, L) f32, v8 (B, local, Dh, L) int8 and sv (B, local, Dh) f32.
+    ``pq=True`` (a check of the kernel's p codes; on the card only) also
+    returns them as uint8 (B, local, L, 3·window) at
+    ``stage3_i8_band_plain``'s band positions, 0 outside a row's band."""
     d = _check_stage3_qkv(qkv, heads, local_heads, window)
     B, L, _ = qkv.shape
     if not qkv.is_cuda:
+        if pq:
+            raise ValueError("pq=True reads the kernel's p codes: a CUDA tensor only")
         return stage3_attention_core_i8_plain(qkv, heads=heads, local_heads=local_heads,
                                               window=window, codes=codes)
     dh = d // heads
     if dh not in (32, 64) or (local_heads and window % 4):
         raise ValueError(f"stage3_attention_core_i8 kernel needs head dim 32 or 64 and a window "
                          f"that is a multiple of 4; got Dh={dh} window={window}")
+    if local_heads and stage3_i8_band_smem(L, window, dh) > I8_MAX_SMEM:
+        raise ValueError(f"stage3_attention_core_i8 kernel: the band of window {window} at "
+                         f"L={L}, Dh={dh} does not fit one block's shared memory")
     dev, nl = qkv.device, local_heads
+    Lp = -(-L // 32) * 32
+    # two buffers, carved at 16-byte offsets (L % 4 == 0): int8 q8, k8 (B,
+    # local, L, Dh) and v8 (B, local, Dh, Lp), keys in PV order; f32 sq, sk
+    # (B, local, L), sv (B, local, Dh) and the linear heads' scratch
+    n_qk, n_s = B * nl * L * dh, B * nl * L
+    floats, plan = _stage3_linear_scratch(qkv, heads, nl)
     out = torch.empty((B, L, d), dtype=qkv.dtype, device=dev)
-    q8, k8 = (torch.empty((B, nl, L, dh), dtype=torch.int8, device=dev) for _ in range(2))
-    sq, sk = (torch.empty((B, nl, L), dtype=torch.float32, device=dev) for _ in range(2))
-    v8 = torch.empty((B, nl, dh, L), dtype=torch.int8, device=dev)
-    sv = torch.empty((B, nl, dh), dtype=torch.float32, device=dev)
-    if nl:
-        _build.launch("b3_stage3_attention_i8", _ptr(qkv), _ptr(out), _ptr(q8), _ptr(sq),
-                      _ptr(k8), _ptr(sk), _ptr(v8), _ptr(sv), B, L, d, heads, nl, window,
-                      _stream(qkv))
-    if heads > nl:
-        _launch_stage3("b3_stage3_attention_linear", qkv, out, heads, nl, window)
+    i8 = torch.empty(2 * n_qk + B * nl * dh * Lp, dtype=torch.int8, device=dev)
+    f32 = torch.empty(2 * n_s + B * nl * dh + floats, dtype=torch.float32, device=dev)
+    pq_out = (torch.zeros((B, nl, L, 3 * window), dtype=torch.uint8, device=dev)
+              if pq and nl else None)
+    a, f = i8.data_ptr(), f32.data_ptr()
+    _build.launch("b3_stage3_attention_i8", _ptr(qkv), _ptr(out), a, f, a + n_qk, f + 4 * n_s,
+                  a + 2 * n_qk, f + 8 * n_s, f + 4 * (2 * n_s + B * nl * dh) if floats else None,
+                  _ptr(pq_out), B, L, d, heads, nl, window,
+                  stage3_i8_quant_plan(L, B * nl, _sm_count(dev.index)), *plan, _stream(qkv))
     stage3_attention_core_i8.launches += 1
-    return (out, (q8, sq, k8, sk, v8, sv)) if codes else out
+    result = [out]
+    if codes:
+        q8, k8 = i8[:n_qk].view(B, nl, L, dh), i8[n_qk:2 * n_qk].view(B, nl, L, dh)
+        order = torch.tensor(stage3_i8_pv_order(), device=dev)
+        keys = torch.empty_like(order).scatter_(0, order, torch.arange(32, device=dev))
+        v8 = i8[2 * n_qk:].view(B, nl, dh, Lp // 32, 32)[..., keys].view(B, nl, dh, Lp)
+        sq, sk = f32[:n_s].view(B, nl, L), f32[n_s:2 * n_s].view(B, nl, L)
+        sv = f32[2 * n_s:2 * n_s + B * nl * dh].view(B, nl, dh)
+        result.append((q8, sq, k8, sk, v8[..., :L].contiguous(), sv))
+    if pq:
+        result.append(pq_out if nl else torch.zeros((B, 0, L, 3 * window), dtype=torch.uint8,
+                                                    device=dev))
+    return result[0] if len(result) == 1 else tuple(result)
+
+
+I8_BQ, I8_KT = 128, 128       # stage3_attention_core_i8: queries a band block, keys a tile
+I8_MAX_SMEM = 232448          # dynamic shared memory one block may have on an H100
+
+
+def stage3_i8_pv_order() -> list[int]:
+    """The key (0..31) at each position of a 32-key group of the kernel's
+    v codes.  A thread's S accumulator (wgmma m64nN s32) holds the columns
+    8q + 2·(lane % 4) + e of its rows r and r + 8; the s8 register A
+    fragment of a k32 step holds, in registers 0 (row r) and 1 (row r + 8),
+    the keys 4·(lane % 4) + i, and in registers 2 and 3 those + 16.  The
+    kernel packs a row's q = 0, 1 into the first register of the pair and
+    q = 2, 3 into the second, so column c = 8q + 2t + e lands at position
+    16·(q // 2) + 4t + 2·(q % 2) + e; v8 keeps each key at its column's
+    position (``csrc/stage3_attn_i8.cu``'s ``pv_pos``)."""
+    order = [0] * 32
+    for c in range(32):
+        q, t, e = c // 8, (c % 8) // 2, c % 2
+        order[16 * (q // 2) + 4 * t + 2 * (q % 2) + e] = c
+    return order
+
+
+@functools.cache
+def stage3_i8_quant_plan(L: int, pairs: int, sms: int = 132) -> int:
+    """Rows a block of ``stage3_attention_core_i8``'s quantize pre-pass
+    takes (a multiple of 128): the sequence in the fewest chunks that give
+    about two blocks an SM over ``pairs`` (batch row, band head) pairs, at
+    most one a 128 rows.  Every block reads its head's whole v for the
+    column amax, so fewer chunks read less; at L=1024 and 8 band heads B=4
+    (32 pairs) gets 8 chunks of 128 rows (256 blocks), B=32 (256) 2 of
+    512."""
+    tiles = -(-L // 128)
+    chunks = max(1, min(tiles, -(-2 * sms // max(pairs, 1))))
+    return -(-tiles // chunks) * 128
+
+
+def stage3_i8_band_tiles(L: int, window: int) -> list[tuple[int, int]]:
+    """(first key, 128-key tiles) of each 128-query band block of
+    ``stage3_attention_core_i8``: the union of its rows' bands, its first
+    key rounded down to a multiple of 32 (a PV key group starts there)."""
+    plan = []
+    for q0 in range(0, L, I8_BQ):
+        last = min(q0 + I8_BQ, L) - 1
+        lo = max(0, (q0 // window - 1) * window)
+        hi = min(L, (last // window + 2) * window)
+        kt0 = lo // 32 * 32
+        plan.append((kt0, -(-(hi - kt0) // I8_KT)))
+    return plan
+
+
+def stage3_i8_half_tiles(L: int, window: int) -> list[list[tuple[int, bool]]]:
+    """The 64-key half tiles each 64-row warpgroup of
+    ``stage3_attention_core_i8``'s band kernel computes, in its block's
+    tiles: (first key, whether every valid row of the warpgroup sees all
+    its keys, so that it skips the masks); one list a warpgroup with a row
+    below L.  A half tile outside every row's band is not computed."""
+    out = []
+    for blk, (kt0, tiles) in enumerate(stage3_i8_band_tiles(L, window)):
+        for row0 in range(blk * I8_BQ, min(L, blk * I8_BQ + I8_BQ), 64):
+            last = min(row0 + 63, L - 1)
+            u_lo = max(0, (row0 // window - 1) * window)     # the union of the rows' bands
+            u_hi = min(L, (last // window + 2) * window)
+            f_lo = max(0, (last // window - 1) * window)     # the keys every row sees
+            f_hi = min(L, (row0 // window + 2) * window)
+            out.append([(k0, f_lo <= k0 and k0 + 64 <= f_hi)
+                        for k0 in range(kt0, kt0 + I8_KT * tiles, 64)
+                        if k0 < u_hi and k0 + 64 > u_lo])
+    return out
+
+
+@functools.cache
+def stage3_i8_band_smem(L: int, window: int, dh: int) -> int:
+    """Shared memory of ``stage3_attention_core_i8``'s band kernel: the q
+    tile and every staged tile (k codes, v codes, k scales padded to 1 KB)
+    of the widest band, its barriers, 1 KB of alignment; at least the
+    linear heads' output rows' (ctx and a q' tile in f32)."""
+    tiles = max(n for _, n in stage3_i8_band_tiles(L, window))
+    band = 1024 + I8_BQ * dh + tiles * (2 * I8_KT * dh + 1024) + (tiles + 1) * 8
+    return max(band, (dh * dh + dh * I8_BQ) * 4 + 1024)
 
 
 def _i8_codes(x: torch.Tensor, dim: int):
@@ -406,10 +511,7 @@ def _i8_codes(x: torch.Tensor, dim: int):
 def stage3_attention_core_i8_plain(qkv, *, heads, local_heads, window, codes=False):
     """The TPU kernel's int8 band product on (B, L, 3d) rows: each window's
     queries against the keys of windows w-1..w+1 that exist (the edge
-    windows' 2W), here as a masked 3W band.  The sums of code products are
-    exact, as the kernel's int32 ones: QKᵀ as f32 matrix products (Dh·127²
-    < 2^24), PV, up to 3W·127², as f64 ones, rounded to f32 as the kernel
-    converts its int32 sums."""
+    windows' 2W), here as a masked 3W band (``stage3_i8_band_plain``)."""
     B, L, d3 = qkv.shape
     d = d3 // 3
     dh, nl = d // heads, local_heads
@@ -419,27 +521,59 @@ def stage3_attention_core_i8_plain(qkv, *, heads, local_heads, window, codes=Fal
     k8, sk = _i8_codes(k[:, :nl], -1)
     v8, sv = _i8_codes(v[:, :nl].transpose(-1, -2), -1)          # (B, nl, Dh, L) over L
     if nl:
-        nw, W = L // window, window
-        qw = q8.float().reshape(B, nl, nw, W, dh)
-        kw = _look_around(k8.float().reshape(B, nl, nw, W, dh))   # (B, nl, nw, 3W, Dh)
-        skw = _look_around(sk.reshape(B, nl, nw, W, 1))[..., 0]  # (B, nl, nw, 3W)
-        dots = qw @ kw.transpose(-1, -2)                          # int32 sums, exact
-        dots = dots * sq.reshape(B, nl, nw, W, 1) * skw[..., None, :]
-        dots = (dots * dh ** -0.5).masked_fill(_band_mask(nw, W, qkv.device)[:, None, :],
-                                               float("-inf"))
-        e = torch.exp(dots - dots.amax(-1, keepdim=True))
-        p = e / e.sum(-1, keepdim=True)
-        pamax = p.amax(-1, keepdim=True).clamp(min=1e-6)
-        pq = torch.round(p * _quant_div(127.0, pamax))            # 0..127
-        vw = _look_around(v8.float().transpose(-1, -2).reshape(B, nl, nw, W, dh))
-        acc = (pq.double() @ vw.double()).float()                # int32 sums, exact
-        o = acc * sv[:, :, None, None, :] * (pamax * (1.0 / 127.0))
-        outs.append(o.reshape(B, nl, L, dh).to(qkv.dtype))
+        o, _ = stage3_i8_band_plain(q8, sq, k8, sk, v8, sv, window=window)
+        outs.append(o.to(qkv.dtype))
     if heads > nl:
         outs.append(linear_attention(q[:, nl:], k[:, nl:], v[:, nl:]))
     out = torch.cat(outs, dim=1).transpose(1, 2).reshape(B, L, d)
     return (out, (q8.contiguous(), sq.contiguous(), k8.contiguous(), sk.contiguous(),
                   v8.contiguous(), sv.contiguous())) if codes else out
+
+
+def stage3_i8_band_plain(q8, sq, k8, sk, v8, sv, *, window, rounding="plain"):
+    """The band heads' int8 attention from their codes (q8, k8 (B, nl, L,
+    Dh), v8 (B, nl, Dh, L)) → (f32 output (B, nl, L, Dh), p codes (B, nl,
+    L, 3W) at band position j = key − (w−1)·W, 0 outside the band).  The
+    sums of code products are exact, as the kernel's int32 ones: QKᵀ as f32
+    matrix products (Dh·127² < 2^24), PV, up to 3W·127², as f64 ones,
+    rounded to f32 as the kernel converts its int32 sums.
+
+    ``rounding="plain"``: the TPU kernel's, s = int32 · s_q · s_k ·
+    Dh^-0.5, p = softmax(s), pq = rint(p · (127 / max p)).
+    ``rounding="kernel"``: the band kernel's, x = int32 · s_k, m = max x ·
+    c with c = s_q · Dh^-0.5 · log2 e, e = exp2(fma(x, c, −m)), pq =
+    rint(127 · e), pamax = 1 / Σe (``csrc/stage3_attn_i8.cu``; exp2 here is
+    torch's, the kernel's the hardware's approximation)."""
+    if rounding not in ("plain", "kernel"):
+        raise ValueError(f"rounding must be 'plain' or 'kernel', got {rounding!r}")
+    B, nl, L, dh = q8.shape
+    nw, W = L // window, window
+    qw = q8.float().reshape(B, nl, nw, W, dh)
+    kw = _look_around(k8.float().reshape(B, nl, nw, W, dh))   # (B, nl, nw, 3W, Dh)
+    skw = _look_around(sk.reshape(B, nl, nw, W, 1))[..., 0]  # (B, nl, nw, 3W)
+    dots = qw @ kw.transpose(-1, -2)                          # int32 sums, exact
+    band = _band_mask(nw, W, q8.device)[:, None, :]
+    sqw = sq.reshape(B, nl, nw, W, 1)
+    if rounding == "plain":
+        s = dots * sqw * skw[..., None, :]
+        s = (s * dh ** -0.5).masked_fill(band, float("-inf"))
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+        pamax = p.amax(-1, keepdim=True).clamp(min=1e-6)
+        pq = torch.round(p * _quant_div(127.0, pamax))            # 0..127
+    else:
+        x = (dots * skw[..., None, :]).masked_fill(band, float("-inf"))
+        log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+        c = sqw * (log2e / torch.tensor(float(dh)).sqrt())
+        m = x.amax(-1, keepdim=True) * c
+        y = (x.double() * c.double() - m.double()).float()      # one rounding, as an FMA
+        e = torch.exp2(y).masked_fill(band, 0.0)
+        pamax = _quant_div(1.0, e.sum(-1, keepdim=True)).clamp(min=1e-6)
+        pq = torch.round(e.double() * 127.0).float()               # one rounding, as an FMA
+    vw = _look_around(v8.float().transpose(-1, -2).reshape(B, nl, nw, W, dh))
+    acc = (pq.double() @ vw.double()).float()                     # int32 sums, exact
+    o = acc * sv[:, :, None, None, :] * (pamax * (1.0 / 127.0))
+    return o.reshape(B, nl, L, dh), pq.reshape(B, nl, L, 3 * W).to(torch.uint8)
 
 
 # --------------------------------------------------------------------------

@@ -15,11 +15,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``gemm_i8``'s IGMMA, ``flash_attention``'s, ``dense_attention``'s,
    ``esm2_attention``'s, ``esm2_attention_bwd``'s two passes, the bf16
    ``local_window_attention``'s, ``stage3_attention_core``'s band heads'
-   and ``stage3_attention_bwd``'s two band passes' HGMMA, all with UTMALDG
+   and ``stage3_attention_bwd``'s two band passes' HGMMA and
+   ``stage3_attention_core_i8``'s band kernel IGMMA, all with UTMALDG
    loads, ``gather_head``'s HGMMA (its head product), and no kernel of the
    library may show HMMA (the ``mma.sync`` route); a ``[ptxas]`` line gives the attention kernels'
    (``stage3_attention_core``'s three, ``stage3_attention_bwd``'s band
-   passes), their staging launches' and the ``gemm_dx``/``gemm_dw``
+   passes, ``stage3_attention_core_i8``'s pre-pass and band kernel), their
+   staging launches' and the ``gemm_dx``/``gemm_dw``
    kernels' registers and spills (``nvcc -Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card at full
    width (Stage 3: L=1024, d=512, 8+8 heads, FF 2048; BERT: L=512, E=768,
@@ -75,7 +77,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and PV in int8; its q, k, v codes and scales bit-equal to the plain
    version's, at Stage-3 B=4 and B=32 and on ``stage3_attention_core``'s
    edge shapes, the output per head group, the same bits on a second call,
-   timed beside its bound and the bf16 core), then
+   timed beside its bound and the bf16 core; its p codes, at B=4 and B=32,
+   at most one step off the plain version's, and how many are), then
    the host µs of one wrapper call.  ``stage3_attention_core``
    is also checked at head dim 64, W = 32 and 8, no and all heads
    band-local, and L = 1000 and 200, and must give the same bits on a
@@ -413,6 +416,7 @@ SASS_NEEDS = {"gemm_bias_act_wgmma": ("HGMMA", "UTMALDG"), "gemm_i8_wgmma": ("IG
               "stage3_local_wgmma": ("HGMMA", "UTMALDG"),
               "stage3_bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
               "stage3_bwd_dkv_wgmma": ("HGMMA", "UTMALDG"),
+              "stage3_i8_band_wgmma": ("IGMMA", "UTMALDG"),
               # the head product on wgmma from shared memory the warps fill
               "gather_head": ("HGMMA",)}
 # kernels whose registers and spills the build prints (``ptxas.txt``),
@@ -422,7 +426,7 @@ PTXAS_SHOW = ("flash_attn_wgmma_kernel", "dense_attn_wgmma_kernel", "esm2_attn_w
               "esm2_bwd_stage_kernel", "gemm_dx_wgmma", "gemm_dw_wgmma", "local_attn_wgmma_kernel",
               "stage3_local_wgmma_kernel", "stage3_linear_stats_kernel", "stage3_linear_ctx_kernel",
               "stage3_bwd_dq_wgmma_kernel", "stage3_bwd_dkv_wgmma_kernel",
-              "stage3_i8_quant_kernel", "stage3_i8_band_kernel")
+              "stage3_i8_quant_kernel", "stage3_i8_band_wgmma_kernel")
 # kernels whose output must not change from call to call (no split sums
 # in another order, no atomics)
 DETERMINISTIC = {"gemm_dx", "gemm_dw", "layernorm", "layernorm_bwd", "col_sum",
@@ -534,7 +538,10 @@ def kernel_cases(B: int, Bb: int, esm_lengths, g) -> dict[str, list]:
 
     def case(name, *args, flops=0, out=0, lib=None, peak=PEAK_FLOPS, **kw):
         tensors = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
+        # the timed call leaves out ``codes=True``, which only the check reads
+        timed = {k: v for k, v in kw.items() if k != "codes"}
         return {"run": lambda: getattr(K, name)(*args, **kw),
+                "timed": lambda: getattr(K, name)(*args, **timed),
                 "plain": lambda: getattr(K, name + "_plain")(*args, **kw),
                 "flops": flops, "bytes": nbytes(*tensors) + out, "lib": lib, "peak": peak}
 
@@ -1058,7 +1065,7 @@ def time_cases(cases) -> dict:
     one, the library calls (CUDA events), and the bound of the cases."""
     from biom3_tpu_torch.cli.measure_pencl import event_ms
 
-    ms = event_ms(lambda: [c["run"]() for c in cases], TIMED_ITERS)
+    ms = event_ms(lambda: [c.get("timed", c["run"])() for c in cases], TIMED_ITERS)
     plain_ms = event_ms(lambda: [c["plain"]() for c in cases], TIMED_ITERS)
     libs = [c["lib"] for c in cases]
     library_ms = event_ms(lambda: [lib() for lib in libs], TIMED_ITERS) if all(libs) else None
@@ -1232,10 +1239,35 @@ def stage3_core_i8_b32(results: dict, g) -> None:
     entry = results["stage3_attention_core_i8"]
     entry.update(ms_b32=ms, bound_ms_b32=bound_ms, bf16_core_ms_b32=bf16_ms)
     entry["max_abs_err"] = max(entry["max_abs_err"], err_abs)
+    departures = {f"B={b}": i8_pq_departures(x, **kw)
+                  for b, x in ((4, qkv[:4].contiguous()), (32, qkv))}
+    entry["pq_departures"] = departures
     say("kernels", f"stage3_attention_core_i8, Stage-3 B=32: codes and scales bit-equal, max|Δ| "
-                   f"{err_abs:.3e} rel {err_rel:.3e} kernel {ms:.4f} ms bound {bound_ms:.4f} ms "
-                   f"({bound_ms / ms:.0%}); stage3_attention_core (bf16) on the same qkv "
-                   f"{bf16_ms:.4f} ms")
+                   f"{err_abs:.3e} rel {err_rel:.3e} kernel {ms:.4f} ms (B=4 {entry['ms']:.4f}) "
+                   f"bound {bound_ms:.4f} ms ({bound_ms / ms:.0%}); stage3_attention_core (bf16) "
+                   f"on the same qkv {bf16_ms:.4f} ms; p codes off the plain version's by one "
+                   f"step: " + ", ".join(f"{k} {n} of {t}" for k, (n, t) in departures.items()))
+
+
+def i8_pq_departures(qkv, **kw) -> tuple[int, int]:
+    """The band kernel's p codes (``stage3_attention_core_i8(pq=True)``)
+    against the plain version's from the same q, k, v codes: each may move
+    by one step at most (its rounding, ``stage3_i8_band_plain``) → (codes
+    that differ, codes in the bands)."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    _, codes, got = K.stage3_attention_core_i8(qkv, **kw, codes=True, pq=True)
+    _, want = K.stage3_i8_band_plain(*codes, window=kw["window"])
+    step = (got.int() - want.int()).abs()
+    if int(step.max()) > 1:
+        raise AssertionError(f"stage3_attention_core_i8: a p code {int(step.max())} steps off "
+                             f"the plain version's")
+    B, L, W = qkv.shape[0], qkv.shape[1], kw["window"]
+    nw = L // W
+    keys = sum(min(nw, w + 2) - max(0, w - 1) for w in range(nw)) * W * W   # band pairs a head
+    return int((step > 0).sum()), B * kw["local_heads"] * keys
 
 
 def stage3_bwd_b32(results: dict, g) -> None:

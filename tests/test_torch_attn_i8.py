@@ -151,3 +151,156 @@ def test_stack_apply_int8_equals_jax_stack_kernel():
         a, b = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
         cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
         assert cos.min() >= 0.999, cos.min()
+
+
+# --------------------------------------------------------------------------
+# the band kernel's plans (csrc/stage3_attn_i8.cu), as index arithmetic
+# --------------------------------------------------------------------------
+
+def _acc_cell(warp, lane, reg):
+    """wgmma m64nN s32 accumulator: register 4q + 2h + e of ``lane`` in
+    ``warp`` → (row, column) (PTX ISA, the D fragment of wgmma .m64nNk*)."""
+    q, h, e = reg // 4, (reg // 2) % 2, reg % 2
+    return 16 * warp + lane // 4 + 8 * h, 8 * q + 2 * (lane % 4) + e
+
+
+def _a_cell(warp, lane, reg, byte):
+    """wgmma k32 s8 register A fragment: byte ``byte`` of register ``reg``
+    → (row, k) (PTX ISA, the A fragment of wgmma .m64nNk32 with .s8)."""
+    return 16 * warp + lane // 4 + 8 * (reg % 2), 4 * (lane % 4) + byte + 16 * (reg // 2)
+
+
+def test_pv_order_is_the_accumulator_to_fragment_permutation():
+    """The kernel packs a thread's S codes of q = 0, 1 (one row) into one A
+    register and q = 2, 3 into the next: at every (row, k) of the fragment
+    that puts the code of key ``stage3_i8_pv_order()[k]``, checked cell by
+    cell over a warpgroup's 128 threads, and P·V on v8 in that order equals
+    P·V on v8 in key order."""
+    order = K.stage3_i8_pv_order()
+    assert sorted(order) == list(range(32))
+    S = np.arange(64 * 32).reshape(64, 32)          # any distinct values a (row, key)
+    A = np.full((64, 32), -1)
+    for warp in range(4):
+        for lane in range(32):
+            held = {}
+            for reg in range(16):                   # the four q of one 32-key group
+                row, col = _acc_cell(warp, lane, reg)
+                held[reg] = S[row, col]
+            for half in range(2):
+                for h in range(2):
+                    codes = [held[4 * (2 * half + qq) + 2 * h + e]
+                             for qq in range(2) for e in range(2)]
+                    for byte, code in enumerate(codes):
+                        A[_a_cell(warp, lane, 2 * half + h, byte)] = code
+    np.testing.assert_array_equal(A, S[:, order])
+    rng = np.random.default_rng(0)
+    p, v = rng.integers(0, 128, (64, 32)), rng.integers(-127, 128, (32, 8))
+    np.testing.assert_array_equal(p[:, order] @ v[order], p @ v)
+
+
+@pytest.mark.parametrize("L,pairs", [(1024, 32), (1024, 256), (1024, 16), (1024, 8),
+                                     (200, 6), (1000, 16), (128, 1), (4096, 4)])
+def test_quant_plan_fills_the_card_and_covers_every_row(L, pairs):
+    """Chunks of whole 128-row slices that cover the sequence once, the
+    fewest that give about two blocks an SM: at least a wave at Stage-3
+    B=4 (32 pairs), two chunks at B=32."""
+    rows = K.stage3_i8_quant_plan(L, pairs, 132)
+    chunks = -(-L // rows)
+    assert rows % 128 == 0 and (chunks - 1) * rows < L <= chunks * rows
+    assert chunks <= -(-L // 128)
+    if chunks < -(-L // 128):
+        assert chunks * pairs >= 2 * 132
+        assert (chunks - 1) * pairs < 2 * 132 or -(-L // (chunks - 1)) > rows
+    if (L, pairs) == (1024, 32):
+        assert (chunks, chunks * pairs) == (8, 256)
+    if (L, pairs) == (1024, 256):
+        assert (rows, chunks) == (512, 2)
+
+
+@pytest.mark.parametrize("L,window", [(1024, 128), (512, 32), (256, 8), (1000, 40), (200, 40),
+                                      (512, 64), (96, 96), (2400, 800)])
+def test_band_tiles_cover_each_rows_band(L, window):
+    """Every 128-query block's staged tiles start on a 32-key group and
+    hold the band (windows w-1..w+1 inside [0, L)) of each of its rows,
+    with no tile past the last key any row needs."""
+    plan = K.stage3_i8_band_tiles(L, window)
+    assert len(plan) == -(-L // 128)
+    for blk, (kt0, tiles) in enumerate(plan):
+        assert kt0 >= 0 and kt0 % 32 == 0 and tiles >= 1
+        rows = range(blk * 128, min(L, blk * 128 + 128))
+        lo = min(max(0, (r // window - 1) * window) for r in rows)
+        hi = max(min(L, (r // window + 2) * window) for r in rows)
+        assert kt0 <= lo and kt0 > lo - 32 and hi <= kt0 + 128 * tiles
+        assert kt0 + 128 * (tiles - 1) < hi
+    if (L, window) == (1024, 128):   # the Stage-3 band: three tiles, none wasted
+        assert plan[1:-1] == [(128 * (i - 1), 3) for i in range(1, 7)]
+    # each warpgroup's 64-key half tiles: every key of its rows' bands,
+    # none outside them all; the mask-free ones inside every row's band
+    halves = iter(K.stage3_i8_half_tiles(L, window))
+    for blk, (kt0, tiles) in enumerate(plan):
+        for row0 in range(blk * 128, min(L, blk * 128 + 128), 64):
+            computed = next(halves)
+            rows = range(row0, min(L, row0 + 64))
+            bands = [set(range(max(0, (r // window - 1) * window),
+                               min(L, (r // window + 2) * window))) for r in rows]
+            keys = set().union(*(range(k0, k0 + 64) for k0, _ in computed))
+            assert set.union(*bands) <= keys
+            for k0, whole in computed:
+                assert kt0 <= k0 < kt0 + 128 * tiles and (k0 - kt0) % 64 == 0
+                half = set(range(k0, k0 + 64))
+                assert half & set.union(*bands)
+                assert whole == all(half <= band for band in bands)
+            if window % 128 == 0:   # the Stage-3 bands need no mask
+                assert all(whole for _, whole in computed)
+    assert next(halves, None) is None
+    for dh in (32, 64):
+        fits = K.stage3_i8_band_smem(L, window, dh) <= K.I8_MAX_SMEM
+        assert fits == (dh == 32 or (L, window) != (2400, 800))   # 19 tiles at Dh 64 do not
+
+
+# the shapes chip_smoke.py phase 3 checks the kernel at: (B, L, heads,
+# local heads, W) at d = 512, then d = 256
+EDGE = [(4, 1024, 16, 8, 128, 512), (2, 512, 8, 4, 128, 512), (2, 512, 16, 8, 32, 512),
+        (2, 256, 16, 8, 8, 512), (2, 1024, 16, 16, 128, 512), (2, 1000, 16, 8, 40, 512),
+        (3, 200, 4, 2, 40, 256)]
+
+
+@pytest.mark.parametrize("B,L,heads,local,window,d", EDGE)
+def test_kernel_rounding_moves_p_codes_by_one_step(B, L, heads, local, window, d):
+    """The band kernel rounds p as rint(127 · exp2(fma(x, c, −m))) from the
+    row max alone; the TPU kernel as rint(p · (127 / max p)) after the
+    softmax.  On seeded qkv at phase 3's shapes, from the same codes: each
+    p code moves by at most one step, few move, and the output moves by
+    under chip_smoke.py's REL_TOL (2e-2) per head."""
+    rng = np.random.default_rng(L + window + d)
+    qkv = torch.from_numpy(rng.standard_normal((B, L, 3 * d)).astype(np.float32))
+    dh = d // heads
+    q, k, v = (t.reshape(B, L, heads, dh).transpose(1, 2)[:, :local]
+               for t in qkv.split(d, dim=-1))
+    q8, sq = K._i8_codes(q, -1)
+    k8, sk = K._i8_codes(k, -1)
+    v8, sv = K._i8_codes(v.transpose(-1, -2), -1)
+    o_plain, pq_plain = K.stage3_i8_band_plain(q8, sq, k8, sk, v8, sv, window=window)
+    o_kern, pq_kern = K.stage3_i8_band_plain(q8, sq, k8, sk, v8, sv, window=window,
+                                             rounding="kernel")
+    step = (pq_kern.int() - pq_plain.int()).abs()
+    assert int(step.max()) <= 1
+    assert int((step > 0).sum()) <= 1e-3 * int((pq_plain > 0).sum()) + 1
+    rel = ((o_kern - o_plain).abs().amax((0, 2, 3))
+           / o_plain.abs().amax((0, 2, 3)).clamp(min=1e-30))
+    assert float(rel.max()) < 2e-2
+    # and the plain rounding is the plain version's own
+    out = K.stage3_attention_core_i8_plain(qkv, heads=heads, local_heads=local, window=window)
+    got = out.reshape(B, L, heads, dh)[:, :, :local].transpose(1, 2)
+    assert torch.equal(got, o_plain)
+
+
+def test_pq_codes_need_the_card():
+    qkv = torch.randn(1, 32, 3 * 16)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        K.stage3_attention_core_i8(qkv, heads=2, local_heads=1, window=8, pq=True)
+    with pytest.raises(ValueError, match="rounding must be"):
+        K.stage3_i8_band_plain(*K._i8_codes(qkv[..., :8].reshape(1, 1, 32, 8), -1),
+                               *K._i8_codes(qkv[..., 16:24].reshape(1, 1, 32, 8), -1),
+                               *K._i8_codes(qkv[..., 32:40].reshape(1, 1, 8, 32), -1),
+                               window=8, rounding="bf16")

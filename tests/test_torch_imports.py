@@ -163,6 +163,20 @@ def test_build_targets_sm90a_under_ignored_build_dir():
         assert f"B3_EXPORT int {name}(" in src
 
 
+def test_c_entry_points_take_their_declared_argument_count():
+    """Each C entry point's parameter list is as long as the ctypes
+    signature the wrappers call it with (a mismatch shifts every argument
+    after it on the card)."""
+    from biom3_tpu_torch.ops import _build
+
+    src = "".join(p.read_text() for p in _build.sources())
+    for name, argtypes in _build.SIGNATURES.items():
+        start = src.index(f"B3_EXPORT int {name}(") + len(f"B3_EXPORT int {name}(")
+        params = src[start:src.index(")", start)].strip()
+        count = len(params.split(",")) if params and params != "void" else 0
+        assert count == len(argtypes), (name, count, len(argtypes))
+
+
 # --- wrapper argument checks ----------------------------------------------
 
 def _t(*shape, dtype=torch.float32):
