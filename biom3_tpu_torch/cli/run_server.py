@@ -26,9 +26,13 @@ before the server binds its port, so no client waits on the build.
 ``/v1/inpaint`` runs the packed confidence-order inpainter, or, with
 ``--continuous_inpaint``, rows on the continuous generate scheduler (exact
 mode only); under ``--preset throughput`` (MaskGIT) its rows share the
-generate dispatches.  Refused (``NotImplementedError``, with the ROADMAP
-item that ports them): ``--mesh_dp``/``--mesh_fsdp`` above 1 (queue 1,
-item 8).
+generate dispatches.
+
+``--mesh_dp``/``--mesh_fsdp`` above 1 spread each Stage-3 dispatch's rows
+over a (dp, fsdp) mesh (``parallel/mesh.py``; ``--rows_per_dispatch`` must
+be a multiple of their product): with ``--device cuda`` over that many
+cards, which must be there; with ``--device cpu`` over positions that share
+the CPU, as the JAX CLI's CPU runs get virtual devices.
 """
 
 from __future__ import annotations
@@ -128,15 +132,26 @@ def parse_arguments(argv=None):
     return args
 
 
-def refuse_unported(args) -> None:
-    """The JAX CLI's options that the port does not have yet, and where they wait."""
-    if args.mesh_dp * args.mesh_fsdp > 1:
-        raise NotImplementedError("mesh serving (--mesh_dp/--mesh_fsdp > 1) is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+def build_mesh(args):
+    """The Stage-3 mesh of ``--mesh_dp``/``--mesh_fsdp``, or None for one
+    device (JAX run_server.py:157-161): every position a card of its own on
+    ``cuda`` (too few cards raise), the CPU for every position on ``cpu``."""
+    n = args.mesh_dp * args.mesh_fsdp
+    if n == 1:
+        return None
+    import torch
+
+    from biom3_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    device = torch.device(args.device)
+    cfg = MeshConfig(dp=args.mesh_dp, fsdp=args.mesh_fsdp)
+    return make_mesh(cfg, None if device.type == "cuda" else [device] * n)
 
 
-def build_server(args):
-    """Engines → ``ServingPipeline`` → ``BioM3Server`` (bound to its port)."""
+def build_server(args, mesh=None):
+    """Engines → ``ServingPipeline`` → ``BioM3Server`` (bound to its port).
+    ``mesh`` serves Stage 3 on it in place of the flags' mesh (positions
+    that share a card, say)."""
     import torch
 
     from biom3_tpu_torch.pipeline.stage1 import PenCLEngine
@@ -165,7 +180,8 @@ def build_server(args):
         maskgit_steps=args.maskgit_steps)
     pipeline = ServingPipeline(s1, s2, s3, rows_per_dispatch=args.rows_per_dispatch,
                                default_replicas=args.num_replicas, seed=args.seed,
-                               embed_cache=args.embed_cache)
+                               embed_cache=args.embed_cache,
+                               mesh=build_mesh(args) if mesh is None else mesh)
     return BioM3Server(pipeline, host=args.host, port=args.port,
                        max_wait_s=args.max_wait_ms / 1000.0,
                        continuous=None if args.continuous == "auto" else args.continuous == "on",
@@ -175,7 +191,6 @@ def build_server(args):
 
 def main(argv=None) -> None:
     args = parse_arguments(argv)
-    refuse_unported(args)
     server = build_server(args)
     if args.warmup:
         print("warming up...", flush=True)

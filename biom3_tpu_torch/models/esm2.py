@@ -16,8 +16,10 @@ name, what the module does not hold.
 Training switches, as the JAX module's (``models/esm2.py:117-237``):
 
 * ``attn_impl``: ``"plain"`` (torch ops; the JAX ``"xla"``), ``"kernel"``
-  (the ``flash_attention`` kernel) or ``"layer-block"`` (the whole layer on
-  ``ops/esm2_block.py``'s kernels, forward and backward);
+  (the ``flash_attention`` kernel), ``"ring"`` (``ops/ring_attention.py``,
+  the sequence over the ``tp`` axis of ``mesh``; JAX esm2.py:86-87,120-121)
+  or ``"layer-block"`` (the whole layer on ``ops/esm2_block.py``'s
+  kernels, forward and backward);
 * ``dtype``: the compute dtype of the projections, attention and FF, with
   f32 parameters, LayerNorms, embedding and logits (Flax ``dtype=``
   semantics, ``models/layers.py``); ``None`` runs in the parameters' dtype;
@@ -44,7 +46,7 @@ from biom3_tpu_torch.ops.esm2_block import esm2_layer_block
 from biom3_tpu_torch.ops.kernels import gelu
 from biom3_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin
 
-ATTN_IMPLS = ("plain", "kernel", "layer-block")
+ATTN_IMPLS = ("plain", "kernel", "ring", "layer-block")
 # keys of a fair-esm ESM2 state dict that no module holds: the contact head,
 # the rotary inv_freq buffers (recomputed by ops/rotary.py) and the LM
 # head's weight, tied to embed_tokens
@@ -63,11 +65,12 @@ def esm2_train_state_dict(sd: dict) -> dict:
 
 
 class ESM2SelfAttention(nn.Module):
-    def __init__(self, cfg: ESM2Config, attn_impl: str, dtype: torch.dtype | None = None):
+    def __init__(self, cfg: ESM2Config, attn_impl: str, dtype: torch.dtype | None = None,
+                 mesh=None):
         super().__init__()
         E = cfg.embed_dim
         self.heads = cfg.attention_heads
-        self.attn_impl, self.dtype = attn_impl, dtype
+        self.attn_impl, self.dtype, self.mesh = attn_impl, dtype, mesh
         self.q_proj, self.k_proj = nn.Linear(E, E), nn.Linear(E, E)
         self.v_proj, self.out_proj = nn.Linear(E, E), nn.Linear(E, E)
 
@@ -79,18 +82,18 @@ class ESM2SelfAttention(nn.Module):
                                                                   self.v_proj))
         cos, sin = rotary_cos_sin(L, dh, dtype=q.dtype, device=q.device)
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-        out = full_attention(q, k, v, padding_mask, impl=self.attn_impl)
+        out = full_attention(q, k, v, padding_mask, impl=self.attn_impl, mesh=self.mesh)
         return dense(self.out_proj, out.transpose(1, 2).reshape(B, L, E), self.dtype)
 
 
 class ESM2Layer(nn.Module):
     def __init__(self, cfg: ESM2Config, attn_impl: str, gelu_impl: str,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         E = cfg.embed_dim
         self.heads, self.gelu, self.attn_impl, self.dtype = (cfg.attention_heads, gelu_impl,
                                                              attn_impl, dtype)
-        self.self_attn = ESM2SelfAttention(cfg, attn_impl, dtype)
+        self.self_attn = ESM2SelfAttention(cfg, attn_impl, dtype, mesh)
         self.self_attn_layer_norm = nn.LayerNorm(E, eps=1e-5)
         self.fc1 = nn.Linear(E, cfg.ffn_dim)
         self.fc2 = nn.Linear(cfg.ffn_dim, E)
@@ -132,17 +135,21 @@ class ESM2LMHead(nn.Module):
 class ESM2(nn.Module):
     """forward(tokens (B, L)) → {"hidden": (B, L, E)}, the post-final-norm
     representation (fair-esm repr layer = num_layers), and "logits" (B, L,
-    V) f32 with ``compute_logits`` (needs ``lm_head=True``)."""
+    V) f32 with ``compute_logits`` (needs ``lm_head=True``).  ``mesh``:
+    the device mesh of ``attn_impl="ring"``."""
 
     def __init__(self, cfg: ESM2Config, *, attn_impl: str = "plain", gelu: str = "erf",
-                 dtype: torch.dtype | None = None, remat: bool = False, lm_head: bool = False):
+                 dtype: torch.dtype | None = None, remat: bool = False, lm_head: bool = False,
+                 mesh=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        if attn_impl == "ring" and mesh is None:
+            raise ValueError("impl='ring' needs a mesh")
         self.config = cfg
         self.dtype, self.remat = dtype, remat
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
-        self.layers = nn.ModuleList([ESM2Layer(cfg, attn_impl, gelu, dtype)
+        self.layers = nn.ModuleList([ESM2Layer(cfg, attn_impl, gelu, dtype, mesh)
                                      for _ in range(cfg.num_layers)])
         self.emb_layer_norm_after = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         if lm_head:

@@ -1,6 +1,6 @@
 """Serving-path ProteoScribe forward on the port's kernels.
 
-Port of ``biom3_tpu/models/fused_forward.py:28-56,151-291``.
+Port of ``biom3_tpu/models/fused_forward.py:28-56,151-318``.
 ``make_stack_apply(model)`` packs the plain module's weights once — q/k/v
 fused and every matrix transposed to (d_in, d_out) in the serving dtype,
 the (T, depth, d) time-bias table precomputed — and returns
@@ -14,7 +14,9 @@ weights, as the JAX package packs them, fused_forward.py:244-256).
 (fused_forward.py:94-101) for the port's kernels: the engine serves a
 config it refuses through the ``ProteoScribe`` module.  On the CPU the
 plain versions take any head dim and window, so only ``n_blocks`` binds
-``make_stack_apply`` itself.
+``make_stack_apply`` itself.  ``make_sharded_stack_apply(model, mesh)`` is
+its mesh twin: the batch's rows split over the mesh's (dp, fsdp)
+positions, the weights packed once per distinct device.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from biom3_tpu_torch.models.proteoscribe import (
 from biom3_tpu_torch.ops.kernels import HEAD_CLASSES
 from biom3_tpu_torch.ops.quant import quantize_weight_int8
 from biom3_tpu_torch.ops.stack import QUANT_MODES, pack_stack_weights, stack_logits
+from biom3_tpu_torch.parallel.sharding import module_on, per_position, shard_rows
 
 HEAD_DIMS = (32, 64)        # the attention kernels' head dims (ops/kernels.py)
 _LOGGED: set[str] = set()   # fallback reasons already logged in this process
@@ -156,3 +159,16 @@ def make_stack_apply(model: ProteoScribe, *, dtype: torch.dtype = torch.bfloat16
                             window=cfg.local_window, gelu=gelu, attn_quant=attn_quant)
 
     return apply
+
+
+def make_sharded_stack_apply(model: ProteoScribe, mesh, **kwargs):
+    """Mesh twin of ``make_stack_apply`` (JAX ``make_sharded_stack_apply``,
+    fused_forward.py:294-318): ``apply(x, t, z_c, pos)`` on global tensors
+    on the mesh's first device, each (dp, fsdp) position's rows through the
+    stack forward on its own device, the logits gathered back in row order.
+    ``make_stack_apply(**kwargs)`` packs once per distinct device (the
+    model itself serves its own device, a copy each other one); no
+    collectives, as denoising is batch-parallel.  B must be a multiple of
+    dp·fsdp."""
+    return shard_rows(per_position(mesh, lambda d: make_stack_apply(module_on(model, d),
+                                                                    **kwargs)), mesh)

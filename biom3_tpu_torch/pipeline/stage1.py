@@ -29,10 +29,13 @@ once.  ``use_stack=True`` forces the fused-stack path (on ``cpu`` the
 kernels' plain versions in f32 with erf GELU and quant auto ``"none"``);
 ``tower_impl`` names a path outright.  The graph path never quantizes.
 ``gelu`` (``"erf"``/``"tanh"``) overrides the GELU the mode picks, for
-both paths.
+both paths.  ``replica(device)`` gives a fused-stack engine's copy on
+another card (the mesh's ``pipeline/sweep.Stage1SweepRunner``).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init
 from biom3_tpu_torch.models.fused_forward import HEAD_DIMS, log_once
 from biom3_tpu_torch.pipeline import require_device
 from biom3_tpu_torch.models.pencl import PenCL, PenCLText, pencl_state_dict, text_state_dict
+from biom3_tpu_torch.parallel.sharding import moved_to
 from biom3_tpu_torch.ops.bert_stack import bert_embed, bert_stack_arrays, fused_bert_cls
 from biom3_tpu_torch.ops.esm2_stack import esm2_stack_arrays, fused_esm2_cls
 from biom3_tpu_torch.tokenizers import TextTokenizer, esm_batch_encode
@@ -169,6 +173,24 @@ class PenCLEngine:
             self._esm_arrays = esm2_stack_arrays(model.esm, self.dtype, self.device,
                                                  ff_quant=self.ff_quant,
                                                  proj_quant=self.proj_quant)
+
+    def replica(self, device) -> "PenCLEngine":
+        """This fused-stack engine serving ``device``: the towers' packed
+        arrays and the modules ``embed_tokens`` reads copied there; the f32
+        ESM2 module, which stays on the host, is shared."""
+        if not self.use_fused_stack:
+            raise ValueError("replica() copies a fused-stack engine; the graph path's module "
+                             "moves with .to()")
+        out = copy.copy(self)
+        out.device = torch.device(device)
+        out.model = copy.copy(self.model)
+        out.model._modules = {name: child if name == "protein_encoder"
+                              else copy.deepcopy(child).to(out.device)
+                              for name, child in self.model._modules.items()}
+        out._bert_arrays = moved_to(self._bert_arrays, out.device)
+        if not self.text_only:
+            out._esm_arrays = moved_to(self._esm_arrays, out.device)
+        return out
 
     @property
     def text_tokenizer(self):

@@ -1,11 +1,24 @@
 """Stage-3 inference engine: conditional sequence generation.
 
-Port of ``biom3_tpu/pipeline/stage3.py:31-431,491-654``: for each
+Port of ``biom3_tpu/pipeline/stage3.py:31-654``: for each
 conditioning vector z_c, generate
 ``num_replicas`` sequences, ``batch_size_sample`` at a time, decode with
 the 29-token table and strip the markers; fill the masked positions of
 partial sequences (``inpaint_batch``); and the serving schedulers'
 device halves (``make_continuous_stepper``, ``make_trajectory_row_fn``).
+
+On a device mesh (``parallel/mesh.py``; JAX stage3.py:219-268,276-446) the
+same samplers run over the engine's forward sharded across the mesh's (dp,
+fsdp) positions (``make_sharded_sampler``, ``make_sharded_inpainter``, and
+the two scheduler halves given ``mesh``): the sampler's draws — paths,
+noise, Philox keys — stay on the global batch on the mesh's first device,
+which must be the engine's, and only the forward is split.  A shard's
+logits equal the one-device forward's on the same rows bit for bit; a
+whole batch's may differ from it in the last bits (splits chosen by the
+row count), so the ids equal the one-device run's but at near-ties.  The
+forward is the stack forward packed once per
+distinct device (``models/fused_forward.make_sharded_stack_apply``), or
+the module copied to each device on the module path.
 
 ``dtype`` has the JAX engine's meaning (stage3.py:36,79-83,109-134):
 
@@ -47,8 +60,15 @@ from biom3_tpu_torch.diffusion.sampler import (
     sample_permutations,
 )
 from biom3_tpu_torch.io.state_dict import load_reference_state_dict, seeded_init_
-from biom3_tpu_torch.models.fused_forward import log_once, make_stack_apply, stack_supported
+from biom3_tpu_torch.models.fused_forward import (
+    log_once,
+    make_sharded_stack_apply,
+    make_stack_apply,
+    stack_supported,
+)
 from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+from biom3_tpu_torch.parallel.mesh import canonical
+from biom3_tpu_torch.parallel.sharding import module_on, per_position, shard_rows
 from biom3_tpu_torch.pipeline import require_device
 from biom3_tpu_torch.tokenizers import Stage3Vocab
 
@@ -144,16 +164,79 @@ class ProteoScribeEngine:
         # the inpainter's chunk is the constructor's value in positions (JAX
         # ``_chunk_steps_arg``), not the sampler's folded outer steps
         self._chunk_steps_arg = chunk_steps
+        self._takes_positions = takes_positions
         self._inpainter = None
-        if sampler_mode == "maskgit":
-            self.sampler = make_maskgit_sampler(
-                self._apply_fn, self.config.max_seq_len, steps=maskgit_steps,
-                temperature=temperature, top_k=top_k, top_p=top_p, apply_takes_positions=True)
-        else:
-            self.sampler = make_sampler(self._apply_fn, self.config.num_timesteps,
-                                        legacy_batch_update=legacy_batch_update,
-                                        apply_takes_positions=takes_positions,
-                                        order=decode_order, **self._sampler_cfg)
+        self._mesh_applies: dict[int, tuple] = {}   # id(mesh) → (mesh, sharded forward)
+        self.sampler = self._make_sampler(self._apply_fn)
+
+    def _make_sampler(self, apply_fn):
+        """The engine's sampler (its mode, order and settings) over ``apply_fn``."""
+        cfg = self._sampler_cfg
+        if self.sampler_mode == "maskgit":
+            return make_maskgit_sampler(
+                apply_fn, self.config.max_seq_len, steps=self.maskgit_steps,
+                temperature=cfg["temperature"], top_k=cfg["top_k"], top_p=cfg["top_p"],
+                apply_takes_positions=True)
+        return make_sampler(apply_fn, self.config.num_timesteps,
+                            legacy_batch_update=self.legacy_batch_update,
+                            apply_takes_positions=self._takes_positions,
+                            order=self.decode_order, **cfg)
+
+    def _mesh_apply(self, mesh):
+        """The engine's serving forward over ``mesh``'s (dp, fsdp)
+        positions, built once per mesh and shared by every sampler on it
+        (JAX ``_replicated_params``): the stack forward packed per
+        distinct device, or the module's copies."""
+        if id(mesh) not in self._mesh_applies:
+            if mesh.first_device != canonical(self.device):
+                raise ValueError(f"the mesh's first position is on {mesh.first_device}, the "
+                                 f"engine on {self.device}: the sampler runs on the engine's "
+                                 "device and gathers the shards there")
+            if self.use_stack:
+                apply = make_sharded_stack_apply(
+                    self.model, mesh, dtype=self.dtype, gelu=self.gelu,
+                    ff_quant=self.ff_quant, proj_quant=self.proj_quant)
+            else:
+                apply = shard_rows(per_position(
+                    mesh, lambda d: torch.no_grad()(module_on(self.model, d))), mesh)
+            self._mesh_applies[id(mesh)] = (mesh, apply)
+        return self._mesh_applies[id(mesh)][1]
+
+    def _check_batch(self, mesh, B: int) -> None:
+        shards = mesh.batch_shards
+        if B % shards:
+            raise ValueError(f"batch {B} not divisible by {shards} mesh shards")
+
+    def make_sharded_sampler(self, mesh):
+        """The engine's sampler over ``mesh`` (JAX ``make_sharded_sampler``,
+        stage3.py:219-268) → ``sample_rows(z_c (B, C), generator, *,
+        paths=None) → (B, L)`` with ``sample_batch``'s semantics, its
+        paths and noise drawn on the global batch from ``generator``; B
+        must be a multiple of dp·fsdp."""
+        sampler = self._make_sampler(self._mesh_apply(mesh))
+
+        def sample_rows(z_c, generator, *, paths=None):
+            self._check_batch(mesh, np.shape(z_c)[0])
+            return self._sample(sampler, z_c, generator, paths)
+
+        return sample_rows
+
+    def make_sharded_inpainter(self, mesh):
+        """The engine's inpainter over ``mesh`` (JAX
+        ``make_sharded_inpainter``, stage3.py:446-521) →
+        ``inpaint_rows(masked (B, L), z_c (B, C), generator=None, *,
+        key_data=None) → (B, L)`` with ``inpaint_batch``'s semantics; B
+        must be a multiple of dp·fsdp.  The stack forward takes the full
+        grid at any width, so there is no one-device fallback."""
+        apply = self._mesh_apply(mesh)
+        fill = (self._make_sampler(apply) if self.sampler_mode == "maskgit"
+                else self._make_inpainter(apply))
+
+        def inpaint_rows(masked_ids, z_c, generator=None, *, key_data=None):
+            self._check_batch(mesh, np.shape(masked_ids)[0])
+            return self._fill(fill, masked_ids, z_c, generator, key_data)
+
+        return inpaint_rows
 
     def supports_continuous_stepping(self) -> bool:
         """True when the engine's sampling runs under the chunk-boundary
@@ -163,10 +246,11 @@ class ProteoScribeEngine:
         return (self.sampler_mode == "ardm" and self.decode_order == "path"
                 and not self.legacy_batch_update)
 
-    def make_continuous_stepper(self):
+    def make_continuous_stepper(self, mesh=None):
         """The per-row-offset chunk stepper over this engine's serving
-        forward (same kernels, same quant modes) → ``(chunk_fn, meta)``, meta
-        holding ``chunk_steps``, ``positions_per_step`` and ``num_steps``."""
+        forward (same kernels, same quant modes; over ``mesh``'s positions
+        when given) → ``(chunk_fn, meta)``, meta holding ``chunk_steps``,
+        ``positions_per_step`` and ``num_steps``."""
         if not self.supports_continuous_stepping():
             raise ValueError(
                 "continuous stepping needs exact path-order ARDM "
@@ -176,14 +260,15 @@ class ProteoScribeEngine:
         k = cfg["positions_per_step"]
         chunk = cfg["chunk_steps"] or self.config.num_timesteps // k
         chunk_fn = make_chunk_stepper(
-            self._apply_fn, self.config.num_timesteps, chunk_steps=chunk,
+            self._apply_fn if mesh is None else self._mesh_apply(mesh),
+            self.config.num_timesteps, chunk_steps=chunk,
             positions_per_step=k, temperature=cfg["temperature"], top_k=cfg["top_k"],
             top_p=cfg["top_p"], apply_takes_positions=True)
         meta = {"chunk_steps": chunk, "positions_per_step": k,
                 "num_steps": self.config.num_timesteps}
         return chunk_fn, meta
 
-    def make_trajectory_row_fn(self):
+    def make_trajectory_row_fn(self, mesh=None):
         """Whole-trajectory dispatch for the row-granular packed scheduler
         (``serving/trajectory.TrajectoryBatcher``) → ``row_fn(z_c (B, C),
         inv (B, L), key_data (B, 2), masked=None) → (B, L) ids``, numpy in
@@ -200,7 +285,8 @@ class ProteoScribeEngine:
         MaskGIT: inpaint rows (``masked`` (B, L), 0 at the positions to
         fill) then share generate dispatches, resuming the sampler from
         ``x0 = masked`` (zeros for a generate row).  The other modes refuse
-        ``masked``."""
+        ``masked``.  With ``mesh`` the forward runs over its positions.
+        """
         if self.legacy_batch_update:
             raise ValueError("legacy_batch_update couples the rows of a batch (union "
                              "writes): no per-row trajectory dispatch")
@@ -208,19 +294,17 @@ class ProteoScribeEngine:
         k = cfg["positions_per_step"]
         dev, L = self.device, self.config.max_seq_len
         accepts_masked = self.sampler_mode == "maskgit"
+        apply = self._apply_fn if mesh is None else self._mesh_apply(mesh)
+        sampler = self.sampler if mesh is None else self._make_sampler(apply)
         if accepts_masked:
-            sampler = self.sampler
-
             def run(zc, inv, kd, masked):
                 return sampler(zc, inv, key_data=kd, x0=masked)
         elif self.decode_order == "confidence":
-            sampler = self.sampler
-
             def run(zc, inv, kd, masked):
                 return sampler(zc, inv, key_data=kd)
         else:
             step = make_chunk_stepper(
-                self._apply_fn, self.config.num_timesteps,
+                apply, self.config.num_timesteps,
                 chunk_steps=self.config.num_timesteps // k, positions_per_step=k,
                 temperature=cfg["temperature"], top_k=cfg["top_k"], top_p=cfg["top_p"],
                 apply_takes_positions=True)
@@ -254,16 +338,19 @@ class ProteoScribeEngine:
         divides L, and then ``early_exit`` ends the run at the first chunk
         boundary with no masked position left."""
         if self._inpainter is None:
-            L = self.config.max_seq_len
-            chunk = self._chunk_steps_arg
-            if chunk and (chunk > L or L % chunk != 0):
-                chunk = None
-            cfg = self._sampler_cfg
-            self._inpainter = make_inpainter(
-                self._apply_fn, L, temperature=cfg["temperature"], apply_takes_positions=True,
-                chunk_steps=chunk, order="confidence", early_exit=chunk is not None,
-                top_k=cfg["top_k"], top_p=cfg["top_p"])
+            self._inpainter = self._make_inpainter(self._apply_fn)
         return self._inpainter
+
+    def _make_inpainter(self, apply_fn):
+        L = self.config.max_seq_len
+        chunk = self._chunk_steps_arg
+        if chunk and (chunk > L or L % chunk != 0):
+            chunk = None
+        cfg = self._sampler_cfg
+        return make_inpainter(
+            apply_fn, L, temperature=cfg["temperature"], apply_takes_positions=True,
+            chunk_steps=chunk, order="confidence", early_exit=chunk is not None,
+            top_k=cfg["top_k"], top_p=cfg["top_p"])
 
     def inpaint_batch(self, masked_ids, z_c, generator: torch.Generator | None = None, *,
                       key_data=None) -> np.ndarray:
@@ -277,32 +364,40 @@ class ProteoScribeEngine:
         comes from ``generator``, or from each row's Philox stream
         (``key_data`` (B, 2)), so that a row's fills depend on its key
         alone."""
+        fill = self.sampler if self.sampler_mode == "maskgit" else self._get_inpainter()
+        return self._fill(fill, masked_ids, z_c, generator, key_data)
+
+    def _fill(self, fill, masked_ids, z_c, generator, key_data) -> np.ndarray:
+        """``inpaint_batch``'s body over ``fill``: the MaskGIT sampler, or
+        the confidence-order inpainter."""
         masked = torch.as_tensor(np.asarray(masked_ids), dtype=torch.int32, device=self.device)
         zc = torch.as_tensor(np.asarray(z_c, np.float32), device=self.device)
         if key_data is not None:
             key_data = torch.as_tensor(np.asarray(key_data).astype(np.int64), device=self.device)
         if self.sampler_mode == "maskgit":
-            ids = self.sampler(zc, None, generator, x0=masked, key_data=key_data)
+            ids = fill(zc, None, generator, x0=masked, key_data=key_data)
         else:
             # confidence order ignores path and t0: the order comes off the
             # absorbing state
             B, L = masked.shape
             zeros = torch.zeros((B, L), dtype=torch.int32, device=self.device)
-            ids = self._get_inpainter()(masked, zc, zeros, zeros[:, 0], generator,
-                                        key_data=key_data)
+            ids = fill(masked, zc, zeros, zeros[:, 0], generator, key_data=key_data)
         return ids.cpu().numpy()
 
     def sample_batch(self, z_c: np.ndarray, generator: torch.Generator, *,
                      paths: np.ndarray | None = None) -> np.ndarray:
         """z_c (B, cond_dim) → (B, L) decode-table ids.  ``paths`` may inject
         externally made permutations (parity replay)."""
+        return self._sample(self.sampler, z_c, generator, paths)
+
+    def _sample(self, sampler, z_c, generator, paths) -> np.ndarray:
         B = z_c.shape[0]
         if paths is None:
             paths = sample_permutations(generator, B, self.config.max_seq_len)
         else:
             paths = torch.as_tensor(np.asarray(paths), dtype=torch.int32, device=self.device)
         zc = torch.as_tensor(np.asarray(z_c, np.float32), device=self.device)
-        return self.sampler(zc, paths, generator).cpu().numpy()
+        return sampler(zc, paths, generator).cpu().numpy()
 
     def generate_sequences(self, z_c_all: np.ndarray, *, num_replicas: int | None = None,
                            batch_size: int | None = None, seed: int = 0) -> dict:

@@ -32,7 +32,9 @@ own random order (``_prepare_row``) — the reference's resume-from-corruption
 semantics as rows that share chunk dispatches with generate traffic.  A
 request with nothing to fill resolves at once without taking a slot.
 
-Not ported: the mesh's sharded dispatch.
+On a mesh (``ServingPipeline(mesh=...)``) the stepper's forward runs over
+the mesh's (dp, fsdp) positions (JAX :66-70); the carries and row arrays
+stay on the first position's device, the engine's.
 """
 
 from __future__ import annotations
@@ -118,7 +120,7 @@ class ContinuousGenerateBatcher:
     def __init__(self, pipeline, *, name: str = "generate-continuous"):
         self.pipeline = pipeline
         eng = pipeline.s3
-        self._chunk_fn, meta = eng.make_continuous_stepper()
+        self._chunk_fn, meta = eng.make_continuous_stepper(pipeline._mesh)
         self._num_steps = meta["num_steps"]
         self._step_incr = meta["chunk_steps"] * meta["positions_per_step"]
         self.chunk_steps = meta["chunk_steps"]

@@ -12,6 +12,12 @@ engines on the card and serves concurrent requests.
   * **Row-level packing**: rows of different prompts share one Stage-3
     dispatch, each with its own z_c, decode order and noise stream; row
     occupancy shows in ``/v1/metrics``.
+  * **A device mesh** (``mesh=``, ``parallel/mesh.py``; JAX :69-95): each
+    Stage-3 dispatch's rows split over the mesh's (dp, fsdp) positions —
+    generate rows through the engine's row function on the mesh, inpaint
+    rows through its sharded inpainter, built on first use — so
+    ``rows_per_dispatch`` must be a multiple of dp·fsdp.  Stages 1 and 2
+    stay on the engines' device.
 
 Endpoints (stdlib ``http.server``; JSON in/out):
   * ``POST /v1/generate`` ``{"prompt": str | "prompts": [str],
@@ -51,8 +57,12 @@ class ServingPipeline:
 
     def __init__(self, stage1_engine, stage2_engine, stage3_engine, *,
                  rows_per_dispatch: int = 16, default_replicas: int = 2,
-                 max_replicas: int = 64, seed: int = 0, embed_cache: int = 4096):
+                 max_replicas: int = 64, seed: int = 0, embed_cache: int = 4096, mesh=None):
+        if mesh is not None and rows_per_dispatch % mesh.batch_shards:
+            raise ValueError(f"rows_per_dispatch={rows_per_dispatch} must be a multiple of "
+                             f"the mesh's dp*fsdp={mesh.batch_shards}")
         self.s1, self.s2, self.s3 = stage1_engine, stage2_engine, stage3_engine
+        self._mesh = mesh
         self.device = stage3_engine.device
         self.rows_per_dispatch = rows_per_dispatch
         self.default_replicas = default_replicas
@@ -61,7 +71,9 @@ class ServingPipeline:
         # the packed path's unseeded rows draw their streams from here
         self._host_rng = host_rng(seed)
         self._rng_lock = threading.Lock()
-        self._row_fn = None   # the packed path's trajectory dispatch, built on first use
+        # the packed paths' trajectory dispatch and inpainter, built on first use
+        self._row_fn = None
+        self._inpaint_fn = None
         # device-level packing counters: ROWS per fixed-shape dispatch
         self._dev_lock = threading.Lock()
         self._dispatches = 0
@@ -167,13 +179,17 @@ class ServingPipeline:
     def _generate_rows(self, z_c: np.ndarray):
         """The packed generate path's row function over ``z_c`` rows."""
         if self._row_fn is None:
-            self._row_fn = self.s3.make_trajectory_row_fn()
+            self._row_fn = self.s3.make_trajectory_row_fn(self._mesh)
         return lambda idx, inv, kd: self._row_fn(z_c[idx], inv, kd)
 
     def _inpaint_rows(self, masked: np.ndarray, z_c: np.ndarray):
         """The packed inpaint path's row function: the engine's inpainter
-        (``inpaint_batch``) on each row's own noise stream."""
-        return lambda idx, inv, kd: self.s3.inpaint_batch(masked[idx], z_c[idx], key_data=kd)
+        (``inpaint_batch``, or its mesh twin) on each row's own noise
+        stream."""
+        if self._inpaint_fn is None:
+            self._inpaint_fn = (self.s3.inpaint_batch if self._mesh is None
+                                else self.s3.make_sharded_inpainter(self._mesh))
+        return lambda idx, inv, kd: self._inpaint_fn(masked[idx], z_c[idx], key_data=kd)
 
     def generate(self, requests: list[dict]) -> list[dict]:
         """Batch entry point: each request is ``{"prompt": str,

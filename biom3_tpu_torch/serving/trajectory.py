@@ -28,6 +28,8 @@ Under MaskGIT the engine's row function takes inpaint rows
 (``accepts_masked``): a request carrying ``masked_ids`` becomes rows that
 resume the sampler from the partial sequence and share dispatches with
 generate rows (which resume from zeros).  The other modes refuse them.
+On a mesh (``ServingPipeline(mesh=...)``) the row function's forward runs
+over the mesh's (dp, fsdp) positions (JAX :70-73).
 
 Two faults of the JAX scheduler are fixed here: the in-flight dispatch is
 swapped only under ``_cv``, and the rows of a dispatch being enqueued stay
@@ -58,7 +60,7 @@ class TrajectoryBatcher:
     def __init__(self, pipeline, *, max_wait_s: float = 0.02,
                  name: str = "generate-trajectory"):
         self.pipeline = pipeline
-        self._row_fn = pipeline.s3.make_trajectory_row_fn()
+        self._row_fn = pipeline.s3.make_trajectory_row_fn(pipeline._mesh)
         self.accepts_masked = self._row_fn.accepts_masked
         self._vocab = pipeline.s3.vocab
         self._device = pipeline.s3.device

@@ -141,7 +141,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``sweep``), then with ``attn_quant="int8"`` (path ``sweep_i8``; one
    forward's logits within 0.999 cosine of the bf16 attention's), rows/s
    of each, then ``cli/run_eval.py`` as a subprocess on the int8 sweep's
-   designs; then Stage-2 training: ``run_train_stage2`` on
+   designs; then the device mesh (``biom3_tpu_torch/parallel``):
+   ``make_mesh`` over the cards, then on (dp 2, fsdp 2) positions of one
+   card the sharded stack forward at B=32 (k = 8; every shard's logits
+   bit-equal to the one-device forward on its 8 rows, bf16 and int8 band
+   attention), ``SweepRunner`` on that mesh (the sweep's 4 × 8 rows, path
+   ``sweep_mesh``: ``stage3_attention_core`` shards × depth × forwards
+   times), rows/s beside the one-device sweep's, an in-process
+   ``BioM3Server`` on a dp-2 mesh (2 generate requests, path
+   ``serve_mesh``, and one /v1/inpaint on continuous rows, path
+   ``serve_mesh_inpaint``: 2 shards a forward), ``run_server --mesh_dp 2``
+   as a subprocess where there are two cards (skipped on one), ring
+   attention at ESM2-650M's head shapes (B 1, H 20, D 64, L 4096, 10 % PAD
+   keys) over tp = 4 positions against ``flash_attention_plain`` within
+   2e-2, and the 33-layer ESM2-650M with ``attn_impl="ring"`` against
+   ``"plain"`` (f32, a 1022-residue protein) at cosine 0.999, both timed;
+   then Stage-2 training: ``run_train_stage2`` on
    4096 seeded (z_t, z_p) pairs of width 512 (MMD, batch 64, 2 epochs,
    ``--export_bin``; the validation loss must fall), the exported .bin
    through ``run_facilitator_sample`` (path ``train_stage2``, no kernel),
@@ -180,8 +195,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 Each path (phase 4's graph-path ProteoScribe, the five runs of phase 5,
 the three PenCL runs of phase 6 and the bulk embedding, the serving runs
-and their inpaint requests, the sample CLIs, the two sweeps, Stage-2
-training, the two training CLI modes
+and their inpaint requests, the sample CLIs, the two sweeps, the mesh's
+sweep and server, Stage-2 training, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
 ``.bin`` in phase 8) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
@@ -315,6 +330,10 @@ PATH_KERNELS = {
     "sweep": STAGE3_BF16,
     "sweep_i8": STAGE3_BF16 - {"stage3_attention_core"} | {"stage3_attention_core_i8"},
     "sweep_stage1": PENCL_BF16,
+    # the mesh phase: the sweep over 4 positions of one card, the mesh server
+    "sweep_mesh": STAGE3_BF16,
+    "serve_mesh": E2E_INT8,
+    "serve_mesh_inpaint": E2E_INT8,
     "pencl_graph": {"flash_attention"},
     "train_layer_block": {"layernorm", "gemm_bias_act", "stage3_attention_core",
                           "stage3_attention_bwd", "gemm_dx", "gemm_dw", "col_sum",
@@ -1751,6 +1770,7 @@ def phase_sample_clis(root: pathlib.Path, files: dict) -> dict:
 
 
 SWEEP_PROMPTS, SWEEP_REPLICAS, SWEEP_BATCH, SWEEP_K = 4, 8, 32, 8
+SWEEP_ROWS_PER_S: dict[str, float] = {}   # path → rows/s of the sweep phase, for the mesh's
 
 
 def phase_sweep(root: pathlib.Path, files: dict) -> dict:
@@ -1819,6 +1839,7 @@ def phase_sweep(root: pathlib.Path, files: dict) -> dict:
         if len(set(flat_seqs)) < 2:
             raise AssertionError(f"{path}: every design is the same")
         designs[path] = seqs
+        SWEEP_ROWS_PER_S[path] = rows / walls[path]
         say("sweep", f"{path}: {SWEEP_PROMPTS} prompts x {SWEEP_REPLICAS} replicas, one slab of "
                      f"{SWEEP_BATCH}, k = {SWEEP_K} ({forwards} forwards): {walls[path]:.2f} s "
                      f"wall, {rows / walls[path]:.2f} rows/s ({smi}); launches {counts[path]}")
@@ -1851,6 +1872,212 @@ def phase_sweep(root: pathlib.Path, files: dict) -> dict:
                  f"{min(soft):.4f}-{max(soft):.4f} over {len(soft)} replicas, unique fraction "
                  f"{report['stats']['unique_fraction']:.3f}")
     say("sweep", f"the sweep phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# the device mesh: a sharded stack forward, the sweep and a server over
+# positions that share the card, ring attention
+# --------------------------------------------------------------------------
+
+MESH_B = 32                     # the sharded forward's global batch
+RING_B, RING_H, RING_D, RING_L, RING_TP = 1, 20, 64, 4096, 4   # ESM2-650M heads, long context
+RING_PAD = 0.1                  # share of PAD keys
+RING_ITERS = 5
+
+
+def phase_mesh(root: pathlib.Path, files: dict, pencl) -> dict:
+    """The mesh paths on phase 5's Stage-3 ``.bin`` and the seeded ESM2-650M
+    of phase 4 → the ``sweep_mesh``, ``serve_mesh`` and
+    ``serve_mesh_inpaint`` paths' launch counts.  ``make_mesh`` over the
+    cards; then on (dp 2, fsdp 2) positions of one card: the sharded stack
+    forward at B = 32 (k = 8), each shard's logits bit-equal to the
+    one-device forward on its 8 rows, in bf16 and int8 band attention;
+    ``SweepRunner`` on that mesh (the sweep phase's 4 × 8 rows, k = 8);
+    an in-process ``BioM3Server`` on a dp-2 mesh (2 generate requests, one
+    /v1/inpaint); ring attention at ESM2-650M's head shapes over tp = 4
+    positions against ``flash_attention_plain``, and the 33-layer ESM2-650M
+    with ``attn_impl="ring"`` against ``"plain"`` on a 1022-residue
+    protein.  With two cards or more, ``run_server --mesh_dp 2`` as a
+    subprocess."""
+    import threading
+
+    import torch
+
+    from biom3_tpu_torch.cli import run_server
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.config import load_json_config
+    from biom3_tpu_torch.models.esm2 import ESM2
+    from biom3_tpu_torch.models.fused_forward import make_sharded_stack_apply, make_stack_apply
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.ops.ring_attention import ring_attention
+    from biom3_tpu_torch.parallel import MeshConfig, make_mesh
+    from biom3_tpu_torch.pipeline.stage3 import ProteoScribeEngine
+    from biom3_tpu_torch.pipeline.sweep import SweepRunner
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    say("mesh", f"make_mesh(MeshConfig(dp={n_cards})): {make_mesh(MeshConfig(dp=n_cards))}")
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(MeshConfig(dp=2, fsdp=2), [dev] * 4)
+    shards, smi = mesh.batch_shards, card()
+    flag = dict(zip(files["flags"][::2], files["flags"][1::2]))
+    engine = ProteoScribeEngine(load_json_config(flag["--stage3_json"]), flag["--stage3_model"],
+                                device="cuda", dtype=torch.bfloat16, ff_quant="none",
+                                proj_quant="none")
+    model, L, depth = engine.model, files["steps"], files["depth"]
+    del engine
+
+    # the sharded stack forward against the one-device forward, shard by shard
+    g = torch.Generator().manual_seed(SEED + 30)
+    x = torch.randint(1, 29, (MESH_B, L), generator=g).int()
+    x[torch.rand(MESH_B, L, generator=g) < 0.5] = 0
+    args = [a.to(dev) for a in (x, torch.randint(0, L, (MESH_B,), generator=g),
+                                torch.randn(MESH_B, 512, generator=g),
+                                torch.argsort(torch.rand(MESH_B, L, generator=g))[:, :SWEEP_K]
+                                .int().contiguous())]
+    rows = MESH_B // shards
+    for attn_quant in ("none", "int8"):
+        kw = dict(dtype=torch.bfloat16, gelu="tanh", attn_quant=attn_quant)
+        got = make_sharded_stack_apply(model, mesh, **kw)(*args)
+        one = make_stack_apply(model, **kw)
+        for s in range(shards):
+            part = slice(s * rows, (s + 1) * rows)
+            if not torch.equal(got[part], one(*(a[part] for a in args))):
+                raise AssertionError(f"sharded stack forward ({attn_quant} attention): shard {s} "
+                                     f"differs from the one-device forward on its {rows} rows")
+        if got.shape != (MESH_B, SWEEP_K, 29) or not got.isfinite().all():
+            raise AssertionError(f"sharded stack forward: {tuple(got.shape)}, finite "
+                                 f"{bool(got.isfinite().all())}")
+        say("mesh", f"sharded stack forward on {mesh}, B={MESH_B}, k={SWEEP_K}, "
+                    f"{'int8' if attn_quant == 'int8' else 'bf16'} band attention: every shard's "
+                    f"logits bit-equal to the one-device forward on its {rows} rows")
+
+    # the sweep on the mesh
+    g = torch.Generator().manual_seed(SEED + 20)   # the sweep phase's prompts
+    z_c = torch.randn(SWEEP_PROMPTS, 512, generator=g).numpy()
+    runner = SweepRunner(make_sharded_stack_apply(model, mesh, dtype=torch.bfloat16, gelu="tanh"),
+                         L, mesh=mesh, temperature=1.0, chunk_steps=128,
+                         positions_per_step=SWEEP_K, apply_takes_positions=True)
+    n_rows, forwards = SWEEP_PROMPTS * SWEEP_REPLICAS, L // SWEEP_K
+    K.reset_launches()
+    t0 = time.perf_counter()
+    seqs = runner.run(z_c, num_replicas=SWEEP_REPLICAS, seed=SEED, device_batch=SWEEP_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"sweep_mesh": K.launch_counts()}
+    check_path("sweep_mesh", counts["sweep_mesh"])
+    for name, want in (("stage3_attention_core", shards * depth * forwards),
+                       ("gather_head", shards * forwards)):
+        if counts["sweep_mesh"][name] != want:
+            raise AssertionError(f"sweep_mesh: {name} launched {counts['sweep_mesh'][name]} "
+                                 f"times, expected {want} ({forwards} forwards on {shards} shards)")
+    flat_seqs = [s for rep in seqs for s in rep]
+    if [len(rep) for rep in seqs] != [SWEEP_REPLICAS] * SWEEP_PROMPTS:
+        raise AssertionError(f"sweep_mesh: {[len(rep) for rep in seqs]} replicas a prompt")
+    check_sequences(flat_seqs)
+    if len(set(flat_seqs)) < 2:
+        raise AssertionError("sweep_mesh: every design is the same")
+    say("mesh", f"sweep_mesh: SweepRunner on {mesh}, {SWEEP_PROMPTS} prompts x "
+                f"{SWEEP_REPLICAS} replicas, one slab of {SWEEP_BATCH}, k = {SWEEP_K} ({forwards} "
+                f"forwards, {rows} rows a shard): {wall:.2f} s wall, {n_rows / wall:.2f} rows/s "
+                f"against the one-device sweep's {SWEEP_ROWS_PER_S['sweep']:.2f} ({smi}); "
+                f"launches {counts['sweep_mesh']}")
+    del runner, model
+    torch.cuda.empty_cache()
+
+    # an in-process server on a dp-2 mesh: exact mode, continuous inpaint rows
+    serve_mesh = make_mesh(MeshConfig(dp=2), [dev] * 2)
+    server = run_server.build_server(run_server.parse_arguments(
+        [*files["flags"], "--device", "cuda", "--port", "0", "--rows_per_dispatch", "4",
+         "--continuous_inpaint"]), mesh=serve_mesh)
+    server.start()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        out = [None, None]
+
+        def client(i):
+            out[i] = http_json(f"{base}/v1/generate", {"prompt": SERVE_PROMPTS[i],
+                                                        "num_replicas": 2, "seed": 7 + i})
+        K.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts["serve_mesh"] = K.launch_counts()
+        inp = serve_inpaint(base, 64, depth, shards=2, path="serve_mesh_inpaint")
+        counts["serve_mesh_inpaint"] = inp["counts"]
+        metrics = http_json(f"{base}/v1/metrics")
+    finally:
+        server.close()
+    if any(o is None for o in out):
+        raise AssertionError("a mesh server request did not answer")
+    check_sequences([s for o in out for s in o["results"][0]["sequences"]])
+    check_path("serve_mesh", counts["serve_mesh"])
+    core, heads = (counts["serve_mesh"][n] for n in ("stage3_attention_core", "gather_head"))
+    if heads % 2 or core != depth * heads:
+        raise AssertionError(f"serve_mesh: stage3_attention_core {core}, gather_head {heads}: "
+                             f"not {depth} cores and 2 shards a forward")
+    say("mesh", f"BioM3Server on {serve_mesh} (continuous, exact, int8, rows_per_dispatch 4): "
+                f"2 requests x 2 replicas in {wall:.2f} s wall ({heads // 2} forwards on 2 shards); "
+                f"/v1/inpaint {inp['wall_s']:.3f} s, template kept, {inp['residues']} of 80 fills "
+                f"residues; device {metrics['device']}")
+    if n_cards >= 2:
+        up, total = run_server_cli([*files["flags"], "--device", "cuda", "--port", "0",
+                                    "--rows_per_dispatch", "4", "--num_replicas", "1",
+                                    "--mesh_dp", "2"])
+        say("mesh", f"run_server --mesh_dp 2 over 2 cards: up in {up:.2f} s, 1 request "
+                    f"answered, SIGTERM → exit 0 ({total:.2f} s in all)")
+    else:
+        say("mesh", "run_server --mesh_dp 2 as a subprocess: skipped, one card")
+
+    # ring attention at ESM2-650M's head shapes, L = 4096, over tp = 4 positions
+    ring_mesh = make_mesh(MeshConfig(tp=RING_TP), [dev] * RING_TP)
+    g = torch.Generator().manual_seed(SEED + 31)
+    q, k, v = (torch.randn(RING_B, RING_H, RING_L, RING_D, generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    pad = (torch.rand(RING_B, RING_L, generator=g) < RING_PAD).to(dev)
+    got = ring_attention(q, k, v, ring_mesh, padding_mask=pad)
+    want = K.flash_attention_plain(q, k, v, pad.int())
+    err, rel = rel_err(got, want)
+    ring_ms = event_ms(lambda: ring_attention(q, k, v, ring_mesh, padding_mask=pad), RING_ITERS)
+    plain_ms = event_ms(lambda: K.flash_attention_plain(q, k, v, pad.int()), RING_ITERS)
+    say("mesh", f"ring_attention over {ring_mesh} (B {RING_B}, H {RING_H}, D {RING_D}, L "
+                f"{RING_L}, {int(pad.sum())} PAD keys, bf16): max|Δ| {err:.3e} (rel {rel:.3e}) "
+                f"against flash_attention_plain; {ring_ms:.3f} ms against {plain_ms:.3f} ms "
+                f"({smi})")
+    if rel > REL_TOL:
+        raise AssertionError(f"ring_attention vs flash_attention_plain rel {rel} > {REL_TOL}")
+    del q, k, v, got, want
+
+    # the 33-layer ESM2-650M, ring against plain attention, on a 1022-residue protein
+    esm_cfg = pencl.esm.config
+    tokens = torch.cat([torch.zeros(1, 1, dtype=torch.long),
+                        torch.randint(4, 24, (1, 1022), generator=g),
+                        torch.full((1, 1), 2, dtype=torch.long)], dim=1).to(dev)
+    hidden, ms = {}, {}
+    for impl in ("ring", "plain"):
+        with dev:   # initialised on the card, then given the seeded weights
+            tower = ESM2(esm_cfg, attn_impl=impl, gelu="tanh",
+                         mesh=ring_mesh if impl == "ring" else None)
+        tower.load_state_dict(pencl.esm.state_dict())
+        tower.eval()
+        with torch.no_grad():
+            hidden[impl] = tower(tokens)["hidden"]
+            ms[impl] = event_ms(lambda: tower(tokens), 2)
+        del tower
+        torch.cuda.empty_cache()
+    cos = min_cosine(hidden["ring"][0], hidden["plain"][0])
+    say("mesh", f"ESM2-650M ({ESM_LAYERS} layers, f32) on a 1022-residue protein, "
+                f"attn_impl=ring over tp = {RING_TP} against plain: min cosine {cos:.6f}; "
+                f"{ms['ring']:.1f} ms against {ms['plain']:.1f} ms a forward ({smi})")
+    if cos < COS_MIN:
+        raise AssertionError(f"ESM2 ring vs plain cosine {cos} < {COS_MIN}")
+    say("mesh", f"the mesh phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2008,10 +2235,12 @@ def serve_requests(base: str) -> dict:
 INPAINT_PROMPT = "zinc finger domain protein that binds dna"
 
 
-def serve_inpaint(base: str, forwards: int, depth: int) -> dict:
+def serve_inpaint(base: str, forwards: int, depth: int, *, shards: int = 1,
+                  path: str = "serve_inpaint") -> dict:
     """One /v1/inpaint request (2 replicas of a 200-residue design with 40
     '?', a prompt not cached yet) and one bad request (a 'J' → 400), with
-    the launch counts set to 0 just before → wall s, launch counts."""
+    the launch counts set to 0 just before → wall s, launch counts.  Each
+    forward launches once on each of ``shards`` mesh positions."""
     import urllib.error
 
     import torch
@@ -2032,15 +2261,16 @@ def serve_inpaint(base: str, forwards: int, depth: int) -> dict:
             raise AssertionError(f"/v1/inpaint answered {exc.code} to a bad sequence") from exc
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    check_path("serve_inpaint", counts)
+    check_path(path, counts)
     seqs = res["sequences"]
     if len(seqs) != 2:
         raise AssertionError(f"/v1/inpaint: {len(seqs)} sequences, expected 2")
     residues = check_inpainted(template, seqs)
-    for name, want in (("stage3_attention_core", depth * forwards), ("gather_head", forwards)):
+    for name, want in (("stage3_attention_core", shards * depth * forwards),
+                       ("gather_head", shards * forwards)):
         if counts[name] != want:
             raise AssertionError(f"/v1/inpaint: {name} launched {counts[name]} times, "
-                                 f"expected {want} ({forwards} forwards)")
+                                 f"expected {want} ({forwards} forwards on {shards} shards)")
     return {"wall_s": wall, "counts": counts, "residues": residues}
 
 
@@ -2054,8 +2284,6 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
     from t0 = 1024 − 40), the packed confidence inpainter (chunk 16, early
     exit after 3 chunks) and MaskGIT rows in generate dispatches (16
     forwards)."""
-    import signal
-
     import torch
 
     from biom3_tpu_torch.cli import run_server
@@ -2110,10 +2338,19 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
                      f"{inp['wall_s']:.3f} s wall; {inp['residues']} of 80 fills are residues; "
                      f"bad sequence → 400")
 
-    # the CLI as a subprocess: one request, SIGTERM, exit code 0
+    up, total = run_server_cli([*base_flags, "--num_replicas", "1"])
+    say("serve", f"run_server CLI: up in {up:.2f} s, 1 request answered, SIGTERM → exit 0 "
+                 f"({total:.2f} s in all)")
+    return {"serve": counts, "serve_inpaint": inpaint_counts}
+
+
+def run_server_cli(flags: list) -> tuple[float, float]:
+    """``run_server`` as a subprocess: one request, SIGTERM, exit code 0 →
+    (s until it serves, s in all)."""
+    import signal
+
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "biom3_tpu_torch.cli.run_server", *base_flags,
-                             "--num_replicas", "1"],
+    proc = subprocess.Popen([sys.executable, "-m", "biom3_tpu_torch.cli.run_server", *flags],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         base = None
@@ -2134,9 +2371,7 @@ def phase_serve(root: pathlib.Path, files: dict) -> dict:
             proc.wait()
     if rc != 0:
         raise AssertionError(f"run_server exited {rc} on SIGTERM: {proc.stderr.read()[-3000:]}")
-    say("serve", f"run_server CLI: up in {up:.2f} s, 1 request answered, SIGTERM → exit 0 "
-                 f"({time.perf_counter() - t0:.2f} s in all)")
-    return {"serve": counts, "serve_inpaint": inpaint_counts}
+    return up, time.perf_counter() - t0
 
 
 # --------------------------------------------------------------------------
@@ -2897,6 +3132,7 @@ def main() -> None:
         counts.update(phase_serve(root / "e2e", files))
         counts.update(phase_sample_clis(root / "e2e", files))
         counts.update(phase_sweep(root / "e2e", files))
+        counts.update(phase_mesh(root / "e2e", files, pencl))
         counts.update(phase_train_stage2(root / "e2e"))
         counts.update(phase_pencl(root, stage1, pencl))
         del pencl

@@ -84,6 +84,10 @@ SLICE_MODULES = [
     "biom3_tpu_torch.pipeline.sweep",
     "biom3_tpu_torch.cli.run_eval",
     "biom3_tpu_torch.cli.run_supervised",
+    "biom3_tpu_torch.parallel",
+    "biom3_tpu_torch.parallel.mesh",
+    "biom3_tpu_torch.parallel.sharding",
+    "biom3_tpu_torch.ops.ring_attention",
 ]
 
 

@@ -337,9 +337,10 @@ def test_trajectory_close_fails_rows_of_a_hung_dispatch(stage_files):
 
 def test_run_server_preset_sentinels():
     """A fault of the JAX CLI, fixed here: a flag given explicitly at its
-    default value beats the preset;
-    mesh serving, which the port lacks, is refused, and continuous inpaint,
-    the throughput preset and confidence order pass."""
+    default value beats the preset; mesh serving (``--mesh_dp 2``,
+    ``--mesh_fsdp 2 --continuous_inpaint``) builds a 2-position mesh on the
+    CPU and one device without the flags, and continuous inpaint, the
+    throughput preset and confidence order parse."""
     from biom3_tpu_torch.cli import run_server
 
     base = [f for n in (1, 2, 3) for f in (f"--stage{n}_json", "x", f"--stage{n}_model", "x")]
@@ -350,17 +351,18 @@ def test_run_server_preset_sentinels():
     assert (args.temperature, args.rows_per_dispatch, args.chunk_steps) == (1.0, 16, 16)
     args = run_server.parse_arguments(base)
     assert (args.temperature, args.rows_per_dispatch, args.continuous) == (1.0, 16, "auto")
-    run_server.refuse_unported(args)
-    for extra in (["--mesh_dp", "2"], ["--mesh_fsdp", "2", "--continuous_inpaint"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-            run_server.refuse_unported(run_server.parse_arguments(base + extra))
+    assert run_server.build_mesh(args) is None
+    for extra, shape in ((["--mesh_dp", "2"], {"dp": 2, "fsdp": 1, "tp": 1}),
+                         (["--mesh_fsdp", "2", "--continuous_inpaint"],
+                          {"dp": 1, "fsdp": 2, "tp": 1})):
+        mesh = run_server.build_mesh(run_server.parse_arguments(base + extra + ["--device",
+                                                                                "cpu"]))
+        assert mesh.shape == shape and mesh.batch_devices() == [torch.device("cpu")] * 2
     args = run_server.parse_arguments(base + ["--continuous_inpaint"])
-    run_server.refuse_unported(args)
     assert args.continuous_inpaint
     for extra, want in ((["--preset", "throughput"], ("maskgit", 16, "off")),
                         (["--decode_order", "confidence"], ("ardm", 16, "auto"))):
         args = run_server.parse_arguments(base + extra)
-        run_server.refuse_unported(args)
         assert (args.sampler, args.maskgit_steps, args.continuous) == want
 
 
