@@ -69,9 +69,9 @@ import subprocess
 import sys
 
 from biom3_tpu_torch.cli.measure_gemm import nbytes
+from biom3_tpu_torch.utils.flops import PEAK_BF16, PEAK_INT8, PEAK_BYTES  # H100 SXM data sheet
 
 REL_TOL = 2e-2
-PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM data sheet
 B, H, L, DH = 2, 20, 1024, 64
 LENGTHS = (1024, 400)
 BERT_L, BERT_H, BERT_BATCHES = 512, 12, (2, 16)

@@ -52,9 +52,10 @@ import subprocess
 import sys
 import time
 
+from biom3_tpu_torch.utils.flops import PEAK_BF16, PEAK_INT8, PEAK_BYTES  # H100 SXM data sheet
+
 REL_TOL = 2e-2
 ITERS = 20
-PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM data sheet
 L, D, FF = 1024, 512, 2048
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 

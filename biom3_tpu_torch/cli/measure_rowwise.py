@@ -85,8 +85,9 @@ import pathlib
 import subprocess
 import sys
 
+from biom3_tpu_torch.utils.flops import PEAK_BF16, PEAK_BYTES  # H100 SXM data sheet
+
 REL_TOL = 2e-2
-PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
 SEED = 0
 
 

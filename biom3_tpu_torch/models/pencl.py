@@ -214,15 +214,25 @@ def compute_intra_loss(protein_embeddings: torch.Tensor, temperature: float):
     return (torch.logsumexp(sim, dim=-1) - positives).mean(), sim
 
 
-def compute_masked_lang_loss(logits_masked: torch.Tensor, targets: torch.Tensor,
-                             targets_masked: torch.Tensor, mask_token_id: int) -> torch.Tensor:
-    """Mean cross-entropy over the positions holding ``mask_token_id`` in
-    the corrupted input, per sample, then over the samples with at least
-    one such position."""
+def masked_lang_loss_sums(logits_masked: torch.Tensor, targets: torch.Tensor,
+                          targets_masked: torch.Tensor,
+                          mask_token_id: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``compute_masked_lang_loss``'s numerator (the per-sample mean
+    cross-entropies, summed over the samples with a mask) and denominator
+    (that count, int64): a batch split over ranks sums both over them."""
     logp = torch.log_softmax(logits_masked.float(), dim=-1)
     tgt = targets.reshape(targets.shape[0], -1).long()
     ce = -logp.gather(-1, tgt[..., None])[..., 0]
     is_masked = targets_masked.reshape(tgt.shape) == mask_token_id
     per_sample = (ce * is_masked).sum(-1) / is_masked.sum(-1).clamp(min=1)
     has_mask = is_masked.any(-1)
-    return (per_sample * has_mask).sum() / has_mask.sum().clamp(min=1)
+    return (per_sample * has_mask).sum(), has_mask.sum()
+
+
+def compute_masked_lang_loss(logits_masked: torch.Tensor, targets: torch.Tensor,
+                             targets_masked: torch.Tensor, mask_token_id: int) -> torch.Tensor:
+    """Mean cross-entropy over the positions holding ``mask_token_id`` in
+    the corrupted input, per sample, then over the samples with at least
+    one such position."""
+    total, count = masked_lang_loss_sums(logits_masked, targets, targets_masked, mask_token_id)
+    return total / count.clamp(min=1)

@@ -17,11 +17,17 @@ axes keep the JAX names:
 list may repeat a device: positions that share one card (or the CPU) run
 one after another on it — that is how the CPU tests and a one-card machine
 exercise the code that spreads rows over several cards.
+
+This mesh is for one process.  Training runs one process per rank on a
+``torch.distributed`` group instead, over the ``DeviceMesh`` that
+``parallel/distributed.make_hybrid_mesh`` builds; ``param_partition_spec``
+below gives its parameter placement.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
@@ -109,3 +115,67 @@ def make_mesh(cfg: MeshConfig, devices=None) -> Mesh:
     grid = np.empty(n, dtype=object)
     grid[:] = devices[:n]
     return Mesh(grid.reshape(cfg.dp, cfg.fsdp, cfg.tp))
+
+
+# Parameter placement (JAX ``parallel/mesh.py:53-93``), on the port's
+# parameter names.  A torch ``Linear.weight`` is (out, in) where a Flax
+# kernel is (in, out): a column-parallel weight takes tp on dim 0 and fsdp
+# on dim 1, a row-parallel one the reverse; an embedding table keeps its
+# vocab dim 0 in both.  The names are those the JAX rules match, spelled
+# as the port spells them: JAX's row-parallel ``to_out``, ``ff_w2``,
+# ``fc2`` (the conditioning MLPs' second layer too), ``out_proj``
+# (ProteoScribe's head too) are ``to_out``, ``fn.w2``, ``fc2``,
+# ``mlp.2``, ``out_proj`` and ``transformer.out`` here; everything else
+# 2-D is column-parallel, as in JAX.
+_ROW_PARALLEL = re.compile(r"(to_out|fn\.w2\.|fc2|mlp\.2\.|out_proj|o_proj|^transformer\.out\.)")
+_EMBEDDING = re.compile(r"(x_emb_NN|embed_tokens|_embeddings)\.weight$")
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """Axis name → size of a ``MeshConfig``, a ``Mesh`` or a
+    ``torch.distributed`` ``DeviceMesh`` with named dims."""
+    if isinstance(mesh, MeshConfig):
+        return {"dp": mesh.dp, "fsdp": mesh.fsdp, "tp": mesh.tp}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def param_partition_spec(name: str, shape: tuple, mesh) -> tuple:
+    """The mesh axis (``"fsdp"``, ``"tp"`` or None) of each dim of the
+    parameter ``name`` of ``shape``, as JAX's ``PartitionSpec``: ``()``
+    replicates.  1-D parameters replicate; an axis goes only on a dim it
+    divides, else that dim replicates.  The axial position tables, (R, d)
+    in JAX and (1, R, 1, d) / (1, 1, W, d) here, are not transposed: their
+    two non-singleton dims take JAX's (fsdp, tp)."""
+    sizes = axis_sizes(mesh)
+    fsdp_n, tp_n = sizes["fsdp"], sizes["tp"]
+
+    def fits(dim: int, n: int) -> bool:
+        return n > 1 and dim % n == 0
+
+    if len(shape) < 2:
+        return ()
+    if len(shape) > 2:
+        spec = [None] * len(shape)
+        dims = [i for i, n in enumerate(shape) if n != 1]
+        if len(dims) == 2:
+            r, c = dims
+            spec[r] = "fsdp" if fits(shape[r], fsdp_n) else None
+            spec[c] = "tp" if fits(shape[c], tp_n) else None
+        elif fits(shape[-1], tp_n):
+            spec[-1] = "tp"
+        return tuple(spec)
+    if _EMBEDDING.search(name):
+        return ("fsdp" if fits(shape[0], fsdp_n) else None, None)
+    if _ROW_PARALLEL.search(name):
+        return ("fsdp" if fits(shape[0], fsdp_n) else None,
+                "tp" if fits(shape[1], tp_n) else None)
+    return ("tp" if fits(shape[0], tp_n) else None,
+            "fsdp" if fits(shape[1], fsdp_n) else None)
+
+
+def fsdp_dim(spec: tuple) -> int | None:
+    """The dim a spec shards over fsdp, or None."""
+    return spec.index("fsdp") if "fsdp" in spec else None

@@ -14,6 +14,12 @@ nothing is read back, so positions on distinct cards run at once, while
 positions that share a card run one after another on its current stream.
 Randomness stays with the caller, on the global batch: only the forward
 is split.
+
+The training half (JAX ``sharding.py:15-58``) works on a
+``torch.distributed`` ``DeviceMesh``, one process per rank:
+``params_shardings`` and ``shard_params`` place the parameters by
+``param_partition_spec`` through FSDP2, and ``put_global`` gives each rank
+its row block of a batch that every rank holds whole.
 """
 
 from __future__ import annotations
@@ -23,7 +29,13 @@ import copy
 
 import torch
 
-from biom3_tpu_torch.parallel.mesh import Mesh, canonical
+from biom3_tpu_torch.parallel.mesh import (
+    Mesh,
+    axis_sizes,
+    canonical,
+    fsdp_dim,
+    param_partition_spec,
+)
 
 
 def device_context(device: torch.device):
@@ -97,3 +109,77 @@ def shard_rows(fns: list, mesh: Mesh):
 
     sharded.mesh = mesh
     return sharded
+
+
+# --- training: parameters and batches over a DeviceMesh ---------------------
+
+def params_shardings(model: torch.nn.Module, mesh) -> dict[str, tuple]:
+    """Parameter name → ``param_partition_spec`` on ``mesh``."""
+    return {name: param_partition_spec(name, tuple(p.shape), mesh)
+            for name, p in model.named_parameters()}
+
+
+def _kernel_layers() -> tuple:
+    """The modules whose ``forward`` hands their weights to a kernel
+    wrapper: FSDP2 must gather those weights in that module's pre-forward
+    hook, since the child ``Linear``s' ``forward`` never runs."""
+    from biom3_tpu_torch.models.bert import BertLayer
+    from biom3_tpu_torch.models.esm2 import ESM2Layer
+    from biom3_tpu_torch.models.proteoscribe import TransformerLayer
+
+    return (TransformerLayer, ESM2Layer, BertLayer)
+
+
+def shard_params(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """Shard ``model`` in place with FSDP2 (``fully_shard``) over the (dp,
+    fsdp) dims of ``mesh``: replicated over dp, sharded over fsdp (FSDP2's
+    hybrid mode), each parameter on the dim ``param_partition_spec`` gives
+    fsdp.  A parameter JAX replicates (1-D, or no dim divides) takes
+    FSDP2's default, dim 0, padded where uneven: FSDP2 shards every
+    parameter of a module it wraps, and gathers it whole before the
+    forward either way.  Each layer in ``_kernel_layers`` is wrapped, then
+    the root; no mixed-precision policy, so the numbers are the one-device
+    step's.  ``model`` must already lie on the mesh's device.  tp > 1
+    raises: tensor parallelism on the kernels is ROADMAP queue 1 item 8c."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    if axis_sizes(mesh)["tp"] > 1:
+        raise NotImplementedError("tp > 1 in training is not ported: the attention kernels "
+                                  "would have to take a subset of the heads (ROADMAP.md queue 1 "
+                                  "item 8c)")
+    specs = {id(p): param_partition_spec(n, tuple(p.shape), mesh)
+             for n, p in model.named_parameters()}
+
+    def placement(p):
+        dim = fsdp_dim(specs[id(p)])
+        return None if dim is None else Shard(dim)
+
+    data_mesh = mesh["dp", "fsdp"]
+    for module in model.modules():
+        if isinstance(module, _kernel_layers()):
+            fully_shard(module, mesh=data_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=data_mesh, shard_placement_fn=placement)
+    return model
+
+
+def batch_sharding(mesh, rows: int) -> slice:
+    """This rank's contiguous row block of a batch of ``rows``: batch shard
+    ``s = dp_index·fsdp + fsdp_index`` of dp·fsdp (JAX's ``P(("dp",
+    "fsdp"))`` order); the tp ranks of one (dp, fsdp) block share it."""
+    sizes = axis_sizes(mesh)
+    n = sizes["dp"] * sizes["fsdp"]
+    if rows % n:
+        raise ValueError(f"batch {rows} not divisible by {n} (dp x fsdp) shards")
+    s = mesh.get_local_rank("dp") * sizes["fsdp"] + mesh.get_local_rank("fsdp")
+    return slice(s * rows // n, (s + 1) * rows // n)
+
+
+def put_global(value: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's row block (``batch_sharding``) of ``value``, a batch
+    that every rank holds whole (built from the same seed on each, as the
+    reference fed each rank the same DataLoader shards), on the rank's
+    device (its current card, or the CPU)."""
+    device = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+              else torch.device(mesh.device_type))
+    return value[batch_sharding(mesh, value.shape[0])].to(device).contiguous()

@@ -32,6 +32,14 @@ Port of ``biom3_tpu/training/optim.py:22-75`` from optax to ``torch.optim``:
   jnp's weak typing does, then summed in f32), the second in the
   parameters' dtype (``moment_dtype="bfloat16"``, Stage 1's
   optimizer-state compression).
+
+On parameters that FSDP2 has sharded (``DTensor``s, ``parallel/sharding.py``)
+``torch.optim.AdamW`` runs as it is; ``Adafactor`` and ``AdamWMoments``
+update each rank's shard in place and keep their state as ``DTensor``s
+sharded as the parameter.  ``AdamWMoments`` is elementwise; Adafactor's
+row and column means and its two RMS take their sums over the shard's
+process group, so its factored statistics are those of the whole
+parameter.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def coswarmup_schedule(warmup_steps: int, total_steps: int,
@@ -108,6 +118,60 @@ def _factored_dims(shape):
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s shard on this rank (in-place ops on it reach the
+    ``DTensor``), any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _shard_groups(t: torch.Tensor) -> dict:
+    """Tensor dim → the process group a ``DTensor`` shards it over, for
+    groups of more than one rank (none for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return {}
+    mesh = t.device_mesh
+    return {pl.dim: mesh.get_group(m) for m, pl in enumerate(t.placements)
+            if isinstance(pl, Shard) and mesh.size(m) > 1}
+
+
+def _without(groups: dict, dim: int) -> dict:
+    """``groups`` of a tensor reduced over ``dim``."""
+    return {k - (k > dim): g for k, g in groups.items() if k != dim}
+
+
+def _mean(x: torch.Tensor, dim: int, n: int, groups: dict, keepdim: bool = False):
+    """The mean over ``dim`` (``n`` long in the whole tensor) of the shard
+    ``x``, whose dims ``groups`` names are sharded."""
+    if dim not in groups:
+        return x.mean(dim, keepdim=keepdim)
+    total = x.sum(dim, keepdim=keepdim)
+    dist.all_reduce(total, group=groups[dim])
+    return total / n
+
+
+def _mean_all(x: torch.Tensor, numel: int, groups: dict) -> torch.Tensor:
+    if not groups:
+        return x.mean()
+    total = x.sum()
+    for group in groups.values():
+        dist.all_reduce(total, group=group)
+    return total / numel
+
+
+def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Zeros of ``p``'s shape without ``dim``, sharded as ``p`` on the
+    other dims."""
+    shape = [n for i, n in enumerate(p.shape) if i != dim]
+    if not isinstance(p, DTensor):
+        return p.new_zeros(shape)
+    from torch.distributed.tensor import zeros
+
+    placements = [pl if not isinstance(pl, Shard) else
+                  Replicate() if pl.dim == dim else Shard(pl.dim - (pl.dim > dim))
+                  for pl in p.placements]
+    return zeros(shape, dtype=p.dtype, device_mesh=p.device_mesh, placements=placements)
+
+
 class Adafactor(torch.optim.Optimizer):
     """``optax.adafactor(lr, weight_decay_rate=weight_decay or None)``."""
 
@@ -122,35 +186,39 @@ class Adafactor(torch.optim.Optimizer):
                     self._update(p, p.grad, self.state[p], group)
 
     def _update(self, p, g, state, group) -> None:
-        dims = _factored_dims(tuple(p.shape))
+        shape = tuple(p.shape)
+        dims = _factored_dims(shape)
         if not state:
             state["step"] = 0
             if dims is None:
                 state["v"] = torch.zeros_like(p)
             else:
                 d1, d0 = dims
-                state["v_row"] = p.new_zeros(np.delete(p.shape, d0).tolist())
-                state["v_col"] = p.new_zeros(np.delete(p.shape, d1).tolist())
-        decay = 1.0 - _f32(state["step"] + 1, p) ** -AF_DECAY_RATE
+                state["v_row"], state["v_col"] = _zeros_without(p, d0), _zeros_without(p, d1)
+        groups, pl, g = _shard_groups(p), _local(p), _local(g)
+        decay = 1.0 - _f32(state["step"] + 1, pl) ** -AF_DECAY_RATE
         grad_sqr = g * g + AF_EPS
         if dims is None:
-            state["v"] = (decay * state["v"] + (1.0 - decay) * grad_sqr).to(p.dtype)
-            u = g * state["v"] ** -0.5
+            v = _local(state["v"])
+            v.copy_(decay * v + (1.0 - decay) * grad_sqr)
+            u = g * v ** -0.5
         else:
             d1, d0 = dims
-            v_row = (decay * state["v_row"] + (1.0 - decay) * grad_sqr.mean(d0)).to(p.dtype)
-            v_col = (decay * state["v_col"] + (1.0 - decay) * grad_sqr.mean(d1)).to(p.dtype)
-            state["v_row"], state["v_col"] = v_row, v_col
-            row_col_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            v_row, v_col = _local(state["v_row"]), _local(state["v_col"])
+            v_row.copy_(decay * v_row + (1.0 - decay) * _mean(grad_sqr, d0, shape[d0], groups))
+            v_col.copy_(decay * v_col + (1.0 - decay) * _mean(grad_sqr, d1, shape[d1], groups))
+            row_col_mean = _mean(v_row, d1 - 1 if d1 > d0 else d1, shape[d1],
+                                 _without(groups, d0), keepdim=True)
             u = g * ((v_row / row_col_mean) ** -0.5).unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
         state["step"] += 1
-        u = u / torch.clamp(torch.sqrt((u * u).mean()) / AF_CLIP, min=1.0)
+        numel = p.numel()
+        u = u / torch.clamp(torch.sqrt(_mean_all(u * u, numel, groups)) / AF_CLIP, min=1.0)
         u = u * group["lr"]
-        rms = torch.sqrt((p * p).mean())
-        u = u * torch.where(rms <= AF_MIN_SCALE, _f32(AF_MIN_SCALE, p), rms)
+        rms = torch.sqrt(_mean_all(pl * pl, numel, groups))
+        u = u * torch.where(rms <= AF_MIN_SCALE, _f32(AF_MIN_SCALE, pl), rms)
         if group["weight_decay"]:
-            u = u + group["weight_decay"] * p
-        p.sub_(u)
+            u = u + group["weight_decay"] * pl
+        pl.sub_(u)
 
 
 class AdamWMoments(torch.optim.Optimizer):
@@ -169,23 +237,26 @@ class AdamWMoments(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g, state = p.grad, self.state[p]
+                state = self.state[p]
                 if not state:
                     state["step"] = 0
                     state["mu"] = torch.zeros_like(p, dtype=group["moment_dtype"])
                     state["nu"] = torch.zeros_like(p)
                 state["step"] += 1
+                g, pl = _local(p.grad), _local(p)
+                mu_prev, nu_prev = _local(state["mu"]), _local(state["nu"])
                 # jnp takes the Python b1 in mu's dtype (weak typing): bf16(b1) · mu
-                mu = (1 - b1) * g + torch.tensor(b1, dtype=state["mu"].dtype) * state["mu"]
-                nu = (1 - b2) * (g * g) + b2 * state["nu"]
-                n = _f32(state["step"], p)
-                mu_hat = mu / (1 - _f32(b1, p) ** n)
-                nu_hat = nu / (1 - _f32(b2, p) ** n)
+                mu = (1 - b1) * g + torch.tensor(b1, dtype=mu_prev.dtype) * mu_prev
+                nu = (1 - b2) * (g * g) + b2 * nu_prev
+                n = _f32(state["step"], pl)
+                mu_hat = mu / (1 - _f32(b1, pl) ** n)
+                nu_hat = nu / (1 - _f32(b2, pl) ** n)
                 u = mu_hat / (torch.sqrt(nu_hat) + eps)
                 if group["weight_decay"]:
-                    u = u + group["weight_decay"] * p
-                p.add_(u * -group["lr"])
-                state["mu"], state["nu"] = mu.to(group["moment_dtype"]), nu
+                    u = u + group["weight_decay"] * pl
+                pl.add_(u * -group["lr"])
+                mu_prev.copy_(mu)
+                nu_prev.copy_(nu)
 
 
 def describe(tx: "Optimizer") -> str:

@@ -17,12 +17,15 @@ JAX step's dropout key does; eval mode is the deterministic forward (a
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from biom3_tpu_torch.models.pencl import (
     compute_inter_loss,
     compute_intra_loss,
     compute_masked_lang_loss,
+    masked_lang_loss_sums,
 )
+from biom3_tpu_torch.parallel.sharding import put_global
 from biom3_tpu_torch.training.metrics import contrastive_metrics
 from biom3_tpu_torch.training.optim import Optimizer, make_grouped_optimizer
 from biom3_tpu_torch.training.state import TrainState
@@ -30,8 +33,26 @@ from biom3_tpu_torch.training.state import TrainState
 DATASET_TYPES = ("default", "masked", "pfam", "pfam_ablated")
 
 
+def _gathered(z: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``z``, in rank order (the global batch's row
+    order, ``put_global``), with gradients to each rank's own rows."""
+    from torch.distributed.nn.functional import all_gather
+
+    return torch.cat(all_gather(z))
+
+
+def _global_mlm_loss(logits, targets, targets_masked, mask_id: int) -> torch.Tensor:
+    """``compute_masked_lang_loss`` over the ranks' rows together: the
+    numerators summed with their gradient, the counts without."""
+    from torch.distributed.nn.functional import all_reduce
+
+    total, count = masked_lang_loss_sums(logits, targets, targets_masked, mask_id)
+    dist.all_reduce(count)
+    return all_reduce(total) / count.clamp(min=1)
+
+
 def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str = "pfam",
-                   text_mask_id: int, protein_mask_id: int):
+                   text_mask_id: int, protein_mask_id: int, sharded: bool = False):
     """batch: ``{text,protein}_tokens`` (and ``_masked``), optionally the
     ``pfam_*`` equivalents.  ``dataset_type`` selects the loss terms, the
     reference's three Lightning wrappers:
@@ -41,16 +62,21 @@ def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str 
     * ``"pfam"``: SwissProt + Pfam batch, inter + intra + both MLM;
     * ``"pfam_ablated"``: pfam without the intra loss in the total.
 
+    With ``sharded``, ``batch`` holds this rank's rows of the global batch
+    and the loss is the global batch's (module docstring).
+
     Returns (loss, aux) with every term and the contrastive logits."""
     if dataset_type not in DATASET_TYPES:
         raise ValueError(f"Unexpected dataset_type {dataset_type!r}")
     has_pfam = "pfam_text_tokens" in batch
+    gather = _gathered if sharded else (lambda z: z)
     out = model(batch["text_tokens"], batch["protein_tokens"])
-    z_t_all, z_p_all = out["text_joint_latent"], out["seq_joint_latent"]
+    z_t_all, z_p_all = gather(out["text_joint_latent"]), gather(out["seq_joint_latent"])
     if has_pfam:
+        # each half gathered before the two are joined: [SwissProt, Pfam] rows
         pf = model(batch["pfam_text_tokens"], batch["pfam_protein_tokens"])
-        z_t_all = torch.cat([z_t_all, pf["text_joint_latent"]])
-        z_p_all = torch.cat([z_p_all, pf["seq_joint_latent"]])
+        z_t_all = torch.cat([z_t_all, gather(pf["text_joint_latent"])])
+        z_p_all = torch.cat([z_p_all, gather(pf["seq_joint_latent"])])
     loss_align, logits = compute_inter_loss(z_p_all, z_t_all, z_p_all.shape[0] // 2,
                                             temperature)
     aux = {"loss_align": loss_align, "logits": logits}
@@ -63,12 +89,13 @@ def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str 
         def cat(key):
             return torch.cat([batch[key], batch["pfam_" + key]]) if has_pfam else batch[key]
 
+        mlm_loss = _global_mlm_loss if sharded else compute_masked_lang_loss
         mlm = model(cat("text_tokens_masked"), cat("protein_tokens_masked"),
                     compute_masked_logits=True)
-        aux["loss_text_mask"] = compute_masked_lang_loss(
+        aux["loss_text_mask"] = mlm_loss(
             mlm["text_masked_logits"], cat("text_tokens"), cat("text_tokens_masked"),
             text_mask_id)
-        aux["loss_seq_mask"] = compute_masked_lang_loss(
+        aux["loss_seq_mask"] = mlm_loss(
             mlm["protein_masked_logits"], cat("protein_tokens"), cat("protein_tokens_masked"),
             protein_mask_id)
         loss = loss + aux["loss_text_mask"] + aux["loss_seq_mask"]
@@ -76,24 +103,46 @@ def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str 
     return loss, aux
 
 
-def make_stage1_train_step(state: TrainState, *, temperature: float, dataset_type: str = "pfam",
-                           text_mask_id: int, protein_mask_id: int):
-    """→ ``step(batch) -> aux``: one optimizer step on ``batch`` (token
-    tensors on the model's device) in train mode; aux holds the detached
-    loss terms and the contrastive metrics."""
+def _train_step(state: TrainState, loss_kw: dict, sharded: bool = False, mesh=None):
     model = state.model
 
     def step(batch: dict) -> dict:
         model.train()
-        loss, aux = stage1_loss_fn(model, batch, temperature=temperature,
-                                   dataset_type=dataset_type, text_mask_id=text_mask_id,
-                                   protein_mask_id=protein_mask_id)
+        if sharded:
+            batch = {k: put_global(v, mesh) for k, v in batch.items()}
+        loss, aux = stage1_loss_fn(model, batch, sharded=sharded, **loss_kw)
         loss.backward()
         state.apply_gradients()
         logits = aux.pop("logits").detach()
         return {**{k: v.detach() for k, v in aux.items()}, **contrastive_metrics(logits)}
 
     return step
+
+
+def make_stage1_train_step(state: TrainState, *, temperature: float, dataset_type: str = "pfam",
+                           text_mask_id: int, protein_mask_id: int):
+    """→ ``step(batch) -> aux``: one optimizer step on ``batch`` (token
+    tensors on the model's device) in train mode; aux holds the detached
+    loss terms and the contrastive metrics."""
+    return _train_step(state, dict(temperature=temperature, dataset_type=dataset_type,
+                                   text_mask_id=text_mask_id, protein_mask_id=protein_mask_id))
+
+
+def make_sharded_stage1_train_step(model: torch.nn.Module, make_tx, mesh, *, temperature: float,
+                                   dataset_type: str = "pfam", text_mask_id: int,
+                                   protein_mask_id: int):
+    """The train step on ``mesh`` (a ``make_hybrid_mesh`` ``DeviceMesh``)
+    → ``(step, state)``: ``model`` sharded by ``shard_params``, the
+    optimizer ``make_tx(model)`` built on its shards
+    (``training/sharded.py``).  ``step(batch)`` takes the global batch, the
+    same on every rank, runs this rank's rows (``put_global``) and returns
+    the global batch's aux, the same on every rank."""
+    from biom3_tpu_torch.training.sharded import make_sharded_train_step
+
+    loss_kw = dict(temperature=temperature, dataset_type=dataset_type,
+                   text_mask_id=text_mask_id, protein_mask_id=protein_mask_id)
+    return make_sharded_train_step(lambda state: _train_step(state, loss_kw, True, mesh),
+                                   model, make_tx, mesh)
 
 
 def _group_of(name: str) -> str:

@@ -3,15 +3,31 @@ step and the EMA copies.
 
 Port of ``biom3_tpu/training/state.py:14-42``.  JAX's state is an immutable
 pytree; here the model and optimizer are updated in place, and
-``state_dict``/``load_state_dict`` carry what a checkpoint needs.
+``state_dict``/``load_state_dict`` carry what a checkpoint needs.  On a
+model that FSDP2 has sharded (``training/sharded.py``) ``state_dict`` and
+``ema_state_dict`` gather every tensor whole on each rank, so checkpoints
+and ``--export_bin`` keep the one-device format.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from biom3_tpu_torch.training.ema import ema_init, ema_update
 from biom3_tpu_torch.training.optim import Optimizer
+
+
+def full(tree):
+    """``tree`` (tensors in dicts, lists and tuples) with every ``DTensor``
+    gathered whole on this rank (a collective: every rank calls it)."""
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: full(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full(v) for v in tree)
+    return tree
 
 
 class TrainState:
@@ -34,13 +50,16 @@ class TrainState:
         parameters."""
         sd = dict(self.model.state_dict())
         sd.update(zip(self.names, self.ema_params))
-        return sd
+        return full(sd)
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "params": self.model.state_dict(),
-                "opt": self.tx.state_dict(), "ema": self.ema_params}
+        return full({"step": self.step, "params": self.model.state_dict(),
+                     "opt": self.tx.state_dict(), "ema": self.ema_params})
 
     def load_state_dict(self, sd: dict) -> None:
+        if any(isinstance(p, DTensor) for p in self.params):
+            raise NotImplementedError("resuming a sharded state is not ported: load the "
+                                      "checkpoint on one device")
         self.step = int(sd["step"])
         self.model.load_state_dict(sd["params"])
         self.tx.load_state_dict(sd["opt"])

@@ -191,14 +191,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
    1024, a PAD tail): ``ESM2Layer(attn_impl="layer-block")`` in bf16 on the
    kernels (``layernorm`` and ``layernorm_bwd`` on their shared-memory
    routes) against the plain f32 layer, forward and backward, at phase
-   8a's gates.
+   8a's gates;
+9. sharded training on a one-rank NCCL group (``tcp://localhost``, world
+   size 1; NCCL takes one rank a card): ``make_sharded_stage3_train_step``
+   (FSDP2 over the (dp, fsdp) mesh, ``layer_block``, bf16, AdamW, EMA) at
+   full width, B=32, 3 steps, against ``make_stage3_train_step`` on the
+   same seeded weights, batch and generator (path ``train_sharded``), then
+   ``make_sharded_stage1_train_step`` (the gathered latents, the summed MLM
+   terms) at full width, B=4 ``pfam`` pairs of 1022 residues, 2 steps,
+   against the one-device Stage-1 step (path ``train_stage1_sharded``): the
+   losses, the first step's gradients and the parameters' updates must
+   agree (``SHARDED_REL_TOL``, ``SHARDED_UPDATE_TOL``), with the worst
+   differences, ms per step of both and a profile (device ms, the host ms
+   of the optimizer step and of FSDP2's hooks) printed beside the card's
+   name and power limit.
 
 Each path (phase 4's graph-path ProteoScribe, the five runs of phase 5,
 the three PenCL runs of phase 6 and the bulk embedding, the serving runs
 and their inpaint requests, the sample CLIs, the two sweeps, the mesh's
 sweep and server, Stage-2 training, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
-``.bin`` in phase 8) runs with the launch counts
+``.bin`` in phase 8, the two sharded steps of phase 9) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
 exactly its own kernels.  The line before the last is the kernels' JSON record, with
 each kernel's time, its plain version's, the least time the card could
@@ -250,6 +263,17 @@ TRAIN_STEPS, TRAIN_B, TRAIN_LR = 40, 32, 1e-3
 # most STAGE1_MLM_FALL of step 1's: in 16 steps the seeded towers learn the
 # masked tokens, while the contrastive terms stay at log 7 (PERF.md)
 STAGE1_STEPS, STAGE1_LR, STAGE1_MLM_FALL = 16, 1e-3, 0.8
+# phase 9: one rank runs the one-device step's arithmetic on FSDP2's
+# gathered copies of the same weights.  Every loss term of every step, and
+# the first step's gradients (max|Δg| over the model / its max|g|), within
+# SHARDED_REL_TOL of the one-device step's: FSDP2 sums a weight's gradient
+# over the three Stage-1 forwards in another order, and the BERT
+# word-embedding gradient differs from call to call on the same inputs
+# (3.8e-7, 3.8e-7, 8.3e-7 in three calls).  AdamW's first step takes the
+# sign of a gradient near 0, so the parameters are held by their update:
+# ||Δp − Δp_one|| / ||Δp_one|| over the model under SHARDED_UPDATE_TOL
+# (Stage 1 read 1.6e-4, 3.8e-4 and 4.1e-4)
+SHARDED_REL_TOL, SHARDED_UPDATE_TOL = 1e-5, 1e-2
 
 # kernel → (source, TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -343,6 +367,9 @@ PATH_KERNELS = {
     "train_stage1": {"layernorm", "gemm_bias_act", "esm2_attention", "esm2_attention_bwd",
                      "gemm_dx", "gemm_dw", "col_sum", "layernorm_bwd"},
 }
+# the sharded steps launch the one-device steps' kernels
+PATH_KERNELS["train_sharded"] = PATH_KERNELS["train_layer_block"]
+PATH_KERNELS["train_stage1_sharded"] = PATH_KERNELS["train_stage1"]
 
 
 def say(phase: str, msg: str) -> None:
@@ -2846,12 +2873,12 @@ def phase_stage1_grads(stage1: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_stage1_steps(stage1: dict) -> None:
+def phase_stage1_steps(stage1: dict) -> dict:
     """Train steps on one fixed batch of full-length pairs: the loss must
     fall, and its MLM terms to ``STAGE1_MLM_FALL`` of step 1's, in
     ``layer_block`` mode at B=4; ms per step (CUDA events, from the
     third step on) and peak memory of each mode; a profile of
-    ``layer_block``."""
+    ``layer_block`` → the seeded weights (host), which phase 9 reuses."""
     import torch
 
     from biom3_tpu_torch.cli.measure_pencl import profile_ms
@@ -2919,6 +2946,7 @@ def phase_stage1_steps(stage1: dict) -> None:
                                    state_bytes(state.tx))
         del model, state, step
         torch.cuda.empty_cache()
+    return init
 
 
 STAGE1_OPT_STEPS = 3
@@ -2965,6 +2993,234 @@ def stage1_optimizer_steps(model, init: dict, cfg, lrs, batch, adamw_losses,
         del state, step
         torch.cuda.empty_cache()
     say("stage1", f"the compressed optimizers' steps took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# phase 9: sharded training on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+def timed_steps(step, steps: int, timed_from: int) -> tuple[list[dict], float]:
+    """``steps`` calls of ``step()`` → (their aux, ms per step by CUDA
+    events over the calls from ``timed_from`` on)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    auxes = []
+    for i in range(steps):
+        if i == timed_from:
+            start.record()
+        auxes.append(step())
+    end.record()
+    torch.cuda.synchronize()
+    return auxes, start.elapsed_time(end) / (steps - timed_from)
+
+
+def first_gradients(state) -> dict:
+    """The first optimizer step's gradients, gathered whole, kept on the
+    card (``state.tx.step`` records them before it steps)."""
+    from biom3_tpu_torch.training.state import full
+
+    grads, step = {}, state.tx.step
+
+    def step_and_record():
+        if not grads:
+            grads.update({n: full(q.grad).clone() for n, q in state.model.named_parameters()})
+        step()
+
+    state.tx.step = step_and_record
+    return grads
+
+
+def step_profile(fn, calls: int) -> dict[str, float]:
+    """ms per call of ``fn`` (already warm) under ``torch.profiler``:
+    ``wall``, ``device`` (every kernel), and the host ranges of the
+    optimizer step and of FSDP2's hooks, each ``FSDP::<hook>`` summed over
+    the modules."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"wall": (time.perf_counter() - t0) / calls * 1e3, "device": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CPU:
+            out["device"] += ev.self_device_time_total / calls / 1e3
+        elif ev.key.startswith(("Optimizer.step", "FSDP::")):
+            kind = re.sub(r" \(.*\)$| for .*$", "", ev.key)
+            out[kind] = out.get(kind, 0.0) + ev.cpu_time_total / calls / 1e3
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def sharded_agreement(name: str, runs: dict, init: dict) -> None:
+    """Gate and print one model's sharded run against its one-device run.
+    ``runs``: "one", "sharded" → {aux (a list by step), grads (the first
+    step's), params (after the last), ms, profile}."""
+    import torch
+
+    one, sh = runs["one"], runs["sharded"]
+    loss_rel = max(abs(float(g[k]) - float(w[k])) / max(abs(float(w[k])), 1e-12)
+                   for w, g in zip(one["aux"], sh["aux"]) for k in w if k.startswith("loss"))
+    g_max = max(float(g.abs().max()) for g in one["grads"].values())
+    g_worst = max(one["grads"], key=lambda k: float((sh["grads"][k] - one["grads"][k]).abs().max()))
+    grad_rel = float((sh["grads"][g_worst] - one["grads"][g_worst]).abs().max()) / g_max
+    diff2 = upd2 = 0.0
+    p_worst, p_rel = "", 0.0
+    for k, v in one["params"].items():
+        diff = (sh["params"][k].float() - v.float())
+        diff2 += float(diff.square().sum())
+        upd2 += float((v.float() - init[k].to(v.device).float()).square().sum())
+        rel = float(diff.abs().max() / v.float().abs().max())
+        if rel >= p_rel:
+            p_worst, p_rel = k, rel
+    update_rel = (diff2 / upd2) ** 0.5
+    say("sharded", f"{name}: losses {[round(float(a['loss']), 6) for a in sh['aux']]} (one "
+                   f"device {[round(float(a['loss']), 6) for a in one['aux']]}), worst loss term "
+                   f"rel diff {loss_rel:.3e}; first-step gradient max|Δg| / max|g| "
+                   f"{grad_rel:.3e} ({g_worst}); update ||Δp − Δp_one|| / ||Δp_one|| "
+                   f"{update_rel:.3e}, worst parameter max|Δ|/max|p| {p_rel:.3e} ({p_worst}); "
+                   f"{sh['ms']:.3f} ms/step sharded against {one['ms']:.3f} one device (CUDA "
+                   f"events); profile ms per step, sharded {json.dumps(sh['profile'])}, one "
+                   f"device {json.dumps(one['profile'])}; {card()}")
+    if not (loss_rel <= SHARDED_REL_TOL and grad_rel <= SHARDED_REL_TOL
+            and update_rel <= SHARDED_UPDATE_TOL):
+        raise AssertionError(f"{name}: the sharded step departs from the one-device step "
+                             f"(loss {loss_rel}, gradient {grad_rel} at {g_worst}, update "
+                             f"{update_rel})")
+    del runs["one"], runs["sharded"]
+    torch.cuda.empty_cache()
+
+
+def phase_train_sharded(stage1: dict, init1: dict) -> dict:
+    """The sharded Stage-3 and Stage-1 steps at full width on a one-rank
+    NCCL group against the one-device steps (Stage 1 from phase 8b's
+    seeded weights ``init1``) → each path's launch counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from biom3_tpu_torch.cli.measure_stage1 import PROTEIN_MASK_ID, TEXT_MASK_ID, stage1_batch
+    from biom3_tpu_torch.cli.run_train_stage3 import LAYER_MODES
+    from biom3_tpu_torch.config import Config, PenCLConfig, ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.pencl import PenCL
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.parallel.distributed import initialize_distributed, make_hybrid_mesh
+    from biom3_tpu_torch.parallel.mesh import MeshConfig
+    from biom3_tpu_torch.training.optim import make_optimizer
+    from biom3_tpu_torch.training.stage1_task import (
+        make_sharded_stage1_train_step,
+        make_stage1_optimizer,
+        make_stage1_train_step,
+    )
+    from biom3_tpu_torch.training.stage3_task import (
+        make_sharded_stage3_train_step,
+        make_stage3_train_step,
+    )
+    from biom3_tpu_torch.training.state import TrainState, full
+
+    def run(path, build, call, steps, reseed, profile_calls) -> dict:
+        """``build()`` → (step, state); ``steps`` calls of ``call(step)``
+        (the last ``steps − 1`` timed), with launch counts under ``path``
+        unless None; then the parameters and a profile."""
+        step, state = build()
+        grads = first_gradients(state)
+        reseed()
+        K.reset_launches()
+        aux, ms = timed_steps(lambda: call(step), steps, 1)
+        if path is not None:
+            counts[path] = K.launch_counts()
+            check_path(path, counts[path])
+        params = {k: v.clone() for k, v in full(state.model.state_dict()).items()}
+        profile = step_profile(lambda: call(step), profile_calls)
+        del step, state
+        torch.cuda.empty_cache()
+        return {"aux": aux, "grads": grads, "params": params, "ms": ms, "profile": profile}
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"tcp://localhost:{port}", 1, 0)
+    counts = {}
+    try:
+        mesh = make_hybrid_mesh(MeshConfig())
+        # Stage 3: B=32, layer_block, bf16, AdamW, EMA; 3 steps
+        cfg = ProteoScribeConfig()
+        tokens, z = train_batch(cfg, TRAIN_B, torch.Generator(device=dev).manual_seed(SEED + 11))
+        batch = {"tokens": tokens, "z_c": z}
+        init = seeded_init_(ProteoScribe(cfg), SEED + 11).state_dict()
+
+        def scribe():
+            model = ProteoScribe(cfg, dtype=torch.bfloat16, **LAYER_MODES["layer_block"])
+            model.load_state_dict(init)
+            return model.to(dev)
+
+        def make_tx(model):
+            return make_optimizer("AdamW", model.parameters(), TRAIN_LR)
+
+        def one_device():
+            model = scribe()
+            state = TrainState(model, make_tx(model), with_ema=True)
+            return make_stage3_train_step(state), state
+
+        gen = {}
+        reseed = lambda: gen.update(g=torch.Generator(device=dev).manual_seed(SEED))  # noqa: E731
+        call = lambda step: step(batch, gen["g"])  # noqa: E731
+        runs = {"one": run(None, one_device, call, 3, reseed, 2),
+                "sharded": run("train_sharded",
+                               lambda: make_sharded_stage3_train_step(scribe(), make_tx, mesh),
+                               call, 3, reseed, 2)}
+        sharded_agreement(f"Stage 3 (d 512, 16 layers, B={TRAIN_B}, layer_block, bf16, AdamW, "
+                          f"EMA)", runs, init)
+        del init
+        say("sharded", f"Stage 3 part {time.perf_counter() - t0:.1f} s")
+
+        # Stage 1: ESM2-650M + PubMedBERT, B=4 pfam pairs of 1022 residues; 2 steps
+        t1 = time.perf_counter()
+        cfg = PenCLConfig.from_stage_config(Config(stage1))
+        init = init1
+        batch = stage1_batch(cfg, ([1022] * 4, [1022] * 4), np.random.default_rng(SEED + 12), dev)
+        lrs = Config({"protein_encoder_lr": STAGE1_LR, "text_encoder_lr": STAGE1_LR,
+                      "head_lr": STAGE1_LR})
+        kw = dict(temperature=cfg.temperature, dataset_type="pfam", text_mask_id=TEXT_MASK_ID,
+                  protein_mask_id=PROTEIN_MASK_ID)
+
+        def pencl():
+            with torch.device(dev):
+                model = PenCL(cfg, attn_impl="layer-block", dtype=torch.bfloat16, mlm_heads=True)
+            model.load_state_dict(init)
+            return model
+
+        def make_tx1(model):
+            return make_stage1_optimizer(lrs, model)
+
+        def one_device1():
+            model = pencl()
+            state = TrainState(model, make_tx1(model))
+            return make_stage1_train_step(state, **kw), state
+
+        reseed = lambda: torch.manual_seed(SEED)  # noqa: E731  (dropout)
+        call = lambda step: step(batch)  # noqa: E731
+        runs = {"one": run(None, one_device1, call, 2, reseed, 1),
+                "sharded": run("train_stage1_sharded",
+                               lambda: make_sharded_stage1_train_step(pencl(), make_tx1, mesh,
+                                                                      **kw),
+                               call, 2, reseed, 1)}
+        sharded_agreement("Stage 1 (ESM2-650M + PubMedBERT, B=4 pfam pairs of 1022 residues, "
+                          "layer_block, bf16, AdamW)", runs, init)
+        del init, batch
+        say("sharded", f"Stage 1 part {time.perf_counter() - t1:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    say("sharded", f"phase {time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
+    return counts
 
 
 def phase_esm2_3b_layer() -> None:
@@ -3142,7 +3398,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         stage1 = stage1_config(pathlib.Path(tmp))
         phase_stage1_grads(stage1)
-        phase_stage1_steps(stage1)
+        init1 = phase_stage1_steps(stage1)
+        counts.update(phase_train_sharded(stage1, init1))
+        del init1
     counts.update(phase_stage1_cli())
     phase_esm2_3b_layer()
     say("done", f"{time.perf_counter() - t0:.1f} s of wall time")

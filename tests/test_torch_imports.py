@@ -88,6 +88,13 @@ SLICE_MODULES = [
     "biom3_tpu_torch.parallel.mesh",
     "biom3_tpu_torch.parallel.sharding",
     "biom3_tpu_torch.ops.ring_attention",
+    "biom3_tpu_torch.parallel.distributed",
+    "biom3_tpu_torch.training.sharded",
+    "biom3_tpu_torch.utils.profiling",
+    "biom3_tpu_torch.utils.flops",
+    "biom3_tpu_torch.utils.figures",
+    "biom3_tpu_torch.utils.animation",
+    "biom3_tpu_torch.data.mnist_data",
 ]
 
 
