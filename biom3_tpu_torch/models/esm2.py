@@ -93,6 +93,7 @@ class ESM2Layer(nn.Module):
         E = cfg.embed_dim
         self.heads, self.gelu, self.attn_impl, self.dtype = (cfg.attention_heads, gelu_impl,
                                                              attn_impl, dtype)
+        self.tp = None   # parallel/tensor.TensorParallel in layer-block mode: rank's shards
         self.self_attn = ESM2SelfAttention(cfg, attn_impl, dtype, mesh)
         self.self_attn_layer_norm = nn.LayerNorm(E, eps=1e-5)
         self.fc1 = nn.Linear(E, cfg.ffn_dim)
@@ -109,7 +110,7 @@ class ESM2Layer(nn.Module):
                 x if dt is None else x.to(dt), padding_mask, w3, b3, a.out_proj.weight.t(),
                 a.out_proj.bias, n1.weight, n1.bias, n2.weight, n2.bias, self.fc1.weight.t(),
                 self.fc1.bias, self.fc2.weight.t(), self.fc2.bias, heads=self.heads,
-                gelu=self.gelu)
+                gelu=self.gelu, tp=self.tp)
         x = x + self.self_attn(layer_norm(self.self_attn_layer_norm, x, dt), padding_mask)
         h = gelu(dense(self.fc1, layer_norm(self.final_layer_norm, x, dt), dt), self.gelu)
         return x + dense(self.fc2, h, dt)

@@ -47,6 +47,7 @@ from biom3_tpu_torch.ops.attn_block import split_attention_block
 from biom3_tpu_torch.ops.layer_block import transformer_layer_block
 from biom3_tpu_torch.ops.linear_attention import linear_attention
 from biom3_tpu_torch.ops.local_attention import local_window_attention
+from biom3_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp, scatter_to_tp
 
 LN_EPS = 1e-6
 ATTN_IMPLS = ("plain", "block", "layer-block", "kernel")
@@ -88,6 +89,7 @@ class SplitHeadAttention(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.attn_impl, self.dtype = cfg, attn_impl, dtype
+        self.tp = None   # parallel/tensor.TensorParallel: the weights are this rank's shards
         d = cfg.dim
         self.to_q = nn.Linear(d, d, bias=False)
         self.to_k = nn.Linear(d, d, bias=False)
@@ -97,11 +99,7 @@ class SplitHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg, dt = self.cfg, self.dtype
         if self.attn_impl == "block":
-            out = split_attention_block(
-                x.to(dt), self.to_q.weight.t(), self.to_k.weight.t(), self.to_v.weight.t(),
-                self.to_out.weight.t(), self.to_out.bias, local_heads=cfg.local_heads,
-                heads=cfg.heads, window=cfg.local_window)
-            return F.dropout(out, cfg.attn_layer_dropout, self.training)
+            return F.dropout(self._block(x), cfg.attn_layer_dropout, self.training)
         B, L, _ = x.shape
         split = lambda z: z.reshape(B, L, cfg.heads, cfg.head_dim).transpose(1, 2)  # noqa: E731
         q, k, v = (split(_dense(lin, x, dt)) for lin in (self.to_q, self.to_k, self.to_v))
@@ -116,18 +114,41 @@ class SplitHeadAttention(nn.Module):
         out = torch.cat(outs, dim=1).transpose(1, 2).reshape(B, L, cfg.dim)
         return F.dropout(_dense(self.to_out, out, dt), cfg.attn_layer_dropout, self.training)
 
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
+        """The sub-block on the kernels; under tp on the rank's heads, its
+        partial out-projection summed over tp in f32, then + bo."""
+        cfg, dt, tp = self.cfg, self.dtype, self.tp
+        w = [lin.weight.t() for lin in (self.to_q, self.to_k, self.to_v, self.to_out)]
+        if tp is None:
+            return split_attention_block(x.to(dt), *w, self.to_out.bias,
+                                         local_heads=cfg.local_heads, heads=cfg.heads,
+                                         window=cfg.local_window)
+        heads, local = tp.heads(cfg.heads, cfg.local_heads)
+        out = split_attention_block(copy_to_tp(x.float(), tp).to(dt), *w, None,
+                                    local_heads=local, heads=heads, window=cfg.local_window,
+                                    out_dtype=torch.float32)
+        return (reduce_from_tp(out, tp) + self.to_out.bias.float()).to(dt)
+
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: ProteoScribeConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        self.tp = None   # as SplitHeadAttention's: W1 column-, W2 row-parallel
         self.w1 = nn.Linear(cfg.dim, cfg.dim * cfg.ff_mult)
         self.w2 = nn.Linear(cfg.dim * cfg.ff_mult, cfg.dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_dense(self.w1, x, self.dtype))
+        dt, tp = self.dtype, self.tp
+        if tp is None:
+            h = F.gelu(_dense(self.w1, x, dt))
+            h = F.dropout(h, self.cfg.ff_dropout, self.training)
+            return _dense(self.w2, h, dt)
+        b1 = scatter_to_tp(self.w1.bias, tp)
+        h = F.gelu(F.linear(copy_to_tp(x.float(), tp).to(dt), self.w1.weight.to(dt), b1.to(dt)))
         h = F.dropout(h, self.cfg.ff_dropout, self.training)
-        return _dense(self.w2, h, self.dtype)
+        out = reduce_from_tp(F.linear(h, self.w2.weight.to(dt)).float(), tp)
+        return (out + self.w2.bias.float()).to(dt)
 
 
 class _PreNorm(nn.Module):
@@ -159,6 +180,8 @@ class TransformerLayer(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.attn_impl, self.dtype = cfg, attn_impl, dtype
+        self.heads = cfg.heads
+        self.tp = None   # parallel/tensor.TensorParallel in layer-block and block mode
         self.layers = _SequentialSequence(
             _PreNorm(cfg.dim, SplitHeadAttention(cfg, attn_impl, dtype)),
             _PreNorm(cfg.dim, _Chunk(FeedForward(cfg, dtype))))
@@ -190,7 +213,8 @@ class TransformerLayer(nn.Module):
                 x.to(self.dtype), a.to_q.weight.t(), a.to_k.weight.t(), a.to_v.weight.t(),
                 a.to_out.weight.t(), a.to_out.bias, n1.weight, n1.bias, n2.weight, n2.bias,
                 ff.w1.weight.t(), ff.w1.bias, ff.w2.weight.t(), ff.w2.bias,
-                local_heads=cfg.local_heads, heads=cfg.heads, window=cfg.local_window)
+                local_heads=cfg.local_heads, heads=cfg.heads, window=cfg.local_window,
+                tp=self.tp)
         x = x + self.attn(self.attn_norm(x.float()))
         return x + self.ff(self.ff_norm(x))
 

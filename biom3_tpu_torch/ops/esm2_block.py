@@ -30,6 +30,14 @@ cast inside; their gradients leave in f32 in the same layouts, so autograd
 hands each ``nn.Linear`` weight its (d_out, d_in) gradient.  The PAD mask is
 (B, L), True (nonzero) at PAD keys: the TPU kernel's ``padneg`` is
 -1e9 × this mask.  ESM2 has no dropout, nor does this block.
+
+Under tp (``esm2_layer_block(..., tp=)``, ``parallel/tensor.py``) each
+half runs Megatron on the rank's shards: q/k/v and W1 on its column
+shards, the attention on its ``heads/tp`` heads (rotary is per head), the
+out-projection and W2 on its row shards; the partial outputs are summed
+over tp in f32, rank 0's with the bias and the residual, then cast, and
+in the backward the partial dxn and du are summed over tp in f32 before
+their ``layernorm_bwd``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from biom3_tpu_torch.ops.kernels import (
     layernorm_bwd,
 )
 from biom3_tpu_torch.ops.rotary import rotary_cos_sin
+from biom3_tpu_torch.parallel.tensor import all_reduce_, row_parallel, scatter_to_tp
 
 LN_EPS = 1e-5  # fair-esm LayerNorm eps (esm2_block_tpu.py:52)
 
@@ -56,69 +65,72 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_forward(x2, pad, w3, b3, cos, sin, ls1, lb1, B, L, heads):
-    """→ (xn, qkv, attn) of the attention half; x2 (B·L, E)."""
-    E = x2.shape[1]
+    """→ (xn, qkv, attn) of the attention half; x2 (B·L, E), w3 (E, 3·E')
+    with E' = E or, under tp, the rank's heads' columns."""
+    El = w3.shape[1] // 3
     xn = layernorm(x2, ls1, lb1, eps=LN_EPS, out_dtype=x2.dtype)
-    qkv = gemm_bias_act(xn, w3, b3).view(B, L, 3 * E)
-    att = esm2_attention(qkv, pad, cos, sin, heads=heads).view(B * L, E)
+    qkv = gemm_bias_act(xn, w3, b3).view(B, L, 3 * El)
+    att = esm2_attention(qkv, pad, cos, sin, heads=heads).view(B * L, El)
     return xn, qkv, att
 
 
 class Esm2AttnBlockFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, pad, w3, b3, wo, bo, ls1, lb1, heads):
+    def forward(ctx, x, pad, w3, b3, wo, bo, ls1, lb1, heads, tp):
         B, L, E = x.shape
+        El = w3.shape[2]
         cd = x.dtype
-        cos, sin = rotary_cos_sin(L, E // heads, dtype=cd, device=x.device)
+        cos, sin = rotary_cos_sin(L, El // heads, dtype=cd, device=x.device)
         x2 = x.reshape(B * L, E)
         w3c = torch.cat(w3.unbind(0), dim=1).to(cd)
-        *_, att = _attn_forward(x2, pad, w3c, _f32(b3.reshape(3 * E)), cos, sin, _f32(ls1),
+        *_, att = _attn_forward(x2, pad, w3c, _f32(b3.reshape(3 * El)), cos, sin, _f32(ls1),
                                 _f32(lb1), B, L, heads)
-        xa = gemm_bias_act(att, wo.to(cd).contiguous(), _f32(bo), residual=x2)
+        xa = row_parallel(att, wo.to(cd).contiguous(), _f32(bo), x2, tp, cd)
         ctx.save_for_backward(x, pad, w3, b3, wo, ls1, lb1)
-        ctx.heads = heads
+        ctx.heads, ctx.tp = heads, tp
         return xa.view(B, L, E)
 
     @staticmethod
     def backward(ctx, dy):
         x, pad, w3, b3, wo, ls1, lb1 = ctx.saved_tensors
-        heads = ctx.heads
+        heads, tp = ctx.heads, ctx.tp
         B, L, E = x.shape
+        El = w3.shape[2]
         cd = x.dtype
-        cos, sin = rotary_cos_sin(L, E // heads, dtype=cd, device=x.device)
+        cos, sin = rotary_cos_sin(L, El // heads, dtype=cd, device=x.device)
         x2 = x.reshape(B * L, E)
         w3c = torch.cat(w3.unbind(0), dim=1).to(cd)
         ls1 = _f32(ls1)
-        xn, qkv, att = _attn_forward(x2, pad, w3c, _f32(b3.reshape(3 * E)), cos, sin, ls1,
+        xn, qkv, att = _attn_forward(x2, pad, w3c, _f32(b3.reshape(3 * El)), cos, sin, ls1,
                                      _f32(lb1), B, L, heads)
         dyc = dy.to(cd).reshape(B * L, E).contiguous()
         dwo, dbo = gemm_dw(att, dyc), col_sum(dyc)
-        dattn = gemm_dx(dyc, wo.to(cd).contiguous()).view(B, L, E)
-        dqkv = esm2_attention_bwd(qkv, dattn, pad, cos, sin, heads=heads).view(B * L, 3 * E)
-        dxn = gemm_dx(dqkv, w3c, out_dtype=torch.float32)
-        dw3 = torch.stack(gemm_dw(xn, dqkv).split(E, dim=1))
-        db3 = col_sum(dqkv).view(3, E)
+        dattn = gemm_dx(dyc, wo.to(cd).contiguous()).view(B, L, El)
+        dqkv = esm2_attention_bwd(qkv, dattn, pad, cos, sin, heads=heads).view(B * L, 3 * El)
+        dxn = all_reduce_(gemm_dx(dqkv, w3c, out_dtype=torch.float32), tp)
+        dw3 = torch.stack(gemm_dw(xn, dqkv).split(El, dim=1))
+        db3 = col_sum(dqkv).view(3, El)
         dx, dls1, dlb1 = layernorm_bwd(x2, dxn, ls1, residual=dyc, eps=LN_EPS, out_dtype=cd)
-        return dx.view(B, L, E), None, dw3, db3, dwo, dbo, dls1, dlb1, None
+        return dx.view(B, L, E), None, dw3, db3, dwo, dbo, dls1, dlb1, None, None
 
 
 class FFResidualBlockFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ls2, lb2, w1, b1, w2, b2, gelu):
+    def forward(ctx, x, ls2, lb2, w1, b1, w2, b2, gelu, tp):
         B, L, E = x.shape
         cd = x.dtype
         x2 = x.reshape(B * L, E)
         u = layernorm(x2, _f32(ls2), _f32(lb2), eps=LN_EPS, out_dtype=cd)
         g = gemm_bias_act(u, w1.to(cd).contiguous(), _f32(b1), act=gelu)
-        y = gemm_bias_act(g, w2.to(cd).contiguous(), _f32(b2), residual=x2)
+        y = row_parallel(g, w2.to(cd).contiguous(), _f32(b2), x2, tp, cd)
         ctx.save_for_backward(x, ls2, lb2, w1, b1, w2)
-        ctx.gelu = gelu
+        ctx.gelu, ctx.tp = gelu, tp
         return y.view(B, L, E)
 
     @staticmethod
     def backward(ctx, dy):
         x, ls2, lb2, w1, b1, w2 = ctx.saved_tensors
-        gelu = ctx.gelu
+        gelu, tp = ctx.gelu, ctx.tp
         B, L, E = x.shape
         cd = x.dtype
         x2 = x.reshape(B * L, E)
@@ -130,9 +142,9 @@ class FFResidualBlockFn(torch.autograd.Function):
         dw2, db2 = gemm_dw(g, dyc), col_sum(dyc)
         dh1 = gemm_dx(dyc, w2c, gelu_of=h1, gelu=gelu)
         dw1, db1 = gemm_dw(u, dh1), col_sum(dh1)
-        du = gemm_dx(dh1, w1c, out_dtype=torch.float32)
+        du = all_reduce_(gemm_dx(dh1, w1c, out_dtype=torch.float32), tp)
         dx, dls2, dlb2 = layernorm_bwd(x2, du, ls2, residual=dyc, eps=LN_EPS, out_dtype=cd)
-        return dx.view(B, L, E), dls2, dlb2, dw1, db1, dw2, db2, None
+        return dx.view(B, L, E), dls2, dlb2, dw1, db1, dw2, db2, None, None
 
 
 def _check(x: torch.Tensor, heads: int | None = None) -> None:
@@ -145,28 +157,36 @@ def _check(x: torch.Tensor, heads: int | None = None) -> None:
 
 
 def esm2_attn_block(x: torch.Tensor, padding_mask: torch.Tensor, w3, b3, wo, bo, ls1, lb1, *,
-                    heads: int) -> torch.Tensor:
+                    heads: int, tp=None) -> torch.Tensor:
     """Differentiable pre-LN rotary attention half → x + attn_out: x (B, L,
     E) in the compute dtype, padding_mask (B, L) True at PAD keys, w3 (3, E,
     E) and b3 (3, E) the stacked q/k/v projections, wo (E, E), bo, ls1, lb1
-    (E,) → (B, L, E) in x's dtype."""
+    (E,) → (B, L, E) in x's dtype.  Under ``tp`` w3 (3, E, E/tp) and wo
+    (E/tp, E) are the rank's shards, b3 whole, ``heads`` the layer's."""
     _check(x, heads)
+    if tp is not None:
+        heads, _ = tp.heads(heads)
+        b3 = scatter_to_tp(b3, tp, 1)
     return Esm2AttnBlockFn.apply(x.contiguous(), padding_mask.to(torch.int32).contiguous(), w3,
-                                 b3, wo, bo, ls1, lb1, heads)
+                                 b3, wo, bo, ls1, lb1, heads, tp)
 
 
 def ff_residual_block(x: torch.Tensor, ls2, lb2, w1, b1, w2, b2, *,
-                      gelu: str = "erf") -> torch.Tensor:
+                      gelu: str = "erf", tp=None) -> torch.Tensor:
     """Differentiable pre-LN FF half → x + W2·gelu(W1·LN(x) + b1) + b2: w1
-    (E, F), w2 (F, E) in the (in, out) layout."""
+    (E, F), w2 (F, E) in the (in, out) layout; under ``tp`` the rank's
+    shards (E, F/tp) and (F/tp, E), b1 whole."""
     _check(x)
     if gelu not in ("erf", "tanh"):
         raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
-    return FFResidualBlockFn.apply(x.contiguous(), ls2, lb2, w1, b1, w2, b2, gelu)
+    return FFResidualBlockFn.apply(x.contiguous(), ls2, lb2, w1, scatter_to_tp(b1, tp), w2, b2,
+                                   gelu, tp)
 
 
 def esm2_layer_block(x: torch.Tensor, padding_mask: torch.Tensor, w3, b3, wo, bo, ls1, lb1,
-                     ls2, lb2, w1, b1, w2, b2, *, heads: int, gelu: str = "erf") -> torch.Tensor:
-    """The whole ESM2 layer: attention half, then FF half."""
-    xa = esm2_attn_block(x, padding_mask, w3, b3, wo, bo, ls1, lb1, heads=heads)
-    return ff_residual_block(xa, ls2, lb2, w1, b1, w2, b2, gelu=gelu)
+                     ls2, lb2, w1, b1, w2, b2, *, heads: int, gelu: str = "erf",
+                     tp=None) -> torch.Tensor:
+    """The whole ESM2 layer: attention half, then FF half; ``tp`` (a
+    ``parallel/tensor.TensorParallel``) runs both on the rank's shards."""
+    xa = esm2_attn_block(x, padding_mask, w3, b3, wo, bo, ls1, lb1, heads=heads, tp=tp)
+    return ff_residual_block(xa, ls2, lb2, w1, b1, w2, b2, gelu=gelu, tp=tp)

@@ -11,7 +11,8 @@ axes keep the JAX names:
   * ``dp``   — data parallel (batch rows);
   * ``fsdp`` — a second batch axis for activations (parameter sharding
                arrives with the training path);
-  * ``tp``   — the axis ring attention shards the sequence over.
+  * ``tp``   — the axis ring attention shards the sequence over (in
+               training, the Megatron axis: ``parallel/tensor.py``).
 
 ``make_mesh`` takes every visible card by default.  An explicit ``devices``
 list may repeat a device: positions that share one card (or the CPU) run

@@ -18,8 +18,11 @@ is split.
 The training half (JAX ``sharding.py:15-58``) works on a
 ``torch.distributed`` ``DeviceMesh``, one process per rank:
 ``params_shardings`` and ``shard_params`` place the parameters by
-``param_partition_spec`` through FSDP2, and ``put_global`` gives each rank
-its row block of a batch that every rank holds whole.
+``param_partition_spec`` — over tp as ``DTensor`` shards that the layers
+on the kernels split themselves by (``parallel/tensor.py``), over (dp,
+fsdp) through FSDP2 —, ``put_global`` gives each rank its row block of a
+batch that every rank holds whole, and ``data_group`` is the group of the
+ranks holding other row blocks.
 """
 
 from __future__ import annotations
@@ -130,37 +133,133 @@ def _kernel_layers() -> tuple:
     return (TransformerLayer, ESM2Layer, BertLayer)
 
 
-def shard_params(model: torch.nn.Module, mesh) -> torch.nn.Module:
-    """Shard ``model`` in place with FSDP2 (``fully_shard``) over the (dp,
-    fsdp) dims of ``mesh``: replicated over dp, sharded over fsdp (FSDP2's
-    hybrid mode), each parameter on the dim ``param_partition_spec`` gives
-    fsdp.  A parameter JAX replicates (1-D, or no dim divides) takes
-    FSDP2's default, dim 0, padded where uneven: FSDP2 shards every
-    parameter of a module it wraps, and gathers it whole before the
-    forward either way.  Each layer in ``_kernel_layers`` is wrapped, then
-    the root; no mixed-precision policy, so the numbers are the one-device
-    step's.  ``model`` must already lie on the mesh's device.  tp > 1
-    raises: tensor parallelism on the kernels is ROADMAP queue 1 item 8c."""
-    from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard
+def _megatron(module: torch.nn.Module) -> bool:
+    """A layer that splits itself over tp (``parallel/tensor.py``): the
+    Stage-3 layer in ``layer-block`` and ``block`` mode, the ESM2 layer in
+    ``layer-block`` mode."""
+    from biom3_tpu_torch.models.esm2 import ESM2Layer
+    from biom3_tpu_torch.models.proteoscribe import TransformerLayer
 
-    if axis_sizes(mesh)["tp"] > 1:
-        raise NotImplementedError("tp > 1 in training is not ported: the attention kernels "
-                                  "would have to take a subset of the heads (ROADMAP.md queue 1 "
-                                  "item 8c)")
-    specs = {id(p): param_partition_spec(n, tuple(p.shape), mesh)
+    return ((isinstance(module, TransformerLayer) and module.attn_impl in ("layer-block", "block"))
+            or (isinstance(module, ESM2Layer) and module.attn_impl == "layer-block"))
+
+
+def _tp_dim(p) -> int | None:
+    """The dim a parameter FSDP2 has gathered (a ``DTensor`` on the tp
+    dim) is sharded over tp, else None."""
+    return p.placements[-1].dim if p.placements[-1].is_shard() else None
+
+
+def _localize_hooks(unit: torch.nn.Module, skip: set, tp) -> None:
+    """Hooks on the FSDP2 unit ``unit`` that, for its forward, put plain
+    tensors in place of its tp ``DTensor`` parameters (those of its
+    subtree outside the nested units ``skip``), after FSDP2 has gathered
+    them over (dp, fsdp): a Megatron layer gets the rank's shards, any
+    other module each parameter gathered whole over tp
+    (``gather_from_tp``, what GSPMD does for an op it does not split).
+    The parameters go back before FSDP2's post-forward hook."""
+    from biom3_tpu_torch.parallel.tensor import gather_from_tp
+
+    local = _megatron(unit)
+    slots = []
+    stack = [unit]
+    while stack:
+        m = stack.pop()
+        slots += [(m, n) for n, p in m._parameters.items() if p is not None]
+        stack += [c for c in m.children() if c not in skip]
+    saved = []
+
+    def plain(p):
+        dim = _tp_dim(p)
+        return p.to_local() if local or dim is None else gather_from_tp(p.to_local(), tp, dim)
+
+    def pre(module, args):
+        saved[:] = [(m, n, m._parameters[n]) for m, n in slots]
+        for m, n, p in saved:
+            m._parameters[n] = plain(p)
+
+    def post(module, args, out):
+        for m, n, p in saved:
+            m._parameters[n] = p
+        saved.clear()
+
+    unit.register_forward_pre_hook(pre)
+    unit.register_forward_hook(post, prepend=True)
+
+
+def shard_params(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """Shard ``model`` in place over ``mesh``.
+
+    tp first (tp > 1): each parameter becomes a ``DTensor`` on the mesh's
+    tp dim, ``Shard`` on the dim ``param_partition_spec`` gives tp
+    (``Replicate`` where it gives none), and each layer that splits itself
+    over tp (``_megatron``) gets this rank's ``TensorParallel``.  Then
+    FSDP2 (``fully_shard``) over the (dp, fsdp) dims: replicated over dp,
+    sharded over fsdp (FSDP2's hybrid mode), each parameter on the dim the
+    spec gives fsdp; FSDP2 lays a tp ``DTensor`` out on the whole (dp,
+    fsdp, tp) mesh.  A parameter JAX does not shard over fsdp (1-D, or no
+    dim divides) takes FSDP2's default, dim 0, padded where uneven: FSDP2
+    shards every parameter of a module it wraps, and gathers it whole
+    before the forward either way.  Each layer in ``_kernel_layers`` is
+    wrapped, then the root; no mixed-precision policy, so the numbers are
+    the one-device step's.  At tp > 1 each wrapped module's forward sees
+    plain tensors (``_localize_hooks``).  ``model`` must already lie on the
+    mesh's device."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from biom3_tpu_torch.parallel.tensor import of_mesh
+
+    specs = {n: param_partition_spec(n, tuple(p.shape), mesh)
              for n, p in model.named_parameters()}
+    tp = of_mesh(mesh)
+    if tp is not None:
+        for name, p in list(model.named_parameters()):
+            owner, leaf = model, name
+            if "." in name:
+                path, leaf = name.rsplit(".", 1)
+                owner = model.get_submodule(path)
+            spec = specs[name]
+            placement = Shard(spec.index("tp")) if "tp" in spec else Replicate()
+            owner.register_parameter(leaf, torch.nn.Parameter(
+                distribute_tensor(p.detach(), mesh["tp"], [placement], src_data_rank=None),
+                requires_grad=p.requires_grad))
+        for module in model.modules():
+            if _megatron(module):
+                tp.heads(module.heads)   # the rank's whole heads, or raise now
+                for m in module.modules():
+                    if hasattr(m, "tp"):
+                        m.tp = tp
+    by_id = {id(p): specs[n] for n, p in model.named_parameters()}
 
     def placement(p):
-        dim = fsdp_dim(specs[id(p)])
+        dim = fsdp_dim(by_id[id(p)])
         return None if dim is None else Shard(dim)
 
     data_mesh = mesh["dp", "fsdp"]
-    for module in model.modules():
-        if isinstance(module, _kernel_layers()):
-            fully_shard(module, mesh=data_mesh, shard_placement_fn=placement)
+    units = [m for m in model.modules() if isinstance(m, _kernel_layers())]
+    for module in units:
+        fully_shard(module, mesh=data_mesh, shard_placement_fn=placement)
     fully_shard(model, mesh=data_mesh, shard_placement_fn=placement)
+    if tp is not None:
+        for unit in units + [model]:
+            _localize_hooks(unit, set(units), tp)
     return model
+
+
+def data_group(mesh):
+    """The process group of this rank's tp position over (dp, fsdp): the
+    ranks holding other rows, over which the steps reduce what they report
+    and gather the contrastive batch (the tp ranks of one row block hold
+    the same rows).  None, the world group, at tp = 1.  A collective: every
+    rank calls it, once per mesh."""
+    import torch.distributed as dist
+
+    if axis_sizes(mesh)["tp"] == 1:
+        return None
+    ranks = mesh.mesh.reshape(-1, mesh.mesh.shape[-1]).t().tolist()
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return group
 
 
 def batch_sharding(mesh, rows: int) -> slice:

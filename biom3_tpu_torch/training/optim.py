@@ -158,6 +158,13 @@ def _mean_all(x: torch.Tensor, numel: int, groups: dict) -> torch.Tensor:
     return total / numel
 
 
+def _placements_without(p: DTensor, dim: int) -> list:
+    """``p``'s placements for a tensor of its shape without ``dim``."""
+    return [pl if not isinstance(pl, Shard) else
+            Replicate() if pl.dim == dim else Shard(pl.dim - (pl.dim > dim))
+            for pl in p.placements]
+
+
 def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
     """Zeros of ``p``'s shape without ``dim``, sharded as ``p`` on the
     other dims."""
@@ -166,10 +173,29 @@ def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
         return p.new_zeros(shape)
     from torch.distributed.tensor import zeros
 
-    placements = [pl if not isinstance(pl, Shard) else
-                  Replicate() if pl.dim == dim else Shard(pl.dim - (pl.dim > dim))
-                  for pl in p.placements]
-    return zeros(shape, dtype=p.dtype, device_mesh=p.device_mesh, placements=placements)
+    return zeros(shape, dtype=p.dtype, device_mesh=p.device_mesh,
+                 placements=_placements_without(p, dim))
+
+
+def shard_state(opt: torch.optim.Optimizer) -> None:
+    """Lay out in place the whole state tensors that ``load_state_dict``
+    put beside sharded parameters as the optimizers here keep them: a
+    moment of the parameter's shape sharded as the parameter, Adafactor's
+    factored row and column statistics as ``_zeros_without`` makes them.
+    Every rank holds the whole state; no collective."""
+    from torch.distributed.tensor import distribute_tensor
+
+    for p, state in opt.state.items():
+        if not isinstance(p, DTensor):
+            continue
+        dims = _factored_dims(tuple(p.shape))
+        for key, v in state.items():
+            if not isinstance(v, torch.Tensor) or isinstance(v, DTensor) or not v.dim():
+                continue
+            placements = (p.placements if tuple(v.shape) == tuple(p.shape) else
+                          _placements_without(p, dims[1] if key == "v_row" else dims[0]))
+            state[key] = distribute_tensor(v.to(p.device), p.device_mesh, placements,
+                                           src_data_rank=None)
 
 
 class Adafactor(torch.optim.Optimizer):
@@ -257,6 +283,15 @@ class AdamWMoments(torch.optim.Optimizer):
                 pl.add_(u * -group["lr"])
                 mu_prev.copy_(mu)
                 nu_prev.copy_(nu)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch casts every loaded moment to its parameter's dtype: the
+        first moment goes back to ``moment_dtype``."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                if "mu" in self.state.get(p, {}):
+                    self.state[p]["mu"] = self.state[p]["mu"].to(group["moment_dtype"])
 
 
 def describe(tx: "Optimizer") -> str:

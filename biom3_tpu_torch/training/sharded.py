@@ -4,8 +4,9 @@ Port of ``biom3_tpu/training/sharded.py:19-47``.  JAX places the
 parameters by the fsdp/tp rules, builds the optimizer state inside ``jit``
 so that GSPMD puts each moment on its parameter's sharding, and splits the
 batch's leading dim over (dp, fsdp).  Here each rank is a process:
-``parallel/sharding.shard_params`` shards the model with FSDP2 over (dp,
-fsdp), then the optimizer and the EMA are built on the sharded parameters
+``parallel/sharding.shard_params`` shards the model over tp (Megatron on
+the kernels, ``parallel/tensor.py``) and with FSDP2 over (dp, fsdp), then
+the optimizer and the EMA are built on the sharded parameters
 (``DTensor``s), so their moments and copies are sharded alike.  The stage
 tasks' step functions give each rank its rows of the global batch
 (``parallel/sharding.put_global``) and reduce what they report over the

@@ -4,9 +4,12 @@ Port of ``biom3_tpu/training/stage1_task.py`` (the reference's
 ``pfam_PL_PEN_CL.training_step``, ``Stage1_source/PL_wrapper.py:931-1114``):
 the loss over the whole batch — inter-modal InfoNCE, intra-modal InfoNCE
 (tracked but left out of the total for ``"pfam_ablated"``), text MLM and
-protein MLM — one optimizer step, and the per-tower AdamW groups.  One
-process holds the whole global batch (the JAX package's SPMD step over a
-device mesh is not ported).
+protein MLM — one optimizer step, and the per-tower AdamW groups.
+``make_stage1_train_step`` holds the whole global batch in one process;
+``make_sharded_stage1_train_step`` is the JAX package's SPMD step over a
+device mesh (``biom3_tpu/training/sharded.py``): each rank runs its rows,
+the contrastive terms see the latents of every row block (gathered over
+the (dp, fsdp) ranks) and the MLM terms sum over them.
 
 Dropout follows the model's mode: the train step puts the model in train
 mode, where the projection heads' and the BERT tower's dropout fire, as the
@@ -25,7 +28,7 @@ from biom3_tpu_torch.models.pencl import (
     compute_masked_lang_loss,
     masked_lang_loss_sums,
 )
-from biom3_tpu_torch.parallel.sharding import put_global
+from biom3_tpu_torch.parallel.sharding import data_group, put_global
 from biom3_tpu_torch.training.metrics import contrastive_metrics
 from biom3_tpu_torch.training.optim import Optimizer, make_grouped_optimizer
 from biom3_tpu_torch.training.state import TrainState
@@ -33,26 +36,48 @@ from biom3_tpu_torch.training.state import TrainState
 DATASET_TYPES = ("default", "masked", "pfam", "pfam_ablated")
 
 
-def _gathered(z: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``z``, in rank order (the global batch's row
-    order, ``put_global``), with gradients to each rank's own rows."""
-    from torch.distributed.nn.functional import all_gather
+class _GatherRows(torch.autograd.Function):
+    """The ranks' equal row blocks concatenated in rank order; the gradient
+    of a rank's block is the sum over the ranks of theirs (each rank's loss
+    sees every row)."""
 
-    return torch.cat(all_gather(z))
+    @staticmethod
+    def forward(ctx, z, group):
+        n, k = z.shape[0], dist.get_world_size(group)
+        ctx.group, ctx.rows = group, slice(dist.get_rank(group) * n, (dist.get_rank(group) + 1) * n)
+        out = z.new_empty((k * n, *z.shape[1:]))
+        dist.all_gather_into_tensor(out, z.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.rows], None
 
 
-def _global_mlm_loss(logits, targets, targets_masked, mask_id: int) -> torch.Tensor:
-    """``compute_masked_lang_loss`` over the ranks' rows together: the
-    numerators summed with their gradient, the counts without."""
+def _gathered(z: torch.Tensor, group) -> torch.Tensor:
+    """The rows of ``z`` of every rank of ``group`` (the (dp, fsdp) ranks,
+    ``data_group``), in rank order (the global batch's row order,
+    ``put_global``), with gradients to each rank's own rows."""
+    return z if dist.get_world_size(group) == 1 else _GatherRows.apply(z, group)
+
+
+def _global_mlm_loss(logits, targets, targets_masked, mask_id: int, group) -> torch.Tensor:
+    """``compute_masked_lang_loss`` over the rows of ``group``'s ranks
+    together: the numerators summed with their gradient, the counts
+    without."""
     from torch.distributed.nn.functional import all_reduce
 
     total, count = masked_lang_loss_sums(logits, targets, targets_masked, mask_id)
-    dist.all_reduce(count)
-    return all_reduce(total) / count.clamp(min=1)
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(count, group=group)
+        total = all_reduce(total, group=group)
+    return total / count.clamp(min=1)
 
 
 def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str = "pfam",
-                   text_mask_id: int, protein_mask_id: int, sharded: bool = False):
+                   text_mask_id: int, protein_mask_id: int, sharded: bool = False, group=None):
     """batch: ``{text,protein}_tokens`` (and ``_masked``), optionally the
     ``pfam_*`` equivalents.  ``dataset_type`` selects the loss terms, the
     reference's three Lightning wrappers:
@@ -63,13 +88,14 @@ def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str 
     * ``"pfam_ablated"``: pfam without the intra loss in the total.
 
     With ``sharded``, ``batch`` holds this rank's rows of the global batch
-    and the loss is the global batch's (module docstring).
+    and the loss is the global batch's (module docstring); ``group`` holds
+    the ranks of the other row blocks (None: the world group).
 
     Returns (loss, aux) with every term and the contrastive logits."""
     if dataset_type not in DATASET_TYPES:
         raise ValueError(f"Unexpected dataset_type {dataset_type!r}")
     has_pfam = "pfam_text_tokens" in batch
-    gather = _gathered if sharded else (lambda z: z)
+    gather = (lambda z: _gathered(z, group)) if sharded else (lambda z: z)
     out = model(batch["text_tokens"], batch["protein_tokens"])
     z_t_all, z_p_all = gather(out["text_joint_latent"]), gather(out["seq_joint_latent"])
     if has_pfam:
@@ -89,7 +115,8 @@ def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str 
         def cat(key):
             return torch.cat([batch[key], batch["pfam_" + key]]) if has_pfam else batch[key]
 
-        mlm_loss = _global_mlm_loss if sharded else compute_masked_lang_loss
+        mlm_loss = ((lambda *a: _global_mlm_loss(*a, group)) if sharded
+                    else compute_masked_lang_loss)
         mlm = model(cat("text_tokens_masked"), cat("protein_tokens_masked"),
                     compute_masked_logits=True)
         aux["loss_text_mask"] = mlm_loss(
@@ -105,6 +132,8 @@ def stage1_loss_fn(model, batch: dict, *, temperature: float, dataset_type: str 
 
 def _train_step(state: TrainState, loss_kw: dict, sharded: bool = False, mesh=None):
     model = state.model
+    if sharded:
+        loss_kw = dict(loss_kw, group=data_group(mesh))
 
     def step(batch: dict) -> dict:
         model.train()
@@ -136,7 +165,9 @@ def make_sharded_stage1_train_step(model: torch.nn.Module, make_tx, mesh, *, tem
     optimizer ``make_tx(model)`` built on its shards
     (``training/sharded.py``).  ``step(batch)`` takes the global batch, the
     same on every rank, runs this rank's rows (``put_global``) and returns
-    the global batch's aux, the same on every rank."""
+    the global batch's aux, the same on every rank: the latents are
+    gathered and the MLM sums reduced over the (dp, fsdp) ranks
+    (``data_group``), whose row blocks differ."""
     from biom3_tpu_torch.training.sharded import make_sharded_train_step
 
     loss_kw = dict(temperature=temperature, dataset_type=dataset_type,

@@ -22,7 +22,7 @@ from biom3_tpu_torch.diffusion.oa_ardm import (
     sample_random_paths,
     sample_timesteps,
 )
-from biom3_tpu_torch.parallel.sharding import put_global
+from biom3_tpu_torch.parallel.sharding import data_group, put_global
 from biom3_tpu_torch.training.metrics import positional_entropy, time_split_metrics
 from biom3_tpu_torch.training.state import TrainState
 
@@ -115,13 +115,16 @@ def make_sharded_stage3_train_step(model: torch.nn.Module, make_tx, mesh, *,
     splits into the ranks' row blocks (``put_global``); only the last
     microbatch's backward reduces the gradients.  The returned aux is the
     global batch's, the same bits on every rank: each microbatch's loss
-    the mean of the ranks' (equal blocks, so the global mean) and
+    the mean of the row blocks' (equal blocks, so the global mean) and
     ``acc_unsampled`` the ratio of the summed counts, then the mean over
-    microbatches, as the one-device step."""
+    microbatches, as the one-device step; the sums run over the (dp,
+    fsdp) ranks (``data_group``), since the tp ranks of a block hold the
+    same rows."""
     from biom3_tpu_torch.training.sharded import make_sharded_train_step
 
     def build(state: TrainState):
-        world = dist.get_world_size()
+        group = data_group(mesh)
+        world = dist.get_world_size(group)
 
         def step(batch: dict, generator: torch.Generator | None = None, *,
                  path: torch.Tensor | None = None, t: torch.Tensor | None = None) -> dict:
@@ -139,7 +142,7 @@ def make_sharded_stage3_train_step(model: torch.nn.Module, make_tx, mesh, *,
                 sums.append(torch.stack([loss.detach(), correct.float(), unsampled.float()]))
             state.apply_gradients(ema_beta)
             sums = torch.stack(sums)
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=group)
             return {"loss": (sums[:, 0] / world).mean(),
                     "acc_unsampled": (sums[:, 1] / sums[:, 2].clamp(min=1)).mean()}
 

@@ -204,14 +204,30 @@ Phases, one line each; any failure raises and the script exits non-zero:
    agree (``SHARDED_REL_TOL``, ``SHARDED_UPDATE_TOL``), with the worst
    differences, ms per step of both and a profile (device ms, the host ms
    of the optimizer step and of FSDP2's hooks) printed beside the card's
-   name and power limit.
+   name and power limit;
+10. tensor parallelism (tp 2) on the one card: ``stage3_attention_core``
+   and ``stage3_attention_bwd`` at Stage-3 B=32 on each tp rank's 8 of 16
+   heads (rank 0 all band-local, rank 1 all linear) and ``esm2_attention``
+   / ``_bwd`` at ESM2-650M B=2 on 10 of 20 heads, each within ``REL_TOL``
+   of its plain version and of the whole-head call's columns, timed beside
+   the whole-head call; then two worker processes of this script
+   (``--tp-worker``) in a gloo group over CUDA tensors (NCCL refuses two
+   ranks on one card) run the sharded Stage-3 ``layer_block`` step (full
+   width, B=32, 3 steps; path ``train_tp``) and the sharded Stage-1 step
+   (ESM2-650M + PubMedBERT, B=4 pfam pairs, 2 steps; path
+   ``train_stage1_tp``) at (dp 1, fsdp 1, tp 2) from phase 9's seeds, and
+   rank 0 holds each against the one-device step (every loss term within
+   ``TP_LOSS_TOL``, the first step's gradients within ``TP_GRAD_TOL``),
+   with ms per step (no tp speed: the ranks share the card and sum through
+   the host) and the ms of one all-reduce of a layer's size.
 
 Each path (phase 4's graph-path ProteoScribe, the five runs of phase 5,
 the three PenCL runs of phase 6 and the bulk embedding, the serving runs
 and their inpaint requests, the sample CLIs, the two sweeps, the mesh's
 sweep and server, Stage-2 training, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
-``.bin`` in phase 8, the two sharded steps of phase 9) runs with the launch counts
+``.bin`` in phase 8, the two sharded steps of phase 9, the two tp steps of
+phase 10, both ranks' launches summed) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
 exactly its own kernels.  The line before the last is the kernels' JSON record, with
 each kernel's time, its plain version's, the least time the card could
@@ -370,6 +386,9 @@ PATH_KERNELS = {
 # the sharded steps launch the one-device steps' kernels
 PATH_KERNELS["train_sharded"] = PATH_KERNELS["train_layer_block"]
 PATH_KERNELS["train_stage1_sharded"] = PATH_KERNELS["train_stage1"]
+# so do the tp-2 steps, on each rank's shards
+PATH_KERNELS["train_tp"] = PATH_KERNELS["train_layer_block"]
+PATH_KERNELS["train_stage1_tp"] = PATH_KERNELS["train_stage1"]
 
 
 def say(phase: str, msg: str) -> None:
@@ -3223,6 +3242,321 @@ def phase_train_sharded(stage1: dict, init1: dict) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: tensor parallelism (tp 2) on one card
+# --------------------------------------------------------------------------
+
+# the tp-2 step against the one-device step, both bf16 on the kernels: every
+# loss term of every step within TP_LOSS_TOL (relative), the first step's
+# gradients (max|Δg| over the model / its max|g|) within TP_GRAD_TOL.  The
+# ranks sum their partial products in f32 and round to bf16 after the sum,
+# the one-device GEMM rounds its whole product once: the two differ by bf16
+# roundings of the same values, which grow through the layers
+TP_LOSS_TOL, TP_GRAD_TOL = 1e-3, 1e-2
+TP_WORKER = "--tp-worker"
+TP_STEPS3, TP_STEPS1 = 3, 2
+
+
+def tp_shard(qkv, r: int, tp: int):
+    """Rank r's [q | k | v] columns of ``qkv`` (..., 3d): its contiguous
+    heads, as the column shards of W_q, W_k, W_v give them."""
+    import torch
+
+    d = qkv.shape[-1] // 3
+    n = d // tp
+    return torch.cat([qkv[..., i * d + r * n:i * d + (r + 1) * n] for i in range(3)],
+                     -1).contiguous()
+
+
+def tp_kernel_shapes(dev=None, B: int = TRAIN_B, L: int = 1024) -> None:
+    """``stage3_attention_core``/``_bwd`` at Stage-3 B=32 (16 heads of 32,
+    8 band-local) on the two tp-2 ranks' heads — rank 0 all 8 band heads,
+    rank 1 all 8 linear heads — and ``esm2_attention``/``_bwd`` at
+    ESM2-650M B=2 on 10 of 20 heads: each against its plain version on the
+    same shard (REL_TOL, per head group) and against the whole-head call's
+    columns of that shard, with the ms of each call (CUDA events) beside
+    the whole-head call's."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.ops.rotary import rotary_cos_sin
+    from biom3_tpu_torch.parallel.tensor import TensorParallel
+
+    dev, bf, tp = dev or torch.device("cuda"), torch.bfloat16, 2
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(bf)  # noqa: E731
+    d, H, NL, W = 512, 16, 8, 128
+    qkv, dattn = rnd(B, L, 3 * d), rnd(B, L, d)
+    Be, E, He = 2, 1280, 20
+    ids = esm_ids([L, L // 2 + 5], L, g)
+    pad = (ids == 1).int()
+    cos, sin = rotary_cos_sin(L, E // He, dtype=bf, device=dev)
+    qkve, dae = rnd(Be, L, 3 * E), rnd(Be, L, E)
+    kinds = {
+        "stage3_attention_core": (qkv, None, lambda q, h, nl: K.stage3_attention_core(
+            q, heads=h, local_heads=nl, window=W), lambda q, h, nl: K.stage3_attention_core_plain(
+            q, heads=h, local_heads=nl, window=W), 32),
+        "stage3_attention_bwd": (qkv, dattn, lambda q, h, nl, da: K.stage3_attention_bwd(
+            q, da, heads=h, local_heads=nl, window=W), lambda q, h, nl, da:
+            K.stage3_attention_bwd_plain(q, da, heads=h, local_heads=nl, window=W), 32),
+        "esm2_attention": (qkve, None, lambda q, h, nl: K.esm2_attention(
+            q, pad, cos, sin, heads=h), lambda q, h, nl: K.esm2_attention_plain(
+            q, pad, cos, sin, heads=h), 64),
+        "esm2_attention_bwd": (qkve, dae, lambda q, h, nl, da: K.esm2_attention_bwd(
+            q, da, pad, cos, sin, heads=h), lambda q, h, nl, da: K.esm2_attention_bwd_plain(
+            q, da, pad, cos, sin, heads=h), 64),
+    }
+    for name, (q, da, kernel, plain, group) in kinds.items():
+        heads, local = (H, NL) if name.startswith("stage3") else (He, 0)
+        extra = () if da is None else (da,)
+        whole = kernel(q, heads, local, *extra)
+        whole_ms = event_ms(lambda: kernel(q, heads, local, *extra), TIMED_ITERS)
+        parts = []
+        for r in range(tp):
+            h_r, nl_r = TensorParallel(None, r, tp).heads(heads, local)
+            q_r = tp_shard(q, r, tp)
+            extra_r = () if da is None else (da[..., r * da.shape[-1] // tp:
+                                                 (r + 1) * da.shape[-1] // tp].contiguous(),)
+            got = kernel(q_r, h_r, nl_r, *extra_r)
+            _, rel_plain = rel_err(got, plain(q_r, h_r, nl_r, *extra_r), group)
+            n = got.shape[-1]
+            want = whole[..., r * n:(r + 1) * n] if da is None else tp_shard(whole, r, tp)
+            _, rel_whole = rel_err(got, want, group)
+            ms = event_ms(lambda: kernel(q_r, h_r, nl_r, *extra_r), TIMED_ITERS)
+            parts.append(f"rank {r} ({h_r} heads, {nl_r} band-local): {ms:.4f} ms, rel err "
+                         f"{rel_plain:.2e} vs plain, {rel_whole:.2e} vs the whole call's heads")
+            if not (rel_plain <= REL_TOL and rel_whole <= REL_TOL):
+                raise AssertionError(f"{name} on tp rank {r}'s heads: rel err {rel_plain} vs "
+                                     f"plain, {rel_whole} vs the whole-head call")
+        say("tp", f"{name} B={q.shape[0]} L={L} at tp {tp}: whole ({heads} heads) "
+                  f"{whole_ms:.4f} ms; " + "; ".join(parts) + f"; {card()}")
+        del whole
+    torch.cuda.empty_cache()
+
+
+def tp_run(path, build, call, steps: int):
+    """On a tp worker: ``build()`` → (step, state); ``steps`` calls of
+    ``call(step)`` (the last ``steps − 1`` timed) with the launch counts
+    read after → {aux, grads (the first step's, whole), ms, counts}."""
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+
+    step, state = build()
+    grads = first_gradients(state)
+    torch.manual_seed(SEED)   # dropout (Stage 1)
+    K.reset_launches()
+    aux, ms = timed_steps(lambda: call(step), steps, 1)
+    counts = K.launch_counts() if path else {}
+    del step, state
+    torch.cuda.empty_cache()
+    return {"aux": [{k: float(v) for k, v in a.items() if k.startswith("loss")} for a in aux],
+            "grads": grads, "ms": ms, "counts": counts}
+
+
+def tp_all_reduce_ms(mesh, rows: int, cols: int, calls: int = 5) -> float:
+    """ms of one all-reduce over the tp group of a (rows, cols) f32 tensor
+    on the card, the size of each of ``ops/layer_block.py``'s (host clock
+    around a synchronised call, after a warm-up)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones((rows, cols), device="cuda")
+    group = mesh["tp"].get_group()
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def tp_agreement(tp: dict, one: dict) -> dict:
+    """The tp run's losses and first-step gradients against the one-device
+    run's → the worst relative differences."""
+    loss_rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                   for w, g in zip(one["aux"], tp["aux"]) for k in w)
+    g_max = max(float(g.abs().max()) for g in one["grads"].values())
+    worst = max(one["grads"], key=lambda k: float((tp["grads"][k] - one["grads"][k]).abs().max()))
+    return {"losses": [a["loss"] for a in tp["aux"]], "one_losses": [a["loss"] for a in one["aux"]],
+            "loss_rel": loss_rel, "worst_grad": worst,
+            "grad_rel": float((tp["grads"][worst] - one["grads"][worst]).abs().max()) / g_max,
+            "ms": tp["ms"], "one_ms": one["ms"]}
+
+
+def tp_worker(rank: int, address: str, out: str) -> None:
+    """One rank of the tp-2 group (gloo over CUDA tensors on the one card):
+    the sharded Stage-3 ``layer_block`` step at full width (B=32, 16 layers,
+    AdamW, EMA) and the sharded Stage-1 ``layer_block`` step (ESM2-650M,
+    PubMedBERT, B=4 pfam pairs of 1022 residues) from phase 9's seeds; rank
+    0 then runs each one-device step on the same weights and batch and
+    compares.  Writes ``tp<rank>.json``: each path's launch counts, ms per
+    step and (rank 0) the agreement."""
+    import torch
+    import torch.distributed as dist
+
+    from biom3_tpu_torch.cli.measure_stage1 import (
+        PROTEIN_MASK_ID,
+        TEXT_MASK_ID,
+        seeded_stage1,
+        stage1_batch,
+    )
+    from biom3_tpu_torch.cli.run_train_stage3 import LAYER_MODES
+    from biom3_tpu_torch.config import Config, PenCLConfig, ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.pencl import PenCL
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.parallel.distributed import initialize_distributed, make_hybrid_mesh
+    from biom3_tpu_torch.parallel.mesh import MeshConfig
+    from biom3_tpu_torch.training.optim import make_optimizer
+    from biom3_tpu_torch.training.stage1_task import (
+        make_sharded_stage1_train_step,
+        make_stage1_optimizer,
+        make_stage1_train_step,
+    )
+    from biom3_tpu_torch.training.stage3_task import (
+        make_sharded_stage3_train_step,
+        make_stage3_train_step,
+    )
+    from biom3_tpu_torch.training.state import TrainState
+
+    dev = initialize_distributed(address, 2, rank, device="cuda", backend="gloo")
+    mesh = make_hybrid_mesh(MeshConfig(tp=2), device_type="cuda")
+    result: dict = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        cfg = ProteoScribeConfig()
+        tokens, z = train_batch(cfg, TRAIN_B, torch.Generator(device=dev).manual_seed(SEED + 11))
+        batch = {"tokens": tokens, "z_c": z}
+        init = seeded_init_(ProteoScribe(cfg), SEED + 11).state_dict()
+
+        def scribe():
+            model = ProteoScribe(cfg, dtype=torch.bfloat16, **LAYER_MODES["layer_block"])
+            model.load_state_dict(init)
+            return model.to(dev)
+
+        def make_tx(model):
+            return make_optimizer("AdamW", model.parameters(), TRAIN_LR)
+
+        def one_device():
+            model = scribe()
+            state = TrainState(model, make_tx(model), with_ema=True)
+            return make_stage3_train_step(state), state
+
+        gen = {}
+
+        def call(step):
+            if "g" not in gen:
+                gen["g"] = torch.Generator(device=dev).manual_seed(SEED)
+            return step(batch, gen["g"])
+
+        tp3 = tp_run("train_tp", lambda: make_sharded_stage3_train_step(scribe(), make_tx, mesh),
+                     call, TP_STEPS3)
+        result["train_tp"] = {"counts": tp3["counts"], "ms": tp3["ms"]}
+        if rank == 0:
+            gen.clear()
+            result["train_tp"].update(tp_agreement(tp3, tp_run(None, one_device, call,
+                                                               TP_STEPS3)))
+        del tp3, init
+        result["train_tp"]["s"] = time.perf_counter() - t0
+        result["train_tp"]["all_reduce_ms"] = tp_all_reduce_ms(mesh, TRAIN_B * cfg.max_seq_len,
+                                                               cfg.dim)
+        dist.barrier()
+
+        t1 = time.perf_counter()
+        cfg = PenCLConfig.from_stage_config(Config(json.loads(pathlib.Path(out, "stage1.json")
+                                                              .read_text())))
+        init = seeded_stage1(cfg, SEED + 10).state_dict()
+        batch = stage1_batch(cfg, ([1022] * 4, [1022] * 4), np.random.default_rng(SEED + 12), dev)
+        lrs = Config({"protein_encoder_lr": STAGE1_LR, "text_encoder_lr": STAGE1_LR,
+                      "head_lr": STAGE1_LR})
+        kw = dict(temperature=cfg.temperature, dataset_type="pfam", text_mask_id=TEXT_MASK_ID,
+                  protein_mask_id=PROTEIN_MASK_ID)
+
+        def pencl():
+            with torch.device(dev):
+                model = PenCL(cfg, attn_impl="layer-block", dtype=torch.bfloat16, mlm_heads=True)
+            model.load_state_dict(init)
+            return model
+
+        def one_device1():
+            model = pencl()
+            state = TrainState(model, make_stage1_optimizer(lrs, model))
+            return make_stage1_train_step(state, **kw), state
+
+        tp1 = tp_run("train_stage1_tp", lambda: make_sharded_stage1_train_step(
+            pencl(), lambda m: make_stage1_optimizer(lrs, m), mesh, **kw),
+            lambda step: step(batch), TP_STEPS1)
+        result["train_stage1_tp"] = {"counts": tp1["counts"], "ms": tp1["ms"]}
+        if rank == 0:
+            result["train_stage1_tp"].update(tp_agreement(tp1, tp_run(
+                None, one_device1, lambda step: step(batch), TP_STEPS1)))
+        result["train_stage1_tp"]["s"] = time.perf_counter() - t1
+        dist.barrier()
+    finally:
+        pathlib.Path(out, f"tp{rank}.json").write_text(json.dumps(result))
+        dist.destroy_process_group()
+
+
+def phase_train_tp(stage1: dict) -> dict:
+    """Tensor parallelism on the one card: the attention kernels on the tp
+    ranks' heads (``tp_kernel_shapes``), then the tp-2 steps in two worker
+    processes (``tp_worker``; gloo over CUDA tensors: NCCL refuses two
+    ranks on one card) → each path's launch counts, both ranks'.  ms per
+    step there is no tp speed: the ranks share the card and sum over the
+    host."""
+    import socket
+
+    t0 = time.perf_counter()
+    tp_kernel_shapes()
+    say("tp", f"kernels on the shard shapes {time.perf_counter() - t0:.1f} s")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        pathlib.Path(tmp, "stage1.json").write_text(json.dumps(stage1))
+        procs = [subprocess.Popen([sys.executable, __file__, TP_WORKER, str(r),
+                                   f"tcp://localhost:{port}", tmp]) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0, 0]:
+            raise AssertionError(f"tp workers exited {rcs}")
+        ranks = [json.loads(pathlib.Path(tmp, f"tp{r}.json").read_text()) for r in range(2)]
+    for path, what in (("train_tp", f"Stage 3 (d 512, 16 layers, B={TRAIN_B}, layer_block, "
+                                     f"bf16, AdamW, EMA)"),
+                       ("train_stage1_tp", "Stage 1 (ESM2-650M + PubMedBERT, B=4 pfam pairs of "
+                                           "1022 residues, layer_block, bf16, AdamW)")):
+        r0 = ranks[0][path]
+        counts[path] = {k: sum(r[path]["counts"].get(k, 0) for r in ranks)
+                        for k in set(ranks[0][path]["counts"]) | set(ranks[1][path]["counts"])}
+        check_path(path, counts[path])
+        say("tp", f"{what} at tp 2 on one card: losses {[round(x, 6) for x in r0['losses']]} "
+                  f"(one device {[round(x, 6) for x in r0['one_losses']]}), worst loss term rel "
+                  f"diff {r0['loss_rel']:.3e}; first-step gradient max|Δg| / max|g| "
+                  f"{r0['grad_rel']:.3e} ({r0['worst_grad']}); {r0['ms']:.3f} ms/step (rank 0; "
+                  f"rank 1 {ranks[1][path]['ms']:.3f}) against {r0['one_ms']:.3f} one device "
+                  f"(CUDA events; the ranks share the card, gloo sums over the host: no tp "
+                  f"speed); {r0['s']:.1f} s with the one-device run; {card()}")
+        if "all_reduce_ms" in r0:
+            say("tp", f"one all-reduce of a ({TRAIN_B}·1024, 512) f32 tensor over the two gloo "
+                      f"ranks: {r0['all_reduce_ms']:.3f} ms (host clock; a layer_block layer "
+                      f"runs 2 forward, 3 backward, the recompute's one of them); {card()}")
+        if not (r0["loss_rel"] <= TP_LOSS_TOL and r0["grad_rel"] <= TP_GRAD_TOL):
+            raise AssertionError(f"{path}: the tp-2 step departs from the one-device step (loss "
+                                 f"{r0['loss_rel']}, gradient {r0['grad_rel']} at "
+                                 f"{r0['worst_grad']})")
+    say("tp", f"phase {time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
+    return counts
+
+
 def phase_esm2_3b_layer() -> None:
     """One ESM2-3B-width layer (E 2560, 40 heads of 64, FF 10240) at B=1,
     L=1024 with a PAD tail: ``ESM2Layer(attn_impl="layer-block")`` in bf16
@@ -3401,6 +3735,7 @@ def main() -> None:
         init1 = phase_stage1_steps(stage1)
         counts.update(phase_train_sharded(stage1, init1))
         del init1
+        counts.update(phase_train_tp(stage1))
     counts.update(phase_stage1_cli())
     phase_esm2_3b_layer()
     say("done", f"{time.perf_counter() - t0:.1f} s of wall time")
@@ -3415,4 +3750,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [TP_WORKER]:
+        tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -89,6 +89,7 @@ SLICE_MODULES = [
     "biom3_tpu_torch.parallel.sharding",
     "biom3_tpu_torch.ops.ring_attention",
     "biom3_tpu_torch.parallel.distributed",
+    "biom3_tpu_torch.parallel.tensor",
     "biom3_tpu_torch.training.sharded",
     "biom3_tpu_torch.utils.profiling",
     "biom3_tpu_torch.utils.flops",

@@ -8,10 +8,14 @@
   element for element;
 * ``batch_sharding`` and ``put_global`` against JAX's ``P(("dp",
   "fsdp"))`` shards on the 2 x 2 x 2 CPU mesh;
-* tp > 1 refused; ``initialize_distributed`` refusing without a card
-  unless the caller asks for the CPU; ``make_hybrid_mesh``'s checks;
+* a tp rank's heads (``TensorParallel.heads``: band-local heads first);
+  ``initialize_distributed`` refusing without a card unless the caller
+  asks for the CPU; ``make_hybrid_mesh``'s checks;
 * on a one-rank gloo group, the sharded Stage-3 and Stage-1 steps equal the
-  one-device steps bit for bit (the smoke's one NCCL rank on the card).
+  one-device steps bit for bit (the smoke's one NCCL rank on the card),
+  and a sharded state saved by ``CheckpointManager``, restored into a
+  fresh sharded state and stepped equals the unbroken run.  tp > 1 runs in
+  ``tests/test_torch_multihost.py``'s 4-rank group.
 """
 
 import socket
@@ -42,8 +46,10 @@ from biom3_tpu_torch.models.proteoscribe import ProteoScribe
 from biom3_tpu_torch.parallel import MeshConfig, param_partition_spec, params_shardings
 from biom3_tpu_torch.parallel.distributed import initialize_distributed, make_hybrid_mesh
 from biom3_tpu_torch.parallel.mesh import AXES
-from biom3_tpu_torch.parallel.sharding import batch_sharding, put_global, shard_params
-from biom3_tpu_torch.training.optim import make_optimizer
+from biom3_tpu_torch.io.checkpoint import CheckpointManager
+from biom3_tpu_torch.parallel.sharding import batch_sharding, data_group, put_global
+from biom3_tpu_torch.parallel.tensor import TensorParallel
+from biom3_tpu_torch.training.optim import AdamWMoments, Optimizer, make_optimizer
 from biom3_tpu_torch.training.stage1_task import (
     make_sharded_stage1_train_step,
     make_stage1_optimizer,
@@ -158,9 +164,23 @@ def test_put_global_is_jax_batch_shard(shape):
         batch_sharding(_Position(shape, (0, 0, 0)), 6 if shape[0] * shape[1] > 2 else 3)
 
 
-def test_training_refuses_tp():
-    with pytest.raises(NotImplementedError, match="8c"):
-        shard_params(torch.nn.Linear(4, 4), _Position((1, 2, 2), (0, 0, 0)))
+@pytest.mark.parametrize("heads,local,size,want", [
+    (4, 2, 2, [(2, 2), (2, 0)]),            # band-only and linear-only ranks
+    (4, 1, 2, [(2, 1), (2, 0)]),            # a mixed rank
+    (16, 8, 4, [(4, 4), (4, 4), (4, 0), (4, 0)]),
+    (20, 0, 2, [(10, 0), (10, 0)]),         # ESM2-650M
+    (16, 16, 2, [(8, 8), (8, 8)]),
+])
+def test_tensor_parallel_heads(heads, local, size, want):
+    """Rank r runs the contiguous heads [r·H/tp, (r+1)·H/tp), of which the
+    first ``local_heads`` of the layer are band-local (JAX's contiguous tp
+    shard of ``to_q``'s output dim)."""
+    got = [TensorParallel(None, r, size).heads(heads, local) for r in range(size)]
+    assert got == want
+    assert [TensorParallel(None, r, size).block(heads * 32) for r in range(size)] == [
+        slice(r * heads * 32 // size, (r + 1) * heads * 32 // size) for r in range(size)]
+    with pytest.raises(ValueError, match="do not split"):
+        TensorParallel(None, 0, 3).heads(heads, local)
 
 
 def test_initialize_distributed_needs_a_card_unless_told_cpu():
@@ -229,8 +249,9 @@ def test_one_rank_stage3_step_is_the_one_device_step(one_rank, optimizer, accum)
         assert type(got["params"][k]) is torch.Tensor and torch.equal(got["params"][k], v), k
     for e, v in zip(got["ema"], ref_sd["ema"]):
         assert torch.equal(e, v)
-    with pytest.raises(NotImplementedError, match="sharded state"):
-        state.load_state_dict(ref_sd)
+    state.load_state_dict(ref_sd)   # a whole state into the shards
+    for k, v in state.state_dict()["params"].items():
+        assert torch.equal(v, ref_sd["params"][k]), k
 
 
 def test_one_rank_stage1_step_is_the_one_device_step(one_rank):
@@ -258,3 +279,45 @@ def test_one_rank_stage1_step_is_the_one_device_step(one_rank):
     assert {k: float(v) for k, v in aux.items()} == {k: float(v) for k, v in want.items()}
     for k, v in model.state_dict().items():
         assert torch.equal(state.state_dict()["params"][k], v), k
+
+
+@pytest.mark.parametrize("optimizer", ["AdamW", "Adafactor", "AdamWMoments"])
+def test_one_rank_resume_equals_unbroken_run(one_rank, tmp_path, optimizer):
+    """A sharded state (FSDP2 ``DTensor`` parameters, moments — Adafactor's
+    factored rows and columns, a bf16 first moment — and EMA) saved by
+    ``CheckpointManager`` after a step, restored into a fresh sharded state
+    and stepped once equals two unbroken steps bit for bit."""
+    _, mesh = one_rank
+    assert data_group(mesh) is None   # tp = 1: the world group
+
+    def make_tx(model):
+        if optimizer == "AdamWMoments":
+            return Optimizer(AdamWMoments(model.parameters(), lr=1e-3, weight_decay=0.01),
+                             None, None)
+        return make_optimizer(optimizer, model.parameters(), 1e-3, weight_decay=0.01)
+
+    def build():
+        return make_sharded_stage3_train_step(_scribe(), make_tx, mesh)
+
+    ckpt = CheckpointManager(tmp_path)
+    step, state = build()
+    step(_batch3(), torch.Generator().manual_seed(0))
+    ckpt.save(1, state)
+    step(_batch3(), torch.Generator().manual_seed(1))
+    want = state.state_dict()
+    step, state = build()
+    ckpt.restore(state)
+    step(_batch3(), torch.Generator().manual_seed(1))
+    got = state.state_dict()
+    assert got["step"] == want["step"] == 2
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k
+    for e, v in zip(got["ema"], want["ema"]):
+        assert torch.equal(e, v)
+    for i, moments in want["opt"]["opt"]["state"].items():
+        for k, v in moments.items():
+            got_v = got["opt"]["opt"]["state"][i][k]
+            if isinstance(v, torch.Tensor):
+                assert got_v.dtype == v.dtype and torch.equal(got_v, v), (i, k)
+            else:
+                assert got_v == v, (i, k)
