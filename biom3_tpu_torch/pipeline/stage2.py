@@ -25,7 +25,11 @@ class FacilitatorEngine:
         require_device(self.device, "FacilitatorEngine")
         model = Facilitator(self.config)
         if model_path is not None:
-            model.load_state_dict(load_reference_state_dict(model_path), strict=True)
+            # the MLP's keys with or without the module's ``main.`` prefix, as
+            # the JAX converter takes them (io/convert.py:28-40)
+            sd = {k if k.startswith("main.") else f"main.{k}": v
+                  for k, v in load_reference_state_dict(model_path).items()}
+            model.load_state_dict(sd, strict=True)
         else:
             seeded_init_(model, seed=0)
         self.model = model.to(self.device).eval()

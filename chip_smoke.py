@@ -219,7 +219,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
    rank 0 holds each against the one-device step (every loss term within
    ``TP_LOSS_TOL``, the first step's gradients within ``TP_GRAD_TOL``),
    with ms per step (no tp speed: the ranks share the card and sum through
-   the host) and the ms of one all-reduce of a layer's size.
+   the host) and the ms of one all-reduce of a layer's size; last, each of
+   the two ranks runs the per-rank ring body ``ring_attention_sharded`` on
+   its half of L at ESM2-650M's heads (B 2, H 20, L 1024, D 64, f32, PAD
+   tails) over their group, held within 2e-5 of plain full attention and of
+   the one-process ``ring_attention``, with its ms a call;
+11. the port's tools (``biom3_tpu_torch/tools``) in this process on the
+   built kernels: ``certify_task.build_and_train`` trains the copy-task toy
+   (dim 128, depth 4, 4 heads of 32 with 2 band-local, L 256) 600 steps at
+   B=64 in bf16 ``layer_block`` (path ``certify_train``; the loss must end
+   under 0.1), ``certify_int8`` on bf16, int8-ff and int8-ff+proj with
+   temp-0 sampling at sample batch 64 (path ``certify_int8``: class
+   accuracy >= 0.99 in each mode, int8-ff+proj logit min cosine >= 0.999),
+   ``certify_blocked`` at k 1 and 8, temperatures 1.0 and 0.0, and
+   ``certify_inpaint`` at revealed fraction 0.25, temperature 0 and MaskGIT
+   16 (the committed positions never move) on the f32 module forward from
+   the toy's state file, ``parity_check`` on small seeded checkpoints in the
+   published layouts (every gate's verdict line, exit code 1), and
+   ``run_sweep`` at 4 prompts x 2 replicas, batch 8, MaskGIT (its QC keys).
 
 Each path (phase 4's graph-path ProteoScribe, the five runs of phase 5,
 the three PenCL runs of phase 6 and the bulk embedding, the serving runs
@@ -227,7 +244,7 @@ and their inpaint requests, the sample CLIs, the two sweeps, the mesh's
 sweep and server, Stage-2 training, the two training CLI modes
 of phase 7, the Stage-1 training CLI runs and the inference CLI on their
 ``.bin`` in phase 8, the two sharded steps of phase 9, the two tp steps of
-phase 10, both ranks' launches summed) runs with the launch counts
+phase 10, both ranks' launches summed, and each tool of phase 11) runs with the launch counts
 set to 0 just before it and read just after, and must have launched
 exactly its own kernels.  The line before the last is the kernels' JSON record, with
 each kernel's time, its plain version's, the least time the card could
@@ -3386,6 +3403,55 @@ def tp_agreement(tp: dict, one: dict) -> dict:
             "ms": tp["ms"], "one_ms": one["ms"]}
 
 
+# the per-rank ring body on the tp workers' gloo group: ESM2-650M's heads,
+# the sequence split over the 2 ranks, a PAD tail; f32, held within
+# RING_BODY_TOL of plain full attention and of the one-process ring
+RING_BODY_B, RING_BODY_H, RING_BODY_L, RING_BODY_D, RING_BODY_TOL = 2, 20, 1024, 64, 2e-5
+
+
+def tp_ring(rank: int, world: int) -> dict:
+    """``ring_attention_sharded`` on this rank's block of L (B 2, H 20, L
+    1024, D 64, f32 on the card, row b's last (b + 1)·RING_PAD·L keys PAD)
+    over the whole group, against plain full attention and the one-process
+    ``ring_attention`` over ``world`` positions of the card on the same
+    tensors → max |Δ| of each, and ms a call of the body (host clock over
+    RING_ITERS synchronised calls; gloo stages each hop through the host)
+    beside the one-process ring's (CUDA events)."""
+    import torch
+
+    from biom3_tpu_torch.cli.measure_pencl import event_ms
+    from biom3_tpu_torch.ops import full_attention, ring_attention, ring_attention_sharded
+    from biom3_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    dev = torch.device("cuda")
+    B, H, L, D = RING_BODY_B, RING_BODY_H, RING_BODY_L, RING_BODY_D
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    q, k, v = (torch.randn(B, H, L, D, generator=g, device=dev) for _ in range(3))
+    pad = torch.zeros(B, L, dtype=torch.bool, device=dev)
+    for b in range(B):
+        pad[b, L - (b + 1) * int(RING_PAD * L):] = True
+    block = slice(rank * L // world, (rank + 1) * L // world)
+    mine = [t[:, :, block].contiguous() for t in (q, k, v)]
+
+    def body():
+        return ring_attention_sharded(*mine, padding_mask=pad[:, block].contiguous())
+
+    got = body()
+    torch.cuda.synchronize()
+    mesh = make_mesh(MeshConfig(tp=world), [dev] * world)
+    with torch.no_grad():
+        full = full_attention(q, k, v, pad)[:, :, block]
+        one = ring_attention(q, k, v, mesh, padding_mask=pad)[:, :, block]
+    t0 = time.perf_counter()
+    for _ in range(RING_ITERS):
+        body()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / RING_ITERS * 1e3
+    one_ms = event_ms(lambda: ring_attention(q, k, v, mesh, padding_mask=pad), RING_ITERS)
+    return {"err_full": float((got - full).abs().max()), "err_ring": float((got - one).abs().max()),
+            "ms": ms, "one_ms": one_ms}
+
+
 def tp_worker(rank: int, address: str, out: str) -> None:
     """One rank of the tp-2 group (gloo over CUDA tensors on the one card):
     the sharded Stage-3 ``layer_block`` step at full width (B=32, 16 layers,
@@ -3495,6 +3561,8 @@ def tp_worker(rank: int, address: str, out: str) -> None:
                 None, one_device1, lambda step: step(batch), TP_STEPS1)))
         result["train_stage1_tp"]["s"] = time.perf_counter() - t1
         dist.barrier()
+        result["ring"] = tp_ring(rank, 2)
+        dist.barrier()
     finally:
         pathlib.Path(out, f"tp{rank}.json").write_text(json.dumps(result))
         dist.destroy_process_group()
@@ -3553,6 +3621,17 @@ def phase_train_tp(stage1: dict) -> dict:
             raise AssertionError(f"{path}: the tp-2 step departs from the one-device step (loss "
                                  f"{r0['loss_rel']}, gradient {r0['grad_rel']} at "
                                  f"{r0['worst_grad']})")
+    for r, rank in enumerate(ranks):
+        ring = rank["ring"]
+        say("tp", f"ring_attention_sharded on tp rank {r} of 2 (gloo over CUDA tensors, hops "
+                  f"through the host; B {RING_BODY_B}, H {RING_BODY_H}, L {RING_BODY_L}, D "
+                  f"{RING_BODY_D}, f32, PAD tails): max|Δ| {ring['err_full']:.3e} vs plain full "
+                  f"attention, {ring['err_ring']:.3e} vs the one-process ring (tol "
+                  f"{RING_BODY_TOL}); {ring['ms']:.3f} ms a call (host clock) against "
+                  f"{ring['one_ms']:.3f} ms for the one-process ring over 2 positions; {card()}")
+        if not (ring["err_full"] <= RING_BODY_TOL and ring["err_ring"] <= RING_BODY_TOL):
+            raise AssertionError(f"ring_attention_sharded on rank {r}: max|Δ| {ring['err_full']} "
+                                 f"vs full attention, {ring['err_ring']} vs the one-process ring")
     say("tp", f"phase {time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}")
     return counts
 
@@ -3704,6 +3783,186 @@ def phase_stage1_cli() -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the certification, parity and sweep tools (biom3_tpu_torch/tools)
+# --------------------------------------------------------------------------
+
+# the copy-task toy (``tools/certify_task``): trained once, then shared by
+# the three certify tools through its state file.  It sits on the ln 4
+# plateau (choosing the class's mode) until it learns to copy, between
+# steps 300 and 400 on the card (PERF.md); 600 is the JAX tool's default
+CERTIFY_STEPS, CERTIFY_B, CERTIFY_L = 600, 64, 256
+# the gates: the trained loss, every int8 mode's class accuracy, and the
+# int8-ff+proj logits' min cosine against bf16 (the JAX package's toy read
+# 0.999291 after 2000 steps, PARITY.md:150-172)
+CERTIFY_LOSS_MAX, CERTIFY_CLASS_ACC_MIN, CERTIFY_COS_MIN = 0.1, 0.99, 0.999
+PATH_KERNELS.update({
+    "certify_train": PATH_KERNELS["train_layer_block"],
+    # the stack forward in bf16, int8-ff and int8-ff+proj
+    "certify_int8": STAGE3_BF16 | INT8,
+    # the samplers over the f32 module forward, and the parity gates' f32
+    # engines: torch ops, no kernel
+    "certify_blocked": set(),
+    "certify_inpaint": set(),
+    "parity_check": set(),
+    # the text tower and MaskGIT Stage 3 at their int8 default
+    "run_sweep": E2E_INT8,
+})
+PARITY_GATES = ("z_p norms", "z_t norms", "dot diag", "homology[0,3]", "homology[1,4]",
+                "norm_z_t", "norm_z_p", "norm_z_c", "mse_zc_zp", "mse_zt_zp", "mmd_zc_zp",
+                "mmd_zp_zt", "stage3 temp-0 sequences")
+SWEEP_QC_KEYS = {"n", "marker_valid_frac", "absorbing_leftover_frac", "aa_token_frac",
+                 "class_entropy_nats", "mean_positional_entropy_nats", "len_mean", "len_p5",
+                 "len_p95", "unique_frac", "mean_pairwise_identity"}
+
+
+def parity_files(root: pathlib.Path) -> list[str]:
+    """Small seeded checkpoints in the published .bin layouts (``seeded_init_``,
+    as ``write_stage_files`` makes its files): the whole PenCL (both towers
+    and heads: gate 1 needs z_p), the Facilitator and a small ProteoScribe,
+    with their configs and a synthetic wordpiece vocab → ``parity_check``'s
+    flags."""
+    import torch
+
+    from biom3_tpu_torch.config import Config, FacilitatorConfig, PenCLConfig, ProteoScribeConfig
+    from biom3_tpu_torch.io.state_dict import seeded_init_
+    from biom3_tpu_torch.models.facilitator import Facilitator
+    from biom3_tpu_torch.models.pencl import PenCL
+    from biom3_tpu_torch.models.proteoscribe import ProteoScribe
+    from biom3_tpu_torch.tokenizers import write_synthetic_wordpiece
+
+    vocab = write_synthetic_wordpiece(root / "vocab")
+    stage = {
+        1: {"protein_encoder_embedding": 64, "text_encoder_embedding": 64, "esm_num_layers": 2,
+            "esm_attention_heads": 2, "rep_layer": 2, "bert_num_layers": 2, "bert_num_heads": 2,
+            "bert_intermediate_size": 128, "bert_vocab_size": vocab,
+            "bert_max_position_embeddings": 128, "proj_embedding_dim": 32, "temperature": 0.8,
+            "text_max_length": 128, "text_model_path": str(root / "vocab")},
+        2: {"emb_dim": 32, "hid_dim": 64, "dropout": 0.0, "loss_type": "MMD"},
+        3: {"diffusion_steps": 64, "num_classes": 29, "text_emb_dim": 16, "transformer_dim": 64,
+            "transformer_heads": 2, "transformer_depth": 2, "transformer_blocks": 1,
+            "transformer_local_heads": 1, "transformer_local_size": 16},
+    }
+    models = {
+        1: PenCL(PenCLConfig.from_stage_config(Config(stage[1]))),
+        2: Facilitator(FacilitatorConfig.from_stage_config(Config(stage[2]))),
+        3: ProteoScribe(ProteoScribeConfig.from_stage_config(Config(stage[3]))),
+    }
+    flags = []
+    for n, name in ((1, "pencl"), (2, "facilitator"), (3, "proteoscribe")):
+        (root / f"stage{n}.json").write_text(json.dumps(stage[n]))
+        torch.save(seeded_init_(models[n], SEED + 30 + n).state_dict(), root / f"{name}.bin")
+        flags += [f"--{name}", str(root / f"{name}.bin"), f"--stage{n}_json",
+                  str(root / f"stage{n}.json")]
+    return flags
+
+
+def phase_certify() -> dict:
+    """The port's tools on the card, in this process (the kernels built):
+    ``certify_task.build_and_train`` (the copy-task toy, CERTIFY_STEPS steps
+    at B=CERTIFY_B, L=CERTIFY_L, bf16 ``layer_block`` on the kernels; path
+    ``certify_train``) saving its state file, ``certify_int8`` on its three
+    modes with sampling at sample batch 64 (the stack forward's kernels;
+    path ``certify_int8``), ``certify_blocked`` at k 1 and 8 and
+    temperatures 1.0 and 0.0, ``certify_inpaint`` at revealed fraction 0.25,
+    temperature 0.0 and MaskGIT 16 (both over the f32 module forward, from
+    the state file), then ``parity_check`` on small seeded checkpoints
+    (``parity_files``; every gate's verdict line, exit code 1) and
+    ``run_sweep --prompts 4 --replicas 2 --batch 8 --mode fast`` (its QC
+    keys) → each path's launch counts.  Fails on the trained loss, an int8
+    mode's class accuracy, the int8-ff+proj logit cosine or a moved
+    committed position (CERTIFY_* gates)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from biom3_tpu_torch.ops import kernels as K
+    from biom3_tpu_torch.tools import (
+        certify_blocked,
+        certify_inpaint,
+        certify_int8,
+        certify_task,
+        parity_check,
+        run_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    smi = card()
+    counts = {}
+
+    def run(path, fn):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[path] = K.launch_counts()
+        check_path(path, counts[path])
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_certify_") as tmp:
+        root = pathlib.Path(tmp)
+        state = str(root / "toy" / "state.pt")   # the trainer makes the directory
+        common = ["--steps", str(CERTIFY_STEPS), "--batch", str(CERTIFY_B), "--seq-len",
+                  str(CERTIFY_L), "--state-path", state, "--device", "cuda"]
+        (cfg, _, losses), wall = run("certify_train", lambda: certify_task.build_and_train(
+            CERTIFY_STEPS, CERTIFY_B, CERTIFY_L, state_path=state, device="cuda"))
+        say("certify", f"copy-task toy (dim {cfg.dim}, depth {cfg.depth}, {cfg.heads} heads of "
+                       f"{cfg.dim // cfg.heads}, {cfg.local_heads} band-local, W "
+                       f"{cfg.local_window}, L {cfg.max_seq_len}) trained {CERTIFY_STEPS} steps "
+                       f"at B={CERTIFY_B} (bf16 layer_block): loss by {len(losses)} chunks "
+                       f"{[round(x, 4) for x in losses]}; {wall:.1f} s; {smi}")
+        if not losses[-1] < CERTIFY_LOSS_MAX:
+            raise AssertionError(f"the copy-task toy's loss {losses[-1]} is not below "
+                                 f"{CERTIFY_LOSS_MAX} after {CERTIFY_STEPS} steps")
+        rows, wall = run("certify_int8", lambda: certify_int8.main(common + ["--sample-batch",
+                                                                            "64"]))
+        say("certify", f"certify_int8: {wall:.1f} s; launches {counts['certify_int8']}; {smi}")
+        bad = [r for r in rows if r["class_acc"] < CERTIFY_CLASS_ACC_MIN]
+        cos = rows[-1]["logit_min_cosine"]
+        if bad or rows[-1]["mode"] != "int8-ff+proj" or cos < CERTIFY_COS_MIN:
+            raise AssertionError(f"certify_int8: class accuracy under {CERTIFY_CLASS_ACC_MIN} in "
+                                 f"{bad}, int8-ff+proj logit min cosine {cos} (gate "
+                                 f"{CERTIFY_COS_MIN})")
+        _, wall = run("certify_blocked", lambda: certify_blocked.main(
+            common + ["--ks", "1", "8", "--temps", "1.0", "0.0"]))
+        say("certify", f"certify_blocked: {wall:.1f} s; {smi}")
+        inpaint, wall = run("certify_inpaint", lambda: certify_inpaint.main(
+            common + ["--fracs", "0.25", "--temps", "0.0", "--maskgit-steps", "16"]))
+        say("certify", f"certify_inpaint: {wall:.1f} s; {smi}")
+        moved = [r for r in inpaint if r["committed_ok"] != 1.0]
+        if moved:
+            raise AssertionError(f"certify_inpaint moved committed positions: {moved}")
+
+        flags = parity_files(root)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, wall = run("parity_check", lambda: parity_check.main(flags + ["--device",
+                                                                               "cuda"]))
+        out = buf.getvalue()
+        print(out, end="", flush=True)
+        missing = [g for g in PARITY_GATES if not re.search(r"\[(PASS|FAIL)\] " + re.escape(g),
+                                                            out)]
+        if rc != 1 or missing or "OVERALL: FAIL" not in out:
+            raise AssertionError(f"parity_check on seeded checkpoints: exit {rc} (expected 1), "
+                                 f"no verdict line for {missing}")
+        say("certify", f"parity_check on seeded checkpoints: {len(PARITY_GATES)} verdict lines, "
+                       f"exit {rc}; {wall:.1f} s")
+
+        report, wall = run("run_sweep", lambda: run_sweep.main(
+            ["--prompts", "4", "--replicas", "2", "--batch", "8", "--mode", "fast", "--device",
+             "cuda"]))
+    qc, probe = report["qc"], report["inpaint_recovery"]
+    if set(qc) != SWEEP_QC_KEYS or qc["n"] != 8 or not 0 <= qc["marker_valid_frac"] <= 1 \
+            or not 0 <= probe["masked_blosum_soft_acc"] <= 1 or not report["config"]["stack_path"]:
+        raise AssertionError(f"run_sweep report: {json.dumps(report)}")
+    say("certify", f"run_sweep (4 prompts x 2 replicas, MaskGIT 16, int8): {wall:.1f} s; "
+                   f"{report['rates']['seqs_per_s_steady']} seqs/s steady, QC {json.dumps(qc)}, "
+                   f"recovery {json.dumps(probe)}; launches {counts['run_sweep']}; {smi}")
+    say("certify", f"phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return counts
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device = phase_device()
@@ -3738,6 +3997,7 @@ def main() -> None:
         counts.update(phase_train_tp(stage1))
     counts.update(phase_stage1_cli())
     phase_esm2_3b_layer()
+    counts.update(phase_certify())
     say("done", f"{time.perf_counter() - t0:.1f} s of wall time")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],

@@ -96,6 +96,13 @@ SLICE_MODULES = [
     "biom3_tpu_torch.utils.figures",
     "biom3_tpu_torch.utils.animation",
     "biom3_tpu_torch.data.mnist_data",
+    "biom3_tpu_torch.tools",
+    "biom3_tpu_torch.tools.certify_task",
+    "biom3_tpu_torch.tools.certify_int8",
+    "biom3_tpu_torch.tools.certify_blocked",
+    "biom3_tpu_torch.tools.certify_inpaint",
+    "biom3_tpu_torch.tools.parity_check",
+    "biom3_tpu_torch.tools.run_sweep",
 ]
 
 

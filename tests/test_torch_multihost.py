@@ -19,6 +19,14 @@ give one rank only band heads and the other only linear ones), the other
 layer modes (``MODES``), and a save, restore and step through
 ``CheckpointManager`` against the unbroken run.
 
+Last, each rank runs the per-rank ring attention body
+(``ops/ring_attention.ring_attention_sharded``) on its quarter of L over
+the 4 ranks, with and without a PAD mask, forward and backward through a
+fixed cotangent: the gathered output against JAX's ``ring_attention`` on a
+4-device CPU mesh and plain full attention, its gradients against the
+one-process ``ring_attention``'s (atol 2e-5, ``tests/
+test_torch_ring_attention.py``'s tolerance).
+
 Every rank writes its aux, its gradients (the ``DTensor`` gradients
 gathered whole: FSDP2 has averaged them over the ranks) and its
 ``state_dict`` after the step.  The test holds: every rank's aux bit-equal;
@@ -122,7 +130,37 @@ def batches(seed: int = 0) -> dict:
     return out
 
 
+RING = dict(B=2, H=2, L=64, D=16)   # L over the WORLD ranks
+RING_CASES = ("ring", "ring_pad")
+
+
+def ring_inputs(seed: int = 5) -> dict:
+    """q, k, v and the cotangent (B, H, L, D) f32 and a PAD mask (B, L)."""
+    rng = np.random.default_rng(seed)
+    shape = (RING["B"], RING["H"], RING["L"], RING["D"])
+    out = {n: rng.standard_normal(shape).astype(np.float32) for n in ("q", "k", "v", "dy")}
+    out["mask"] = rng.random((RING["B"], RING["L"])) < 0.3
+    return out
+
+
 # --- the worker: one rank of the group ----------------------------------------
+
+def run_ring(rank: int, world: int) -> dict:
+    """The ring body on this rank's block of L over the whole group →
+    case → {out, dq, dk, dv} of the block."""
+    from biom3_tpu_torch.ops import ring_attention_sharded
+
+    arrays = ring_inputs()
+    block = slice(rank * RING["L"] // world, (rank + 1) * RING["L"] // world)
+    out = {}
+    for case in RING_CASES:
+        q, k, v = (torch.from_numpy(arrays[n][:, :, block]).requires_grad_() for n in "qkv")
+        mask = torch.from_numpy(arrays["mask"][:, block]) if case == "ring_pad" else None
+        o = ring_attention_sharded(q, k, v, padding_mask=mask)
+        (o * torch.from_numpy(arrays["dy"][:, :, block])).sum().backward()
+        out[case] = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    return out
+
 
 def _worker_models(dtype: torch.dtype, device: torch.device):
     """Functions making the two models: seeded weights, the same on every
@@ -274,6 +312,8 @@ def worker(argv=None) -> None:
         out["tp"] = runs[f"tp {args.tp} "] = run_rank(inputs, tp_mesh, device, dtype, out_dir)
         out["tp"]["mesh"] = tp_mesh.mesh.tolist()
     rank = dist.get_rank()
+    if device.type == "cpu":
+        out["ring"] = run_ring(rank, dist.get_world_size())
     if out_dir:
         torch.save(out, out_dir / f"rank{rank}.pt")
     for what, run in runs.items():
@@ -717,6 +757,40 @@ def test_tp_resume_equals_unbroken_run(tp_group):
         for i, moments in opt.items():
             for k, v in moments.items():
                 assert torch.equal(got_opt[i][k], v), (i, k)
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_body_matches_jax_and_one_process(group, case):
+    """The 4 ranks' ring body gathered along L against JAX's
+    ``ring_attention`` on a 4-device CPU mesh and plain full attention; its
+    gradients against the one-process ``ring_attention``'s through autograd
+    on the same cotangent."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JaxMesh
+
+    from biom3_tpu.ops.ring_attention import ring_attention as jax_ring_attention
+    from biom3_tpu_torch.ops import full_attention, ring_attention
+    from biom3_tpu_torch.parallel.mesh import MeshConfig as PortMeshConfig, make_mesh
+
+    ranks, _, _ = group
+    arrays = ring_inputs()
+    mask = arrays["mask"] if case == "ring_pad" else None
+    got = {n: torch.cat([r["ring"][case][n] for r in ranks], dim=2).numpy()
+           for n in ("out", "dq", "dk", "dv")}
+    jmesh = JaxMesh(np.asarray(jax.devices()[:WORLD]), ("tp",))
+    want = jax_ring_attention(*(jnp.asarray(arrays[n]) for n in "qkv"), jmesh,
+                              padding_mask=None if mask is None else jnp.asarray(mask))
+    np.testing.assert_allclose(got["out"], np.asarray(want), atol=2e-5)
+    q, k, v = (torch.from_numpy(arrays[n]).requires_grad_() for n in "qkv")
+    tmask = None if mask is None else torch.from_numpy(mask)
+    plain = full_attention(q.detach(), k.detach(), v.detach(), tmask, impl="plain")
+    np.testing.assert_allclose(got["out"], plain.numpy(), atol=2e-5)
+    mesh = make_mesh(PortMeshConfig(tp=WORLD), [torch.device("cpu")] * WORLD)
+    one = ring_attention(q, k, v, mesh, padding_mask=tmask)
+    grads = torch.autograd.grad((one * torch.from_numpy(arrays["dy"])).sum(), (q, k, v))
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        np.testing.assert_allclose(got[name], g.numpy(), atol=2e-5, err_msg=name)
 
 
 if __name__ == "__main__":
