@@ -12,11 +12,12 @@ count, a short last slab padded up to one.
   ``device_batch`` rows through the port's ``make_sampler``; paths come
   from ``sample_permutations`` on one ``torch.Generator`` seeded from
   ``seed`` (a slab's path, then its denoising) on the global batch, and
-  the rows decode with ``Stage3Vocab``.  With ``apply_takes_positions`` the
-  apply is the whole stack forward (``models/fused_forward.make_stack_apply``,
-  which also takes ``attn_quant="int8"``); on a mesh of more than one
-  shard it must be sharded over that mesh
-  (``make_sharded_stack_apply(model, mesh)``).
+  the rows decode with ``Stage3Vocab``; under a profiler window each slab
+  (the runner's chunk of work) keeps a ``sweep.chunk`` span.  With
+  ``apply_takes_positions`` the apply is the whole stack forward
+  (``models/fused_forward.make_stack_apply``, which also takes
+  ``attn_quant="int8"``); on a mesh of more than one shard it must be
+  sharded over that mesh (``make_sharded_stack_apply(model, mesh)``).
 * ``Stage1SweepRunner``: (caption, protein) token batches through a
   fused-stack ``PenCLEngine``'s ``embed_tokens`` (the tower kernels of
   ``ops/bert_stack.py`` and ``ops/esm2_stack.py``, then the projection
@@ -41,6 +42,7 @@ from biom3_tpu_torch.parallel.sharding import (
 )
 from biom3_tpu_torch.pipeline import require_device
 from biom3_tpu_torch.tokenizers import Stage3Vocab
+from biom3_tpu_torch.utils import profiling
 
 
 def _slab(device_batch: int, shards: int) -> int:
@@ -85,11 +87,12 @@ class SweepRunner:
         out_ids = np.zeros((total, self.num_steps), np.int32)
         for start in range(0, total, slab):
             n = min(slab, total - start)
-            zc = np.concatenate([grid[start:start + n],
-                                 np.zeros((-n % self.shards, D), np.float32)])
-            path = sample_permutations(generator, len(zc), self.num_steps)
-            ids = self.sampler(torch.as_tensor(zc, device=self.device), path, generator)
-            out_ids[start:start + n] = ids[:n].cpu().numpy()
+            with profiling.span("sweep.chunk", rows=n):
+                zc = np.concatenate([grid[start:start + n],
+                                     np.zeros((-n % self.shards, D), np.float32)])
+                path = sample_permutations(generator, len(zc), self.num_steps)
+                ids = self.sampler(torch.as_tensor(zc, device=self.device), path, generator)
+                out_ids[start:start + n] = ids[:n].cpu().numpy()
         decoded = [self.vocab.clean_sequence(self.vocab.decode_ids(row)) for row in out_ids]
         return [decoded[p * num_replicas:(p + 1) * num_replicas] for p in range(P_n)]
 

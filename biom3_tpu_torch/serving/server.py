@@ -25,14 +25,15 @@ Endpoints (stdlib ``http.server``; JSON in/out):
   * ``POST /v1/embed`` ``{"prompt" | "prompts"}`` → z_t and z_c rows;
   * ``POST /v1/profile`` ``{"seconds": float?, "log_dir": str?}`` →
     a ``torch.profiler`` window over the daemon's work, written as a
-    Chrome trace;
+    Chrome trace with the scheduler threads' spans;
   * ``POST /v1/inpaint`` ``{"prompt": str, "sequence": str,
     "num_replicas": int?, "seed": int?, "unknown": str?}`` → the sequence
     with every ``unknown`` character (default ``"?"``) filled, conditioned
     on the prompt; the committed residues and the length are kept;
   * ``GET /healthz`` → liveness and the device platform (``gpu`` on the
     card);
-  * ``GET /v1/metrics`` → scheduler counters (occupancy, latency, errors),
+  * ``GET /v1/metrics`` → scheduler counters (occupancy, latency, errors;
+    the trajectory scheduler's queue wait),
     the embed cache, device rows and memory.
 """
 
@@ -50,6 +51,7 @@ import torch
 
 from biom3_tpu_torch.serving.batcher import MicroBatcher
 from biom3_tpu_torch.serving.continuous import host_rng, row_streams
+from biom3_tpu_torch.utils import profiling
 
 
 class ServingPipeline:
@@ -394,22 +396,17 @@ class BioM3Server:
 
     def profile(self, seconds: float, log_dir: str | None) -> dict:
         """A ``torch.profiler`` window of ``seconds`` over the daemon's
-        threads' work, written as a Chrome trace under ``log_dir``."""
+        work, written as a Chrome trace under ``log_dir``: the card's
+        operations, and the spans the scheduler threads kept in the window
+        (``utils/profiling.profile_trace``)."""
         import os
         import tempfile
 
-        from torch.profiler import ProfilerActivity, profile
-
         log_dir = log_dir or tempfile.mkdtemp(prefix="biom3_profile_")
-        os.makedirs(log_dir, exist_ok=True)
-        acts = [ProfilerActivity.CPU]
-        if self.pipeline.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        with profiling.profile_trace(log_dir):
             time.sleep(seconds)
-        path = os.path.join(log_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        return {"log_dir": log_dir, "trace": path, "seconds": float(seconds)}
+        return {"log_dir": log_dir, "trace": os.path.join(log_dir, "trace.json"),
+                "seconds": float(seconds)}
 
     # -- HTTP plumbing ---------------------------------------------------
 

@@ -35,20 +35,62 @@ Two faults of the JAX scheduler are fixed here: the in-flight dispatch is
 swapped only under ``_cv``, and the rows of a dispatch being enqueued stay
 reachable (``_dispatching``) until they are in flight, so ``close()``'s
 sweep fails them instead of leaving their clients to time out.
+
+Under a profiler window the scheduler keeps spans (``utils/profiling.py``)
+under each request's ``rid`` and each dispatch's ``did``: ``serve.request``
+(submit to the future resolved), ``serve.queue`` (submit to the start of
+the enqueue of the dispatch that carries the request's last row),
+``serve.embed``, ``serve.coalesce`` (the straggler wait, with the rows
+ready at its start and end), ``serve.dispatch`` (the enqueue),
+``serve.collect`` (the wait for the ids, the decode and the resolution;
+``ready`` if the copy had landed when it began) and ``serve.idle`` (the
+wait with nothing queued or in flight).  The counters in ``stats`` are
+always on.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from biom3_tpu_torch.serving.batcher import BatcherStats
 from biom3_tpu_torch.serving.continuous import KEY_WORDS, host_rng, row_streams
+from biom3_tpu_torch.utils import profiling
+
+
+@dataclass
+class TrajectoryStats(BatcherStats):
+    """``BatcherStats`` with each request's wait from submit to the enqueue
+    of the dispatch carrying its last row, and the dispatches whose ids
+    were already on the host when the scheduler came to collect them."""
+
+    queue_wait_s_sum: float = 0.0
+    queue_wait_s_max: float = 0.0
+    dispatches_ready_at_collect: int = 0
+
+    def record_queue_wait(self, wait_s: float) -> None:
+        with self._lock:
+            self.queue_wait_s_sum += wait_s
+            self.queue_wait_s_max = max(self.queue_wait_s_max, wait_s)
+
+    def record_ready(self) -> None:
+        with self._lock:
+            self.dispatches_ready_at_collect += 1
+
+    def as_dict(self) -> dict:
+        out = super().as_dict()
+        with self._lock:
+            out.update(queue_wait_s_sum=round(self.queue_wait_s_sum, 4),
+                       queue_wait_s_max=round(self.queue_wait_s_max, 4),
+                       dispatches_ready_at_collect=self.dispatches_ready_at_collect)
+        return out
 
 
 class TrajectoryBatcher:
@@ -79,7 +121,9 @@ class TrajectoryBatcher:
         # under _cv only
         self._dispatching: list | None = None
         self._flight = None
-        self.stats = BatcherStats()
+        self.stats = TrajectoryStats()
+        self._rids = itertools.count()
+        self._dids = itertools.count()
         # EMA of dispatch wall-clock: the free coalescing budget while a
         # dispatch is in flight
         self._ema_dispatch_s = 0.0
@@ -110,7 +154,8 @@ class TrajectoryBatcher:
                 fut.set_result({"prompt": request["prompt"], "sequences": [seq] * n_rep})
                 return fut
         group = {"request": request, "future": fut, "n_rep": n_rep, "next_rep": 0,
-                 "remaining": n_rep, "z_c": None, "sequences": {}}
+                 "remaining": n_rep, "z_c": None, "sequences": {}, "rid": next(self._rids),
+                 "t_submit": time.monotonic(), "t_submit_ns": profiling.stamp()}
         with self._cv:
             if self._closed or self._closing:
                 raise RuntimeError("batcher is closed")
@@ -160,7 +205,8 @@ class TrajectoryBatcher:
             while True:
                 with self._cv:
                     while not self._closed and not self._pending and self._flight is None:
-                        self._cv.wait(timeout=0.1)
+                        with profiling.span("serve.idle"):
+                            self._cv.wait(timeout=0.1)
                     if self._closed:
                         return
                 try:
@@ -183,7 +229,8 @@ class TrajectoryBatcher:
         if not need:
             return
         try:
-            _, z_c = self.pipeline.embed([g["request"]["prompt"] for g in need])
+            with profiling.span("serve.embed", rid=[g["rid"] for g in need]):
+                _, z_c = self.pipeline.embed([g["request"]["prompt"] for g in need])
         except Exception as exc:  # noqa: BLE001 — forwarded per group
             self._fail_groups(need, exc)
             return
@@ -216,19 +263,21 @@ class TrajectoryBatcher:
             if self._flight is not None:
                 window = max(window, 2.0 * self._ema_dispatch_s)
             deadline = time.monotonic() + min(window, 1.0)
-            while time.monotonic() < deadline:
+            with profiling.span("serve.coalesce", rows_start=len(rows)) as coalesce:
+                while time.monotonic() < deadline:
+                    with self._cv:
+                        rows = self._ready_rows()
+                        if len(rows) >= self.R or self._closing:
+                            break
+                        need_embed = any(g["z_c"] is None for g in self._pending)
+                        if not need_embed:
+                            self._cv.wait(timeout=min(0.005, max(deadline - time.monotonic(),
+                                                                 0.001)))
+                    if need_embed:
+                        self._embed_pending()
                 with self._cv:
                     rows = self._ready_rows()
-                    if len(rows) >= self.R or self._closing:
-                        break
-                    need_embed = any(g["z_c"] is None for g in self._pending)
-                    if not need_embed:
-                        self._cv.wait(timeout=min(0.005, max(deadline - time.monotonic(),
-                                                             0.001)))
-                if need_embed:
-                    self._embed_pending()
-            with self._cv:
-                rows = self._ready_rows()
+                coalesce.note(rows_end=len(rows))
             if not rows:
                 return False
         self._dispatch(rows[: self.R])
@@ -253,17 +302,25 @@ class TrajectoryBatcher:
             mids = rows[j][0]["request"].get("masked_ids")
             if mids is not None:
                 masked[i] = mids
+        last = []       # the groups whose last row rides this dispatch
         with self._cv:
             for g, rep in rows:
                 g["next_rep"] = max(g["next_rep"], rep + 1)
                 if g["next_rep"] >= g["n_rep"] and g in self._pending:
                     self._pending.remove(g)
+                    last.append(g)
             self._dispatching = rows
-        t0 = time.monotonic()
+        did = next(self._dids)
+        t0, t0_ns = time.monotonic(), profiling.stamp()
+        for g in last:
+            self.stats.record_queue_wait(t0 - g["t_submit"])
+            profiling.record("serve.queue", g["t_submit_ns"], t0_ns, rid=g["rid"], did=did)
         try:
-            with self.pipeline._device_lock:
-                ids_dev = self._row_fn(zc, inv, kd, masked)
-                host, event = self._to_host(ids_dev)
+            with profiling.span("serve.dispatch", did=did, rows=len(rows),
+                                rid=sorted({g["rid"] for g, _ in rows})):
+                with self.pipeline._device_lock:
+                    ids_dev = self._row_fn(zc, inv, kd, masked)
+                    host, event = self._to_host(ids_dev)
         except Exception as exc:  # noqa: BLE001 — this dispatch's rows
             with self._cv:
                 self._dispatching = None
@@ -271,7 +328,7 @@ class TrajectoryBatcher:
             return
         self.pipeline._record_dispatch(len(rows))
         with self._cv:
-            prev, self._flight = self._flight, (rows, host, event, t0)
+            prev, self._flight = self._flight, (rows, host, event, t0, did)
             self._dispatching = None
         if prev is not None:
             self._collect(prev)
@@ -290,34 +347,39 @@ class TrajectoryBatcher:
     def _collect(self, flight) -> None:
         """Fetch + decode one dispatch's results and resolve finished
         groups."""
-        rows, host, event, t0 = flight
-        try:
-            if event is not None:
-                event.synchronize()
-            ids = host.numpy()
-        except Exception as exc:  # noqa: BLE001 — this dispatch's rows
-            self._fail_groups([g for g, _ in rows], exc)
-            return
-        wall = time.monotonic() - t0
-        if wall < 10.0:
-            # pacing EMA; first-use builds and loads are excluded
-            self._ema_dispatch_s = (wall if self._ema_dispatch_s == 0.0
-                                    else 0.7 * self._ema_dispatch_s + 0.3 * wall)
-        self.stats.record(len(rows), wall, False)
-        for i, (g, rep) in enumerate(rows):
-            seq = self._vocab.clean_sequence(self._vocab.decode_ids(ids[i]))
-            with self._cv:
-                g["sequences"][rep] = seq
-                g["remaining"] -= 1
-                done = g["remaining"] == 0 and not g.get("settled")
-                if done:
-                    g["settled"] = True
-                    self._outstanding -= 1
-            if done and not g["future"].done():
-                g["future"].set_result({
-                    "prompt": g["request"]["prompt"],
-                    "sequences": [g["sequences"][r] for r in range(g["n_rep"])],
-                })
+        rows, host, event, t0, did = flight
+        ready = event is None or event.query()
+        if ready:
+            self.stats.record_ready()
+        with profiling.span("serve.collect", did=did, ready=ready):
+            try:
+                if event is not None:
+                    event.synchronize()
+                ids = host.numpy()
+            except Exception as exc:  # noqa: BLE001 — this dispatch's rows
+                self._fail_groups([g for g, _ in rows], exc)
+                return
+            wall = time.monotonic() - t0
+            if wall < 10.0:
+                # pacing EMA; first-use builds and loads are excluded
+                self._ema_dispatch_s = (wall if self._ema_dispatch_s == 0.0
+                                        else 0.7 * self._ema_dispatch_s + 0.3 * wall)
+            self.stats.record(len(rows), wall, False)
+            for i, (g, rep) in enumerate(rows):
+                seq = self._vocab.clean_sequence(self._vocab.decode_ids(ids[i]))
+                with self._cv:
+                    g["sequences"][rep] = seq
+                    g["remaining"] -= 1
+                    done = g["remaining"] == 0 and not g.get("settled")
+                    if done:
+                        g["settled"] = True
+                        self._outstanding -= 1
+                if done and not g["future"].done():
+                    g["future"].set_result({
+                        "prompt": g["request"]["prompt"],
+                        "sequences": [g["sequences"][r] for r in range(g["n_rep"])],
+                    })
+                    profiling.record("serve.request", g["t_submit_ns"], rid=g["rid"])
 
     def _fail_groups(self, groups, exc: BaseException, *, count_errors: bool = True) -> None:
         """Fail ``groups`` (or, with ``groups=None``, every queued, enqueuing

@@ -9,6 +9,9 @@ them as arguments); the model's dropout draws from torch's default
 generator.  ``make_sharded_stage3_train_step`` (JAX ``:132-157``) is the
 same step on a ``torch.distributed`` mesh: FSDP2-sharded parameters, each
 rank on its rows of the global batch, the draws made on the global batch.
+Under a profiler window the one-device step keeps the spans ``train.step``
+and, within it, ``train.forward_backward``, then ``TrainState``'s
+``train.optimizer`` and ``train.ema`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from biom3_tpu_torch.diffusion.oa_ardm import (
 from biom3_tpu_torch.parallel.sharding import data_group, put_global
 from biom3_tpu_torch.training.metrics import positional_entropy, time_split_metrics
 from biom3_tpu_torch.training.state import TrainState
+from biom3_tpu_torch.utils import profiling
 
 
 def _loss_and_counts(model, tokens, z_c, path, t):
@@ -84,18 +88,21 @@ def make_stage3_train_step(state: TrainState, *, accum_steps: int = 1, ema_beta:
 
     def step(batch: dict, generator: torch.Generator | None = None, *,
              path: torch.Tensor | None = None, t: torch.Tensor | None = None) -> dict:
-        model.train()
-        tokens, z_c = batch["tokens"], batch["z_c"]
-        path, t = _given_or_drawn(tokens, generator, accum_steps, path, t)
-        mb = tokens.shape[0] // accum_steps
-        auxes = []
-        for i in range(accum_steps):
-            sl = slice(i * mb, (i + 1) * mb)
-            loss, aux = stage3_loss_fn(model, tokens[sl], z_c[sl], path=path[sl], t=t[sl])
-            (loss / accum_steps).backward()
-            auxes.append(aux)
-        state.apply_gradients(ema_beta)
-        return {k: torch.stack([a[k] for a in auxes]).float().mean() for k in auxes[0]}
+        with profiling.span("train.step", step=state.step):
+            model.train()
+            tokens, z_c = batch["tokens"], batch["z_c"]
+            path, t = _given_or_drawn(tokens, generator, accum_steps, path, t)
+            mb = tokens.shape[0] // accum_steps
+            auxes = []
+            with profiling.span("train.forward_backward"):
+                for i in range(accum_steps):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    loss, aux = stage3_loss_fn(model, tokens[sl], z_c[sl], path=path[sl],
+                                               t=t[sl])
+                    (loss / accum_steps).backward()
+                    auxes.append(aux)
+            state.apply_gradients(ema_beta)
+            return {k: torch.stack([a[k] for a in auxes]).float().mean() for k in auxes[0]}
 
     return step
 

@@ -20,6 +20,7 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from biom3_tpu_torch.training.ema import ema_init, ema_update
 from biom3_tpu_torch.training.optim import Optimizer, _local, shard_state
+from biom3_tpu_torch.utils import profiling
 
 
 def _whole(t: DTensor) -> torch.Tensor:
@@ -71,11 +72,14 @@ class TrainState:
         self.ema_params = ema_init(self.params) if with_ema else None
 
     def apply_gradients(self, ema_beta: float = 0.9999) -> None:
-        """One optimizer step from the gradients in ``.grad``, then the EMA."""
-        self.tx.step()
-        self.tx.zero_grad()
+        """One optimizer step from the gradients in ``.grad``, then the EMA
+        (the spans ``train.optimizer`` and ``train.ema``)."""
+        with profiling.span("train.optimizer"):
+            self.tx.step()
+            self.tx.zero_grad()
         if self.ema_params is not None:
-            ema_update(self.ema_params, self.params, ema_beta)
+            with profiling.span("train.ema"):
+                ema_update(self.ema_params, self.params, ema_beta)
         self.step += 1
 
     def ema_state_dict(self) -> dict[str, torch.Tensor]:

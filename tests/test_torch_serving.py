@@ -159,6 +159,49 @@ def test_http_server_end_to_end(stage_files, tmp_path):
         server.close()
 
 
+def test_profile_window_holds_the_trajectory_schedulers_spans(stage_files, tmp_path):
+    """``POST /v1/profile`` opens its window on an HTTP handler thread: the
+    written trace holds the spans the trajectory scheduler's thread kept for
+    a request served in the window, and ``/v1/metrics`` its queue wait."""
+    from biom3_tpu_torch.serving import BioM3Server
+    from biom3_tpu_torch.utils import profiling
+
+    root, _, _ = stage_files
+    server = BioM3Server(_port_pipeline(root, temperature=0.0, positions_per_step=8), port=0,
+                         max_wait_s=0.02, continuous=False)
+    server.start()
+    base = f"http://{server.host}:{server.port}"
+    prof = {}
+    try:
+        _post(f"{base}/v1/generate", {"prompt": "warm up", "num_replicas": 1})
+        window = threading.Thread(target=lambda: prof.update(_post(
+            f"{base}/v1/profile", {"seconds": 4, "log_dir": str(tmp_path / "prof")})))
+        window.start()
+        deadline = time.monotonic() + 30
+        while not profiling.tracing() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        res = _post(f"{base}/v1/generate", {"prompt": PROMPT, "num_replicas": 2, "seed": 4})
+        window.join(timeout=60)
+        assert not window.is_alive()
+        m = _get(f"{base}/v1/metrics")
+    finally:
+        server.close()
+    assert len(res["results"][0]["sequences"]) == 2
+    events = json.loads(pathlib.Path(prof["trace"]).read_text())["traceEvents"]
+    kept = [e for e in events if e.get("cat") == "program_span"]
+    queue = [e for e in kept if e["name"] == "serve.queue"]
+    assert len(queue) == 1
+    rid, did = queue[0]["args"]["rid"], queue[0]["args"]["did"]
+    assert any(e["name"] == "serve.dispatch" and e["args"]["did"] == did
+               and rid in e["args"]["rid"] for e in kept)
+    assert any(e["name"] == "serve.collect" and e["args"]["did"] == did for e in kept)
+    assert all(e["dur"] >= 0 for e in kept)
+    gen = m["generate"]
+    assert m["generate_mode"] == "trajectory" and gen["requests"] == 2
+    assert 0 < gen["queue_wait_s_max"] <= gen["queue_wait_s_sum"]
+    assert gen["dispatches_ready_at_collect"] == gen["batches"] == 2
+
+
 # --- seeded reproduction at temperature 1 -----------------------------------
 
 @pytest.mark.parametrize("scheduler", ["continuous", "trajectory", "micro"])

@@ -2,9 +2,9 @@
 
 ``utils/flops.py``: every formula equal to JAX's on the same configs (the
 port's configs through ``port_config``); the peaks of the card by name.
-``utils/profiling.py``: ``StepTimer`` and ``host_memory_mb`` as
-``tests/test_io_utils.py`` holds them, no card → no device memory, a
-Chrome trace from ``profile_trace``.  ``utils/figures.py`` and
+``utils/profiling.py``: ``host_memory_mb`` as ``tests/test_io_utils.py``
+holds it, no card → no device memory, a Chrome trace from
+``profile_trace``.  ``utils/figures.py`` and
 ``utils/animation.py``: the spectrum report, the PNG, the decoded
 trajectory and the GIF equal to JAX's.  ``data/mnist_data.py``: the file
 is the JAX package's (no local MNIST, so nothing runs it).
@@ -68,15 +68,9 @@ def test_device_peaks_by_card_name(monkeypatch):
     assert flops.device_peak_flops() is None
 
 
-def test_step_timer_and_memory():
-    """As ``tests/test_io_utils.py::test_step_timer_and_memory``; no card,
-    no device memory statistics."""
-    timer = profiling.StepTimer(warmup=1)
-    assert np.isnan(timer.mean)
-    for _ in range(3):
-        with timer:
-            pass
-    assert len(timer.times) == 2 and timer.mean >= 0
+def test_memory_probes():
+    """The process RSS as ``tests/test_io_utils.py`` holds it; no card, no
+    device memory statistics."""
     assert profiling.host_memory_mb() > 0
     if not torch.cuda.is_available():
         assert profiling.device_memory_stats() == {}
