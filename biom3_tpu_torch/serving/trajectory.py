@@ -9,13 +9,17 @@ throughput``: 16 forwards).
   * **row granularity** — (request, replica) rows pack across request
     boundaries into fixed ``rows_per_dispatch`` batches, so a partial
     request's leftover rows ride the next dispatch instead of padding;
-  * **depth-1 dispatch pipelining** — dispatch N+1 is enqueued (its result
-    copied to pinned host memory without a wait) BEFORE dispatch N's
-    results are fetched, so the fetch and the host-side decode hide under
-    the device's work;
+  * **a collector thread** — the scheduler thread enqueues a dispatch (its
+    ids copied to pinned host memory without a wait) and hands it to the
+    collector thread (``<name>-collect``), which waits for the ids, decodes
+    them and resolves the requests as soon as they land, while the
+    scheduler thread coalesces and enqueues the next dispatch (an enqueue
+    can block on the device's launch queue for about a dispatch; a blocked
+    launch releases the GIL);
   * **adaptive coalescing** — a partial batch waits for stragglers only
-    while the wait is free (a dispatch in flight keeps the device busy; the
-    window stretches toward the measured dispatch time).
+    while the wait is free (a dispatch enqueued and not yet collected when
+    the scheduler begins the next keeps the device busy; the window
+    stretches toward the measured dispatch time).
 
 Each row decodes with its own noise stream (``serving.continuous.
 row_streams``, ``diffusion.sampler.row_gumbel``; path order also in its own
@@ -31,10 +35,12 @@ generate rows (which resume from zeros).  The other modes refuse them.
 On a mesh (``ServingPipeline(mesh=...)``) the row function's forward runs
 over the mesh's (dp, fsdp) positions (JAX :70-73).
 
-Two faults of the JAX scheduler are fixed here: the in-flight dispatch is
-swapped only under ``_cv``, and the rows of a dispatch being enqueued stay
+Two faults of the JAX scheduler are fixed here: the dispatches in flight
+change only under ``_cv``, and the rows of a dispatch being enqueued stay
 reachable (``_dispatching``) until they are in flight, so ``close()``'s
-sweep fails them instead of leaving their clients to time out.
+sweep fails them instead of leaving their clients to time out.  A dispatch
+stays in the collector's queue (``_flights``) until its collect ends, so
+the sweep reaches it while it is being collected too.
 
 Under a profiler window the scheduler keeps spans (``utils/profiling.py``)
 under each request's ``rid`` and each dispatch's ``did``: ``serve.request``
@@ -42,10 +48,10 @@ under each request's ``rid`` and each dispatch's ``did``: ``serve.request``
 the enqueue of the dispatch that carries the request's last row),
 ``serve.embed``, ``serve.coalesce`` (the straggler wait, with the rows
 ready at its start and end), ``serve.dispatch`` (the enqueue),
-``serve.collect`` (the wait for the ids, the decode and the resolution;
-``ready`` if the copy had landed when it began) and ``serve.idle`` (the
-wait with nothing queued or in flight).  The counters in ``stats`` are
-always on.
+``serve.collect`` (on the collector thread: the wait for the ids, the
+decode and the resolution; ``ready`` if the copy had landed when it began)
+and ``serve.idle`` (the wait with nothing queued, enqueued or being
+collected).  The counters in ``stats`` are always on.
 """
 
 from __future__ import annotations
@@ -68,12 +74,15 @@ from biom3_tpu_torch.utils import profiling
 @dataclass
 class TrajectoryStats(BatcherStats):
     """``BatcherStats`` with each request's wait from submit to the enqueue
-    of the dispatch carrying its last row, and the dispatches whose ids
-    were already on the host when the scheduler came to collect them."""
+    of the dispatch carrying its last row, the dispatches whose ids were
+    already on the host when the collector came to them, and the
+    dispatches resolved before the next dispatch's enqueue returned (or
+    with none enqueued after them)."""
 
     queue_wait_s_sum: float = 0.0
     queue_wait_s_max: float = 0.0
     dispatches_ready_at_collect: int = 0
+    resolved_before_next_enqueue: int = 0
 
     def record_queue_wait(self, wait_s: float) -> None:
         with self._lock:
@@ -84,12 +93,17 @@ class TrajectoryStats(BatcherStats):
         with self._lock:
             self.dispatches_ready_at_collect += 1
 
+    def record_resolved_before_next_enqueue(self) -> None:
+        with self._lock:
+            self.resolved_before_next_enqueue += 1
+
     def as_dict(self) -> dict:
         out = super().as_dict()
         with self._lock:
             out.update(queue_wait_s_sum=round(self.queue_wait_s_sum, 4),
                        queue_wait_s_max=round(self.queue_wait_s_max, 4),
-                       dispatches_ready_at_collect=self.dispatches_ready_at_collect)
+                       dispatches_ready_at_collect=self.dispatches_ready_at_collect,
+                       resolved_before_next_enqueue=self.resolved_before_next_enqueue)
         return out
 
 
@@ -97,7 +111,7 @@ class TrajectoryBatcher:
     """Drop-in for ``MicroBatcher(pipeline.generate, ...)``: same
     ``submit(request) → Future`` / ``stats`` / ``close()`` surface, but
     scheduling (request, replica) rows into fixed-shape whole-trajectory
-    dispatches with depth-1 pipelining."""
+    dispatches, each collected on a thread of its own."""
 
     def __init__(self, pipeline, *, max_wait_s: float = 0.02,
                  name: str = "generate-trajectory"):
@@ -117,10 +131,13 @@ class TrajectoryBatcher:
         self._closed = False
         self._closing = False
         # rows taken off _pending whose dispatch is being enqueued, and the
-        # dispatch in flight (rows, host ids, event, t_enqueue); both swapped
-        # under _cv only
+        # dispatches enqueued and not yet collected, oldest first (rows, host
+        # ids, event, t_enqueue, did; the head stays until its collect ends);
+        # both changed under _cv only
         self._dispatching: list | None = None
-        self._flight = None
+        self._flights: deque[tuple] = deque()
+        # did of the newest dispatch whose enqueue returned
+        self._last_enqueued = -1
         self.stats = TrajectoryStats()
         self._rids = itertools.count()
         self._dids = itertools.count()
@@ -128,7 +145,10 @@ class TrajectoryBatcher:
         # dispatch is in flight
         self._ema_dispatch_s = 0.0
         self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self._collector = threading.Thread(target=self._collect_loop, name=f"{name}-collect",
+                                           daemon=True)
         self._thread.start()
+        self._collector.start()
 
     # -- client surface ------------------------------------------------
 
@@ -181,8 +201,9 @@ class TrajectoryBatcher:
 
     def close(self, timeout: float = 30.0, drain_s: float = 120.0) -> None:
         """Draining shutdown: refuse new submissions, let queued and
-        in-flight rows finish (bounded by ``drain_s``), then stop and fail
-        any stragglers — queued, being enqueued or in flight."""
+        in-flight rows finish through the collector (bounded by
+        ``drain_s``), then stop both threads and fail any stragglers —
+        queued, being enqueued, in flight or being collected."""
         with self._cv:
             self._closing = True
             self._cv.notify_all()
@@ -195,7 +216,9 @@ class TrajectoryBatcher:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
-        self._thread.join(timeout=timeout)
+        end = time.monotonic() + timeout
+        for thread in (self._thread, self._collector):
+            thread.join(timeout=max(end - time.monotonic(), 0.0))
         self._fail_groups(None, RuntimeError("batcher is closed"), count_errors=False)
 
     # -- scheduler -----------------------------------------------------
@@ -204,18 +227,22 @@ class TrajectoryBatcher:
         with torch.inference_mode():
             while True:
                 with self._cv:
-                    while not self._closed and not self._pending and self._flight is None:
-                        with profiling.span("serve.idle"):
+                    # woken by submit, and by the collector as it finishes
+                    while not self._closed and not self._pending:
+                        if self._flights:
                             self._cv.wait(timeout=0.1)
+                        else:
+                            with profiling.span("serve.idle"):
+                                self._cv.wait(timeout=0.1)
                     if self._closed:
                         return
                 try:
+                    # taken before the embed, whose device synchronise can
+                    # let the collector finish the dispatch first
+                    with self._cv:
+                        in_flight = bool(self._flights)
                     self._embed_pending()
-                    if not self._dispatch_next():
-                        with self._cv:
-                            flight, self._flight = self._flight, None
-                        if flight is not None:
-                            self._collect(flight)
+                    self._dispatch_next(in_flight)
                 except Exception as exc:  # noqa: BLE001 — fail fast: an
                     # unexpected scheduler error must reach the waiting
                     # clients, not strand their futures until the timeout
@@ -250,17 +277,18 @@ class TrajectoryBatcher:
                     return rows
         return rows
 
-    def _dispatch_next(self) -> bool:
-        """Build and enqueue at most one dispatch; returns True if one was
-        enqueued.  Waits (adaptively) for stragglers only while the batch
-        is partial AND the wait costs nothing."""
+    def _dispatch_next(self, in_flight: bool) -> None:
+        """Build and enqueue at most one dispatch.  Waits (adaptively) for
+        stragglers only while the batch is partial AND the wait costs
+        nothing: ``in_flight``, a dispatch was enqueued and not yet
+        collected when this round began."""
         with self._cv:
             rows = self._ready_rows()
         if not rows:
-            return False
+            return
         if len(rows) < self.R:
             window = self.max_wait_s
-            if self._flight is not None:
+            if in_flight:
                 window = max(window, 2.0 * self._ema_dispatch_s)
             deadline = time.monotonic() + min(window, 1.0)
             with profiling.span("serve.coalesce", rows_start=len(rows)) as coalesce:
@@ -279,14 +307,12 @@ class TrajectoryBatcher:
                     rows = self._ready_rows()
                 coalesce.note(rows_end=len(rows))
             if not rows:
-                return False
+                return
         self._dispatch(rows[: self.R])
-        return True
 
     def _dispatch(self, rows) -> None:
         """Enqueue one fixed-shape dispatch for ``rows`` (padded by repeating
-        the last row); fetch/decode of the PREVIOUS dispatch happens after,
-        overlapping this one's execution."""
+        the last row) and hand it to the collector thread."""
         zc = np.empty((self.R, len(rows[0][0]["z_c"])), np.float32)
         inv = np.empty((self.R, self.L), np.int32)
         kd = np.empty((self.R, KEY_WORDS), np.uint32)
@@ -328,10 +354,10 @@ class TrajectoryBatcher:
             return
         self.pipeline._record_dispatch(len(rows))
         with self._cv:
-            prev, self._flight = self._flight, (rows, host, event, t0, did)
+            self._flights.append((rows, host, event, t0, did))
+            self._last_enqueued = did
             self._dispatching = None
-        if prev is not None:
-            self._collect(prev)
+            self._cv.notify_all()
 
     def _to_host(self, ids: torch.Tensor):
         """Start the copy of a dispatch's ids to host memory without waiting
@@ -340,9 +366,31 @@ class TrajectoryBatcher:
             return ids, None
         host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
         host.copy_(ids, non_blocking=True)
-        event = torch.cuda.Event()
+        # blocking: the collector sleeps in synchronize() instead of
+        # spinning beside the launching thread
+        event = torch.cuda.Event(blocking=True)
         event.record()
         return host, event
+
+    def _collect_loop(self) -> None:
+        """The collector thread: collect each enqueued dispatch in order."""
+        with torch.inference_mode():
+            while True:
+                with self._cv:
+                    while not self._closed and not self._flights:
+                        self._cv.wait(timeout=0.1)
+                    if self._closed:
+                        return
+                    flight = self._flights[0]
+                try:
+                    self._collect(flight)
+                except Exception as exc:  # noqa: BLE001 — this dispatch's rows
+                    self._fail_groups([g for g, _ in flight[0]], exc)
+                with self._cv:
+                    # a close() or escalation sweep may have taken it already
+                    if self._flights and self._flights[0] is flight:
+                        self._flights.popleft()
+                    self._cv.notify_all()
 
     def _collect(self, flight) -> None:
         """Fetch + decode one dispatch's results and resolve finished
@@ -352,13 +400,9 @@ class TrajectoryBatcher:
         if ready:
             self.stats.record_ready()
         with profiling.span("serve.collect", did=did, ready=ready):
-            try:
-                if event is not None:
-                    event.synchronize()
-                ids = host.numpy()
-            except Exception as exc:  # noqa: BLE001 — this dispatch's rows
-                self._fail_groups([g for g, _ in rows], exc)
-                return
+            if event is not None:
+                event.synchronize()
+            ids = host.numpy()
             wall = time.monotonic() - t0
             if wall < 10.0:
                 # pacing EMA; first-use builds and loads are excluded
@@ -380,17 +424,23 @@ class TrajectoryBatcher:
                         "sequences": [g["sequences"][r] for r in range(g["n_rep"])],
                     })
                     profiling.record("serve.request", g["t_submit_ns"], rid=g["rid"])
+        with self._cv:
+            alone = self._last_enqueued == did
+        if alone:
+            self.stats.record_resolved_before_next_enqueue()
 
     def _fail_groups(self, groups, exc: BaseException, *, count_errors: bool = True) -> None:
-        """Fail ``groups`` (or, with ``groups=None``, every queued, enqueuing
-        and in-flight group — the escalation / close-sweep path)."""
+        """Fail ``groups`` (or, with ``groups=None``, every queued, enqueuing,
+        in-flight and being-collected group — the escalation / close-sweep
+        path)."""
         with self._cv:
             if groups is None:
                 found = {id(g): g for g in self._pending}
-                for part in (self._dispatching, self._flight and self._flight[0]):
+                for part in (self._dispatching, *(f[0] for f in self._flights)):
                     for g, _rep in part or ():
                         found[id(g)] = g
-                self._flight = self._dispatching = None
+                self._dispatching = None
+                self._flights.clear()
                 self._pending.clear()
                 groups = list(found.values())
             else:

@@ -200,6 +200,7 @@ def test_profile_window_holds_the_trajectory_schedulers_spans(stage_files, tmp_p
     assert m["generate_mode"] == "trajectory" and gen["requests"] == 2
     assert 0 < gen["queue_wait_s_max"] <= gen["queue_wait_s_sum"]
     assert gen["dispatches_ready_at_collect"] == gen["batches"] == 2
+    assert gen["resolved_before_next_enqueue"] == 2     # each served alone
 
 
 # --- seeded reproduction at temperature 1 -----------------------------------
@@ -376,6 +377,206 @@ def test_trajectory_close_fails_rows_of_a_hung_dispatch(stage_files):
         fut.result(timeout=5)
     assert time.monotonic() - t0 < 10
     release.set()
+
+
+def test_trajectory_close_fails_rows_of_a_hung_collect(stage_files):
+    """A dispatch whose collect hangs (its host copy never lands) stays in
+    the collector's queue: close() fails its rows within a bounded time."""
+    from biom3_tpu_torch.serving import TrajectoryBatcher
+
+    root, _, _ = stage_files
+    batcher = TrajectoryBatcher(_port_pipeline(root, temperature=0.0, positions_per_step=8))
+    release, entered = threading.Event(), threading.Event()
+
+    class HungCopy:
+        def numpy(self):
+            entered.set()
+            release.wait(timeout=30)
+            raise RuntimeError("host copy lost")
+
+    batcher._to_host = lambda ids: (HungCopy(), None)
+    fut = batcher.submit({"prompt": PROMPT, "num_replicas": 1})
+    assert entered.wait(timeout=60)
+    with batcher._cv:
+        assert batcher._flights and not batcher._pending and batcher._dispatching is None
+    t0 = time.monotonic()
+    batcher.close(timeout=0.5, drain_s=0.2)
+    with pytest.raises(RuntimeError, match="closed"):
+        fut.result(timeout=5)
+    assert time.monotonic() - t0 < 10
+    release.set()
+
+
+def test_trajectory_collect_error_fails_only_its_dispatch(stage_files):
+    """An exception while one dispatch is collected fails that dispatch's
+    requests alone: the next dispatch still resolves, and the error counts
+    once."""
+    from biom3_tpu_torch.serving import TrajectoryBatcher
+
+    root, _, _ = stage_files
+    batcher = TrajectoryBatcher(_port_pipeline(root, rows=4, temperature=0.0,
+                                               positions_per_step=8))
+    to_host, calls = batcher._to_host, []
+
+    class LostCopy:
+        def numpy(self):
+            raise RuntimeError("host copy failed")
+
+    def first_copy_lost(ids):
+        calls.append(1)
+        return (LostCopy(), None) if len(calls) == 1 else to_host(ids)
+
+    batcher._to_host = first_copy_lost
+    try:
+        # 4 replicas fill the first dispatch; the second request rides the next
+        lost = batcher.submit({"prompt": PROMPT, "num_replicas": 4, "seed": 1})
+        kept = batcher.submit({"prompt": "zinc finger domain", "num_replicas": 2, "seed": 2})
+        with pytest.raises(RuntimeError, match="host copy failed"):
+            lost.result(timeout=120)
+        seqs = kept.result(timeout=120)["sequences"]
+        assert len(seqs) == 2 and all(map(_valid, seqs))
+        assert batcher.stats.as_dict()["errors"] == 1
+    finally:
+        batcher.close()
+
+
+def test_trajectory_resolves_a_dispatch_while_the_next_enqueue_blocks(stage_files):
+    """The collector thread resolves a landed dispatch while the scheduler
+    thread is still inside the next dispatch's enqueue, and counts it in
+    ``resolved_before_next_enqueue``; the seeded requests' sequences are
+    those they give alone."""
+    from biom3_tpu_torch.serving import TrajectoryBatcher
+
+    root, _, _ = stage_files
+    batcher = TrajectoryBatcher(_port_pipeline(root, rows=4, temperature=1.0,
+                                               positions_per_step=8))
+    row_fn, calls = batcher._row_fn, []
+    release, entered = threading.Event(), threading.Event()
+
+    def second_call_blocks(*args):
+        calls.append(1)
+        if len(calls) == 2:
+            entered.set()
+            release.wait(timeout=60)
+        return row_fn(*args)
+
+    second_call_blocks.accepts_masked = row_fn.accepts_masked
+    batcher._row_fn = second_call_blocks
+    reqs = [{"prompt": PROMPT, "num_replicas": 4, "seed": 5},     # fills the first dispatch
+            {"prompt": "zinc finger domain", "num_replicas": 2, "seed": 6}]
+    try:
+        futs = [batcher.submit(dict(r)) for r in reqs]
+        assert entered.wait(timeout=120)
+        first = futs[0].result(timeout=60)["sequences"]
+        deadline = time.monotonic() + 10
+        while (batcher.stats.as_dict()["resolved_before_next_enqueue"] < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert batcher.stats.as_dict()["resolved_before_next_enqueue"] == 1
+        assert not futs[1].done() and not release.is_set()
+        release.set()
+        second = futs[1].result(timeout=120)["sequences"]
+        alone = [batcher.submit(dict(r)).result(timeout=120)["sequences"] for r in reqs]
+        assert [first, second] == alone
+        stats = batcher.stats.as_dict()
+        assert stats["resolved_before_next_enqueue"] == stats["batches"] == 4
+    finally:
+        release.set()
+        batcher.close()
+
+
+def test_trajectory_window_stretches_for_a_dispatch_uncollected_when_the_round_began(
+        stage_files):
+    """The coalescing window stretches to 2 × the dispatch EMA when a
+    dispatch was uncollected as the scheduler began its round, even if the
+    collector finishes it during that round's embed (on the card, the
+    embed's synchronise lets the ids land first)."""
+    from biom3_tpu_torch.serving import TrajectoryBatcher
+
+    root, _, _ = stage_files
+    pipeline = _port_pipeline(root, rows=4, temperature=0.0, positions_per_step=8)
+    batcher = TrajectoryBatcher(pipeline, max_wait_s=0.005)
+    to_host, row_fn, embed = batcher._to_host, batcher._row_fn, pipeline.embed
+    land, entered, enqueued = threading.Event(), threading.Event(), []
+
+    class LateCopy:
+        def __init__(self, ids):
+            self.ids = ids
+
+        def numpy(self):
+            entered.set()
+            land.wait(timeout=60)
+            return self.ids.numpy()
+
+    def recording_row_fn(*args):
+        enqueued.append(time.monotonic())
+        return row_fn(*args)
+
+    def embed_after_the_collect(prompts):
+        land.set()
+        deadline = time.monotonic() + 30
+        while batcher._flights and time.monotonic() < deadline:
+            time.sleep(0.005)
+        batcher._ema_dispatch_s = 0.3      # the collect just updated it
+        done.append(time.monotonic())
+        return embed(prompts)
+
+    recording_row_fn.accepts_masked = row_fn.accepts_masked
+    batcher._row_fn = recording_row_fn
+    batcher._to_host = lambda ids: (LateCopy(ids), None) if not entered.is_set() else to_host(ids)
+    done = []
+    try:
+        first = batcher.submit({"prompt": PROMPT, "num_replicas": 4})    # a full dispatch
+        assert entered.wait(timeout=120)
+        pipeline.embed = embed_after_the_collect
+        late = batcher.submit({"prompt": "zinc finger domain", "num_replicas": 1})
+        assert len(late.result(timeout=120)["sequences"]) == 1
+        assert len(first.result(timeout=5)["sequences"]) == 4
+    finally:
+        land.set()
+        batcher.close()
+    assert len(enqueued) == 2 and len(done) == 1
+    assert enqueued[1] - done[0] >= 0.5       # the 0.6-s window, not max_wait_s
+
+
+def test_trajectory_threads_keep_the_counts_exact_under_contention(stage_files):
+    """Submitters on more threads than cores, beside the scheduler and the
+    collector, under a short switch interval: every request resolves once
+    with its replicas, each row is counted once, and the outstanding count
+    returns to exactly 0."""
+    import os
+
+    from biom3_tpu_torch.serving import TrajectoryBatcher
+
+    root, _, _ = stage_files
+    batcher = TrajectoryBatcher(_port_pipeline(root, rows=4, temperature=0.0,
+                                               positions_per_step=8), max_wait_s=0.005)
+    n = (os.cpu_count() or 1) + 2
+    futs = [None] * n
+
+    def submit(i):
+        futs[i] = batcher.submit({"prompt": f"{PROMPT} {i % 3}", "num_replicas": 1 + i % 3})
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        for i, f in enumerate(futs):
+            assert len(f.result(timeout=300)["sequences"]) == 1 + i % 3
+        with batcher._cv:
+            assert batcher._outstanding == 0
+    finally:
+        sys.setswitchinterval(interval)
+        batcher.close()
+    stats = batcher.stats.as_dict()
+    assert stats["requests"] == n and stats["errors"] == 0
+    assert stats["items"] == sum(1 + i % 3 for i in range(n))
+    assert stats["resolved_before_next_enqueue"] <= stats["batches"]
 
 
 def test_run_server_preset_sentinels():

@@ -152,8 +152,9 @@ def test_trajectory_scheduler_links_each_request_to_its_dispatch(tiny_pipeline):
         assert rid in dispatch[did].ids["rid"] and did in collect
         assert isinstance(collect[did].ids["ready"], bool)
     assert sum(d.ids["rows"] for d in dispatch.values()) == 12    # 6 requests, 12 replicas
-    threads = {s.thread for s in kept if s.name in ("serve.dispatch", "serve.collect")}
-    assert threads == {"generate-trajectory"}
+    threads = {(s.name, s.thread) for s in kept if s.name in ("serve.dispatch", "serve.collect")}
+    assert threads == {("serve.dispatch", "generate-trajectory"),
+                       ("serve.collect", "generate-trajectory-collect")}
     assert any(s.name == "serve.embed" and s.ids["rid"] for s in kept)
     # the always-on counters
     assert stats["queue_wait_s_max"] > 0 and stats["queue_wait_s_sum"] >= stats[
